@@ -1,0 +1,131 @@
+"""Carry the JAX package's parameter pytrees into the port's modules.
+
+Each function takes the JAX parameters as nested dicts and lists of numpy
+arrays (per-layer weights stacked on a leading (L, ...) axis, or a list of
+per-layer dicts) and returns the port's module, loaded with
+`load_state_dict(strict=True)`. Linears stored (in, out) become torch's
+(out, in); convolutions stored HWIO become OIHW.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from controlar_tpu_torch.config import GPTConfig, VQConfig
+from controlar_tpu_torch.models import gpt as gpt_model
+from controlar_tpu_torch.models import vit as vit_model
+from controlar_tpu_torch.models import vq as vq_model
+
+Tree = Dict[str, Any]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _lin(a) -> torch.Tensor:
+    """(in, out) -> (out, in)."""
+    return _t(a).T.contiguous()
+
+
+def _conv(a) -> torch.Tensor:
+    """HWIO -> OIHW."""
+    return _t(a).permute(3, 2, 0, 1).contiguous()
+
+
+def _layer(layers, l: int) -> Tree:
+    if isinstance(layers, (list, tuple)):
+        return layers[l]
+    return {k: (_layer(v, l) if isinstance(v, dict) else v[l]) for k, v in layers.items()}
+
+
+def _load(model: torch.nn.Module, sd: Dict[str, torch.Tensor], dtype, device) -> torch.nn.Module:
+    model = model.to_empty(device=device)
+    model.load_state_dict(sd, strict=True)
+    return model.to(dtype).eval().requires_grad_(False)
+
+
+def gpt_from_jax(params: Tree, cfg: GPTConfig, dtype: torch.dtype = torch.float32,
+                 device="cpu") -> gpt_model.GPT:
+    sd = {"tok_embeddings.weight": _t(params["tok_embeddings"]),
+          "norm": _t(params["norm"]),
+          "output.weight": _lin(params["output"])}
+    ce = params["cls_embedding"]
+    if cfg.model_type == "c2i":
+        sd["cls_embedding.embedding.weight"] = _t(ce["embedding"])
+    else:
+        sd["cls_embedding.fc1.weight"] = _lin(ce["fc1"])
+        sd["cls_embedding.fc2.weight"] = _lin(ce["fc2"])
+        sd["cls_embedding.uncond_embedding"] = _t(ce["uncond_embedding"])
+    for name in ("adapter_mlp", "condition_mlp"):
+        for fc in ("fc1", "fc2"):
+            sd[f"{name}.{fc}.weight"] = _lin(params[name][fc])
+    for i in range(cfg.n_fusion_points):
+        for fc in ("fc1", "fc2"):
+            sd[f"condition_layers.{i}.{fc}.weight"] = _lin(params["condition_layers"][fc][i])
+    for l in range(cfg.n_layer):
+        lp = _layer(params["layers"], l)
+        sd[f"layers.{l}.attention_norm"] = _t(lp["attention_norm"])
+        sd[f"layers.{l}.ffn_norm"] = _t(lp["ffn_norm"])
+        for w in ("wqkv", "wo", "w1", "w3", "w2"):
+            sd[f"layers.{l}.{w}.weight"] = _lin(lp[w])
+    with torch.device("meta"):
+        model = gpt_model.GPT(cfg)
+    return _load(model, sd, dtype, torch.device(device))
+
+
+def vit_from_jax(params: Tree, cfg: vit_model.ViTConfig, dtype: torch.dtype = torch.float32,
+                 device="cpu") -> vit_model.ViT:
+    sd = {"cls_token": _t(params["cls_token"]),
+          "pos_embed": _t(params["pos_embed"]),
+          "patch_proj.weight": _conv(params["patch_proj"]["w"]),
+          "patch_proj.bias": _t(params["patch_proj"]["b"]),
+          "final_norm.scale": _t(params["final_norm"]["scale"]),
+          "final_norm.bias": _t(params["final_norm"]["bias"])}
+    for l in range(cfg.n_layer):
+        lp = _layer(params["layers"], l)
+        for norm in ("norm1", "norm2"):
+            sd[f"layers.{l}.{norm}.scale"] = _t(lp[norm]["scale"])
+            sd[f"layers.{l}.{norm}.bias"] = _t(lp[norm]["bias"])
+        for lin in ("q", "k", "v", "out", "fc1", "fc2"):
+            sd[f"layers.{l}.{lin}.weight"] = _lin(lp[lin]["w"])
+            sd[f"layers.{l}.{lin}.bias"] = _t(lp[lin]["b"])
+        if cfg.layerscale:
+            sd[f"layers.{l}.ls1"] = _t(lp["ls1"])
+            sd[f"layers.{l}.ls2"] = _t(lp["ls2"])
+    with torch.device("meta"):
+        model = vit_model.ViT(cfg)
+    return _load(model, sd, dtype, torch.device(device))
+
+
+def _flatten(tree, prefix: str, out: Dict[str, Any]) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{k}.", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}{i}.", out)
+    else:
+        out[prefix[:-1]] = tree
+
+
+def vq_from_jax(params: Tree, cfg: VQConfig, dtype: torch.dtype = torch.float32,
+                device="cpu") -> vq_model.VQModel:
+    """The decoding half: post_quant_conv, codebook and decoder (the
+    encoder's parameters are not read)."""
+    flat: Dict[str, Any] = {}
+    _flatten({k: params[k] for k in ("post_quant_conv", "codebook", "decoder")}, "", flat)
+    sd = {}
+    for key, a in flat.items():
+        path, leaf = key.rsplit(".", 1) if "." in key else ("", key)
+        if leaf == "w":
+            sd[f"{path}.weight"] = _conv(a)
+        elif leaf == "b":
+            sd[f"{path}.bias"] = _t(a)
+        else:  # norm scale / bias, codebook
+            sd[key] = _t(a)
+    with torch.device("meta"):
+        model = vq_model.VQModel(cfg)
+    return _load(model, sd, dtype, torch.device(device))

@@ -1,0 +1,145 @@
+"""End-to-end generation: condition image -> control tokens -> CFG decode ->
+VQ decode -> uint8 image. Images are NHWC at the boundary, as in the JAX
+package's `ControlARPipeline`."""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional, Union
+
+import numpy as np
+import torch
+
+from controlar_tpu_torch import check_on, resolve_device
+from controlar_tpu_torch import generate as tgen
+from controlar_tpu_torch.config import GPTConfig, VQConfig
+from controlar_tpu_torch.models import gpt as gpt_model
+from controlar_tpu_torch.models import vit as vit_model
+from controlar_tpu_torch.models import vq as vq_model
+from controlar_tpu_torch.ops.canny import canny
+from controlar_tpu_torch.ops.resize import to_patch14
+
+
+def normalize_condition(x: torch.Tensor) -> torch.Tensor:
+    """uint8-range control map -> [-1, 1]."""
+    return 2.0 * (x.float() / 255.0 - 0.5)
+
+
+def to_uint8_image(x: torch.Tensor) -> np.ndarray:
+    """[-1, 1] NHWC float -> uint8 (clamp, scale, round half up). Raises on
+    non-finite values, which have no image."""
+    if not bool(torch.isfinite(x).all()):
+        raise ValueError("decoded image holds non-finite values")
+    x = torch.clamp(x.float(), -1.0, 1.0)
+    return ((255.0 * (x + 1.0) / 2.0) + 0.5).to(torch.uint8).cpu().numpy()
+
+
+@dataclasses.dataclass
+class ControlARPipeline:
+    gpt_cfg: GPTConfig
+    gpt: gpt_model.GPT
+    vq_cfg: VQConfig
+    vq: vq_model.VQModel
+    adapter_cfg: vit_model.ViTConfig
+    adapter: vit_model.ViT
+    condition_type: str = "canny"
+    device: Union[str, torch.device] = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        for module in (self.gpt, self.vq, self.adapter):
+            check_on(module, self.device)
+
+    def extract_condition(self, images_u8, *, canny_low: int = 100,
+                          canny_high: int = 200, preprocess: bool = True) -> torch.Tensor:
+        """RGB uint8 (B, H, W, 3) -> normalised 3-channel control map.
+        preprocess=False (and 'seg') treats the input as a rendered map."""
+        x = torch.as_tensor(np.asarray(images_u8), device=self.device)
+        ct = self.condition_type
+        if not preprocess or ct == "seg":
+            cond = x.float().mean(-1)
+        elif ct == "canny":
+            cond = canny(x, canny_low, canny_high).float()
+        else:
+            raise NotImplementedError(f"condition type {ct!r} is not ported")
+        return normalize_condition(cond[..., None].expand(*cond.shape, 3))
+
+    def control_features(self, condition: torch.Tensor) -> torch.Tensor:
+        """Normalised condition (B, H, W, 3) -> adapter tokens (B, hw/256, C)."""
+        x = to_patch14(condition, self.condition_type)
+        x = x.to(gpt_model.param_dtype(self.adapter))
+        return vit_model.vit_forward(self.adapter, self.adapter_cfg, x)
+
+    def generate(
+        self,
+        *,
+        labels=None,
+        caption_emb=None,
+        emb_masks=None,
+        condition_images: Optional[np.ndarray] = None,
+        cfg_scale: float = 4.0,
+        temperature: float = 1.0,
+        top_k: int = 2000,
+        top_p: float = 1.0,
+        control_strength: float = 1.0,
+        seed: int = 0,
+        cache_dtype=None,
+        canny_low: int = 100,
+        canny_high: int = 200,
+        preprocess_condition: bool = True,
+        spec_draft: Optional[str] = None,
+        timings: Optional[dict] = None,
+        on_step: Optional[Callable[[int], None]] = None,
+    ) -> np.ndarray:
+        """Returns generated images as uint8 (B, H, W, 3). Speculative decoding
+        (spec_draft) and quantized KV caches are not ported.
+
+        `timings`, when given, receives the host-clock seconds of each stage
+        (condition, adapter, tokens, vq_decode), with the device synchronised
+        at every stage's end. `on_step(i)` is called after decode step i."""
+        if spec_draft is not None:
+            raise NotImplementedError("speculative decoding is not ported")
+        if cache_dtype is not None and cache_dtype != torch.bfloat16:
+            raise NotImplementedError(f"cache_dtype {cache_dtype} is not ported")
+        lap = _StageClock(self.device, timings)
+        adapter_feats = None
+        if condition_images is not None:
+            cond = self.extract_condition(
+                condition_images, canny_low=canny_low, canny_high=canny_high,
+                preprocess=preprocess_condition)
+            lap("condition")
+            adapter_feats = self.control_features(cond)
+            lap("adapter")
+        tokens = tgen.generate(
+            self.gpt, self.gpt_cfg,
+            labels=labels, caption_emb=caption_emb, emb_masks=emb_masks,
+            adapter_features=adapter_feats,
+            max_new_tokens=self.gpt_cfg.block_size,
+            cfg_scale=cfg_scale, temperature=temperature, top_k=top_k, top_p=top_p,
+            control_strength=control_strength, seed=seed, device=self.device,
+            on_step=on_step,
+        )
+        lap("tokens")
+        gh, gw = self.gpt_cfg.grid
+        imgs = to_uint8_image(
+            vq_model.decode_code(self.vq, self.vq_cfg, tokens.reshape(-1, gh, gw)))
+        lap("vq_decode")
+        return imgs
+
+
+class _StageClock:
+    """lap(name) stores the seconds since the previous lap in `timings`;
+    does nothing when `timings` is None."""
+
+    def __init__(self, device: torch.device, timings: Optional[dict]):
+        self.device, self.timings = device, timings
+        self.last = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        if self.timings is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.timings[name] = now - self.last
+        self.last = now

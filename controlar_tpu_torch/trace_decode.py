@@ -1,0 +1,146 @@
+"""Where the time of one generation goes on the card.
+
+    python -m controlar_tpu_torch.trace_decode --cell c2i [--seed 0] [--steps 20] [--out DIR]
+
+Builds the cell of `controlar_tpu_torch.cells` (`c2i` or `t2i`) and times
+`ControlARPipeline.generate` itself, after a warm call. Prints JSON lines:
+
+  stages   host-clock seconds of each pipeline stage, from the pipeline's
+           own `timings` (device synchronised at each stage's end):
+           condition (Canny), adapter, tokens, vq_decode;
+  decode   --steps decode steps at the middle of the cache: ms per step
+           without the profiler (CUDA events recorded from the loop's
+           `on_step` hook), then a torch.profiler window over the same
+           steps of another call: ms per step with the profiler, device
+           busy ms per step and its share of the unprofiled step, kernels
+           per step, and device time by kernel name. The trace is written
+           to DIR/trace_<cell>.json.gz.
+
+Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import gzip
+import json
+import time
+from pathlib import Path
+
+import torch
+
+from controlar_tpu_torch.cells import CELLS, build_cell
+
+
+def stages(pipe, kw: dict) -> dict:
+    timings = {}
+    pipe.generate(**kw, seed=0)  # warm call
+    t0 = time.perf_counter()
+    pipe.generate(**kw, seed=1, timings=timings)
+    timings["total"] = time.perf_counter() - t0
+    return timings
+
+
+def _device_summary(raw: bytes, steps: int) -> dict:
+    events = json.loads(raw)["traceEvents"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    busy, end = 0.0, -1.0
+    for s, e in spans:  # union of device intervals, in us
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    first, last = spans[0][0], max(e for _, e in spans)
+    by_name = collections.Counter()
+    for e in dev:
+        by_name[e["name"][:80]] += e["dur"]
+    return {
+        "device_busy_ms_per_step": busy / steps / 1e3,
+        "device_busy_share_profiled": busy / (last - first),
+        "kernels_per_step": len(dev) / steps,
+        "flash_decode_ms_per_step": sum(e["dur"] for e in dev
+                                        if "flash_decode" in e["name"]) / steps / 1e3,
+        "top_kernels_ms_per_step": {k: v / steps / 1e3 for k, v in by_name.most_common(12)},
+    }
+
+
+def decode_window(pipe, kw: dict, steps: int, trace: Path) -> dict:
+    """Decode steps start..start+steps-1 of real `generate` calls, where
+    start is half way through the tokens."""
+    cfg = pipe.gpt_cfg
+    start = cfg.block_size // 2
+
+    # unprofiled: events at the end of step start-1 and of step start+steps-1
+    marks = {}
+
+    def mark(i):
+        if i in (start - 1, start + steps - 1):
+            marks[i] = torch.cuda.Event(enable_timing=True)
+            marks[i].record()
+
+    pipe.generate(**kw, seed=2, on_step=mark)
+    torch.cuda.synchronize()
+    plain_ms = marks[start - 1].elapsed_time(marks[start + steps - 1]) / steps
+
+    # profiled: prof.step() runs at each loop step's end, so the schedule's
+    # step k is loop step k and steps start..start+steps-1 are recorded; the
+    # host clock is read just after recording starts and just before it ends
+    raw = {}
+
+    def save(prof):
+        prof.export_chrome_trace(str(trace))
+        raw["trace"] = trace.read_bytes()
+        trace.unlink()
+
+    wall = {}
+
+    def step(i):
+        if i == start + steps - 1:  # before prof.step() writes the trace
+            torch.cuda.synchronize()
+            wall["t1"] = time.perf_counter()
+        prof.step()
+        if i == start - 1:
+            wall["t0"] = time.perf_counter()
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=start - 1, warmup=1, active=steps, repeat=1),
+            on_trace_ready=save) as prof:
+        pipe.generate(**kw, seed=2, on_step=step)
+    trace.with_suffix(".json.gz").write_bytes(gzip.compress(raw["trace"]))
+    summary = _device_summary(raw["trace"], steps)
+    busy = summary["device_busy_ms_per_step"]
+    t_cls = cfg.cls_token_num
+    return {"steps": steps, "positions": [t_cls + start, t_cls + start + steps - 1],
+            "ms_per_step": plain_ms,
+            "ms_per_step_profiled": (wall["t1"] - wall["t0"]) / steps * 1e3,
+            # kernel time against the unprofiled step; the profiler slows the host
+            "device_busy_share": busy / plain_ms,
+            **summary}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cell", choices=sorted(CELLS), default="c2i")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--out", default="traces")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("trace_decode needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    pipe, kw = build_cell(args.cell, args.seed)
+    device = torch.cuda.get_device_name(0)
+    print(json.dumps({"cell": args.cell, "device": device, "stages": stages(pipe, kw)}),
+          flush=True)
+    print(json.dumps({"cell": args.cell, "device": device, "decode": decode_window(
+        pipe, kw, args.steps, out / f"trace_{args.cell}.json")}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,84 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points never drift to the CPU on their own."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from controlar_tpu_torch import generate as tgen
+from controlar_tpu_torch.config import GPTConfig, VQConfig
+from controlar_tpu_torch.models import gpt as tgpt
+from controlar_tpu_torch.models import vit as tvit
+from controlar_tpu_torch.models import vq as tvq
+from controlar_tpu_torch.pipeline import ControlARPipeline
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "controlar_tpu_torch"
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import controlar_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'controlar_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'controlar_tpu' or m.startswith('controlar_tpu.'))\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 12 else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py"))
+                         + ["chip_smoke.py"])
+def test_source_names_no_jax(path):
+    text = (REPO / path).read_text()
+    assert "controlar_tpu." not in text
+    assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M)
+
+
+def _tiny():
+    cfg = GPTConfig(model_type="c2i", dim=32, n_layer=3, n_head=2, vocab_size=16,
+                    num_classes=4, block_size=4)
+    return cfg, tgpt.init_gpt(cfg, seed=0)
+
+
+def test_generate_raises_without_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg, model = _tiny()
+    with pytest.raises(RuntimeError, match="cuda"):
+        tgen.generate(model, cfg, labels=torch.tensor([1]), max_new_tokens=2)
+    toks = tgen.generate(model, cfg, labels=torch.tensor([1]), max_new_tokens=2, device="cpu")
+    assert toks.shape == (1, 2)
+
+
+def test_pipeline_raises_without_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg, model = _tiny()
+    vcfg = VQConfig(codebook_size=16, z_channels=8, ch=8, decoder_ch_mult=(1, 1))
+    acfg = tvit.ViTConfig(hidden_size=384, n_layer=1, n_head=2, pos_grid=2)
+    mods = dict(gpt_cfg=cfg, gpt=model, vq_cfg=vcfg, vq=tvq.init_vq(vcfg),
+                adapter_cfg=acfg, adapter=tvit.init_vit(acfg))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ControlARPipeline(**mods)
+    pipe = ControlARPipeline(**mods, device="cpu")
+    out = pipe.generate(labels=np.array([2]), top_k=4)
+    assert out.shape == (1, 4, 4, 3) and out.dtype == np.uint8
+
+
+def test_model_on_another_device_is_refused():
+    cfg, model = _tiny()
+    with pytest.raises(ValueError):
+        tgen.generate(model, cfg, labels=torch.tensor([1]), max_new_tokens=2,
+                      device="meta")
