@@ -6,22 +6,31 @@
 Run from the repository root. Phases, each printing one JSON line and each
 ending the run with a non-zero exit when it fails:
 
-  device     the card's name and power limit (nvidia-smi), the kernel build;
-  kernel     every CUDA kernel against its plain PyTorch version at the main
-             path's shapes, with its time, the plain version's, one PyTorch
-             library call's and the bound;
-  reference  a small model on the card against the same model on the CPU
-             (the CPU path is the one the tests hold to the JAX package);
-  c2i        GPT-B class-to-image at 384 px through ControlARPipeline:
-             Canny -> DINOv2-small -> CFG decode -> VQ-16, batch 8;
-  t2i        GPT-XL text-to-image at 512 px with left-padded captions;
-then the `kernels` line and, last, the `ok` line. Both cells are built by
-`controlar_tpu_torch.cells`; weights are random, made from fixed seeds. TF32 is off throughout, so fp32 matmuls and convolutions
-run in full fp32 and the reference comparisons are fp32 against fp32.
+  device        the card's name and power limit (nvidia-smi), the kernel build;
+  kernel        every CUDA kernel against its plain PyTorch version at the main
+  kernel_q8     paths' shapes, with its time, the plain version's, one PyTorch
+  kernel_q4     library call's and the bound: bf16, int8 and int4 decode
+  kernel_w4mm   attention, the W4 dequant-matmul and the fused W4 FFN;
+  kernel_w4ffn
+  reference     small models on the card against the same models on the CPU
+                (the CPU path is the one the tests hold to the JAX package):
+                bf16, W8 + int8 cache, W4 split-rope + int4 cache;
+  c2i           GPT-B class-to-image at 384 px through ControlARPipeline:
+                Canny -> DINOv2-small -> CFG decode -> VQ-16, batch 8;
+  t2i           GPT-XL text-to-image at 512 px with left-padded captions;
+  c2i_w8kv8     c2i with W8A16 weights and the int8 KV cache;
+  c2i_3b_w4kv4  GPT-3B c2i with W4A16 split-rope weights and the int4 cache;
+then the `kernels` line and, last, the `ok` line. The cells are built by
+`controlar_tpu_torch.cells`; weights are random, made from fixed seeds. Each
+cell phase sets every kernel's launch count to 0 before its timed calls and
+checks each count after them. TF32 is off throughout, so fp32 matmuls and
+convolutions run in full fp32 and the reference comparisons are fp32 against
+fp32.
 Exits non-zero, printing no result, when there is no CUDA device.
 """
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -33,12 +42,16 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 # kernel vs plain version: |out - ref| <= ATOL + RTOL * |ref|. Both round the
 # output to bf16, whose step is 2**-7 relative: RTOL covers one step at any
 # size, ATOL one step below 0.5. At the deepest decode step |out| ~ 0.02, so a
 # dropped block of rows or a misapplied bias (~1e-2) fails.
 KERNEL_ATOL, KERNEL_RTOL = 2e-3, 1e-2
 REF_TOL = 1e-3              # fp32 model on card vs CPU; bf16 cache identical
+# W4 limits: bf16 outputs (step 2**-7 relative) over fp32 sums in another
+# order; |out| ~ 1 at these weights, and a dropped plane moves it by ~0.1.
+W4_ATOL, W4_RTOL = 1e-2, 1e-2
 
 
 def emit(phase: str, **fields) -> None:
@@ -71,6 +84,38 @@ def time_ms(fn, reps: int = 20, flush: torch.Tensor | None = None) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
+def _kernels():
+    """name -> (wrapper, CUDA source, the TPU kernel it replaces)."""
+    from controlar_tpu_torch.ops import flash_decode as fd
+    from controlar_tpu_torch.ops import w4_matmul as w4
+
+    return {
+        "flash_decode_attention": (fd.flash_decode_attention, "flash_decode.cu",
+                                   "controlar_tpu/ops/flash_decode2.py:24"),
+        "flash_decode_attention_q8": (fd.flash_decode_attention_q8, "flash_decode_q8.cu",
+                                      "controlar_tpu/ops/flash_decode2.py:177"),
+        "flash_decode_attention_q4": (fd.flash_decode_attention_q4, "flash_decode_q4.cu",
+                                      "controlar_tpu/ops/flash_decode2.py:592"),
+        "w4_matmul": (w4.w4_matmul, "w4_matmul.cu", "controlar_tpu/ops/w4_matmul.py:160"),
+        "w4_ffn": (w4.w4_ffn, "w4_ffn.cu", "controlar_tpu/ops/w4_matmul.py:242"),
+    }
+
+
+def _roofline(nbytes: float, flops: float, flop_rate: float):
+    """Least time (ms) for the work: bytes over the HBM rate or operations
+    over the peak rate of their type, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _within(out, ref, atol, rtol):
+    """-> (max abs error, whether every element is finite and within
+    |out - ref| <= atol + rtol * |ref|)."""
+    err = (out.float() - ref.float()).abs()
+    ok = bool((err <= atol + rtol * ref.float().abs()).all()) and bool(torch.isfinite(out).all())
+    return err.max().item(), ok
+
+
 def phase_device():
     from controlar_tpu_torch import _build
 
@@ -94,10 +139,9 @@ def _slab(gen, b, s, h, d):
 
 
 def _kernel_error(out, ref):
-    """-> (max abs error, whether every element is within the limit)."""
-    err = (out.float() - ref.float()).abs()
-    ok = bool((err <= KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()).all())
-    return err.max().item(), ok and bool(torch.isfinite(out).all())
+    """-> (max abs error, whether every element is within the attention
+    kernels' limit)."""
+    return _within(out, ref, KERNEL_ATOL, KERNEL_RTOL)
 
 
 def _left_pad_bias(s, t_cls):
@@ -115,9 +159,7 @@ def _bound(b_rows, h, d, with_bias):
     the fp32 rate. b_rows: live rows per batch row (pos + 1)."""
     rows = sum(b_rows)
     nbytes = 2 * len(b_rows) * h * d * 2 + rows * 2 * h * d * 2 + (rows * 4 if with_bias else 0)
-    flops = 4 * rows * h * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return _roofline(nbytes, 4 * rows * h * d, FP32_FLOPS)
 
 
 def phase_kernel():
@@ -189,6 +231,213 @@ def phase_kernel():
     return main, max_err
 
 
+def _positions(h_case):
+    """The decode positions each attention case is checked at, per-slot
+    vectors included (16 rows: batch 8 with CFG)."""
+    def slots(*p):
+        return torch.tensor(p, dtype=torch.int32, device="cuda")
+
+    c2i = (0, 1, 255, 256, 575,
+           slots(0, 1, 100, 255, 256, 300, 400, 500, 575, 575, 10, 20, 30, 40, 50, 767))
+    t2i = (119, 120, 631, 1142, slots(119, 120, 121, 200, 400, 631, 700, 800, 900, 1000,
+                                      1100, 1142, 1142, 130, 1279, 500))
+    return t2i if h_case == "t2i" else c2i
+
+
+def _attn_row(name, fn, plain, lib, h, d, s, pos, with_bias, slab_bytes_per_row, flush):
+    """Time one attention call (kernel, plain version, library yardstick)
+    and its bound: q and out bf16, the live rows' values and f32 scales,
+    the bias row; 4 fp32 flops per value pair."""
+    b, n = 16, pos + 1
+    nbytes = 2 * b * h * d * 2 + b * n * (slab_bytes_per_row + 2 * h * 4 + 4 * with_bias)
+    bound, by = _roofline(nbytes, 4 * b * n * h * d, FP32_FLOPS)
+    return dict(case=name, h=h, d=d, s=s, pos=pos, bias=with_bias,
+                ms=time_ms(fn, flush=flush), plain_ms=time_ms(plain, flush=flush),
+                library_ms=time_ms(lib, flush=flush), bound_ms=bound, bound_by=by)
+
+
+def _sdpa(q, slab, n, h, d, bias):
+    """The library yardstick: SDPA over the first n rows of a dequantized
+    bf16 [k|v] slab (never called by the port)."""
+    import torch.nn.functional as F
+
+    b, hd = q.shape[0], h * d
+    k4 = slab[:, :n, :hd].reshape(b, n, h, d).transpose(1, 2)
+    v4 = slab[:, :n, hd:].reshape(b, n, h, d).transpose(1, 2)
+    mask = None if bias is None else bias[:, None, None, :n].bfloat16()
+    q4 = q.view(b, h, 1, d)
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+
+def phase_kernel_q8():
+    """flash_decode_attention_q8 at the int8 paths' shapes: c2i GPT-B (12 x
+    64 heads, 768 rows, the c2i_w8kv8 cell) and t2i GPT-XL (20 x 64, 1280
+    rows, caption bias), each position with and without the bias; the last
+    decode step of each is timed, the c2i one without bias (its main path)."""
+    from controlar_tpu_torch.ops.flash_decode import (
+        flash_decode_attention_q8 as kern,
+        flash_decode_attention_q8_ref as plain,
+    )
+    from controlar_tpu_torch.quant import dequantize_kv_slab, quantize_kv_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    results, max_err, main = [], 0.0, None
+    for name, h, d, s, timed, timed_bias in (("c2i", 12, 64, 768, 575, False),
+                                             ("t2i", 20, 64, 1280, 1142, True)):
+        q, kv = _slab(gen, 16, s, h, d)
+        rows, scale = quantize_kv_rows(kv, h)
+        bias = _left_pad_bias(s, 120)
+        for pos in _positions(name):
+            for col_bias in (None, bias):
+                out = kern(q, rows, scale, pos, col_bias, n_head=h)
+                torch.cuda.synchronize()
+                err, ok = _kernel_error(out, plain(q, rows, scale, pos, col_bias, n_head=h))
+                where = pos if isinstance(pos, int) else "per_slot"
+                check(ok, "kernel_q8", f"{name} pos={where} bias={col_bias is not None}: "
+                      f"max_abs_err {err} over the limit")
+                max_err = max(max_err, err)
+        cb = bias if timed_bias else None
+        slab = dequantize_kv_slab(rows, scale, h, torch.bfloat16)
+        row = _attn_row(name, lambda: kern(q, rows, scale, timed, cb, n_head=h),
+                        lambda: plain(q, rows, scale, timed, cb, n_head=h),
+                        _sdpa(q, slab, timed + 1, h, d, cb), h, d, s, timed, timed_bias,
+                        2 * h * d, flush)
+        results.append(row)
+        main = main or row
+    emit("kernel_q8", ok=True, name="flash_decode_attention_q8", max_abs_err=max_err,
+         atol=KERNEL_ATOL, rtol=KERNEL_RTOL, timings=results)
+    return main, max_err
+
+
+def phase_kernel_q4():
+    """flash_decode_attention_q4 at GPT-3B (32 x 100 heads, 768 rows, the
+    c2i_3b_w4kv4 cell's split layout) and at 12 x 64, split and
+    interleaved, each position with and without a bias; the last decode
+    step of each is timed without bias."""
+    from controlar_tpu_torch.ops.flash_decode import (
+        flash_decode_attention_q4 as kern,
+        flash_decode_attention_q4_ref as plain,
+    )
+    from controlar_tpu_torch.quant import dequantize_kv4_slab, quantize_kv_rows_4
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    results, max_err, main = [], 0.0, None
+    for name, h, d in (("3b", 32, 100), ("b", 12, 64)):
+        q, kv = _slab(gen, 16, 768, h, d)
+        bias = _left_pad_bias(768, 120)
+        for split in (True, False):
+            rows, scale = quantize_kv_rows_4(kv, h, split=split)
+            kw = dict(n_head=h, head_dim=d, split=split)
+            for pos in _positions("c2i"):
+                for col_bias in (None, bias):
+                    out = kern(q, rows, scale, pos, col_bias, **kw)
+                    torch.cuda.synchronize()
+                    err, ok = _kernel_error(out, plain(q, rows, scale, pos, col_bias, **kw))
+                    where = pos if isinstance(pos, int) else "per_slot"
+                    check(ok, "kernel_q4", f"{name} split={split} pos={where} bias="
+                          f"{col_bias is not None}: max_abs_err {err} over the limit")
+                    max_err = max(max_err, err)
+            slab = dequantize_kv4_slab(rows, scale, h, d, torch.bfloat16, split=split)
+            row = _attn_row(f"{name}_{'split' if split else 'interleaved'}",
+                            lambda: kern(q, rows, scale, 575, None, **kw),
+                            lambda: plain(q, rows, scale, 575, None, **kw),
+                            _sdpa(q, slab, 576, h, d, None), h, d, 768, 575, False, h * d, flush)
+            results.append(row)
+            main = main or row
+    emit("kernel_q4", ok=True, name="flash_decode_attention_q4", max_abs_err=max_err,
+         atol=KERNEL_ATOL, rtol=KERNEL_RTOL, timings=results)
+    return main, max_err
+
+
+def _w4_weight(gen, k, n):
+    from controlar_tpu_torch.ops.w4_matmul import quantize_weight_w4
+
+    return quantize_weight_w4(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
+
+
+def phase_kernel_w4mm():
+    """w4_matmul at GPT-3B wqkv (3200 -> 9600) and wo (3200 -> 3200), with
+    weights of the model's init scale (std 0.02), 1, 16, 17 and 256 rows of
+    bf16 activations; timed at 16 rows (the main path's batch with CFG)."""
+    from controlar_tpu_torch.ops.w4_matmul import (
+        dequantize_weight_w4,
+        w4_matmul as kern,
+        w4_matmul_ref as plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    results, max_err, main = [], 0.0, None
+    for name, k, n in (("wqkv", 3200, 9600), ("wo", 3200, 3200)):
+        q4, s = _w4_weight(gen, k, n)
+        for rows in (1, 16, 17, 256):
+            x = torch.randn(rows, k, generator=gen, device="cuda").bfloat16()
+            out = kern(x, q4, s)
+            torch.cuda.synchronize()
+            err, ok = _within(out, plain(x, q4, s), W4_ATOL, W4_RTOL)
+            check(ok, "kernel_w4mm", f"{name} rows={rows}: max_abs_err {err} over the limit")
+            max_err = max(max_err, err)
+        x = torch.randn(16, k, generator=gen, device="cuda").bfloat16()
+        wd = dequantize_weight_w4(q4, s, torch.bfloat16, k=k)
+        bound, by = _roofline(q4.numel() + s.numel() * 4 + x.numel() * 2 + 16 * n * 2,
+                              2 * 16 * k * n, BF16_FLOPS)
+        row = dict(case=name, k=k, n=n, rows=16, ms=time_ms(lambda: kern(x, q4, s), flush=flush),
+                   plain_ms=time_ms(lambda: plain(x, q4, s), flush=flush),
+                   library_ms=time_ms(lambda: torch.matmul(x, wd), flush=flush),
+                   bound_ms=bound, bound_by=by)
+        results.append(row)
+        main = main or row
+    emit("kernel_w4mm", ok=True, name="w4_matmul", max_abs_err=max_err, atol=W4_ATOL,
+         rtol=W4_RTOL, timings=results)
+    return main, max_err
+
+
+def phase_kernel_w4ffn():
+    """w4_ffn at GPT-3B (K 3200, F 8704, N 3200; weights of std 0.02) with 1
+    and 16 rows; timed at 16 rows."""
+    import torch.nn.functional as F
+
+    from controlar_tpu_torch.ops.w4_matmul import (
+        dequantize_weight_w4,
+        w4_ffn as kern,
+        w4_ffn_ref as plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    k, f, n = 3200, 8704, 3200
+    q13, s13 = _w4_weight(gen, k, 2 * f)
+    q2, s2 = _w4_weight(gen, f, n)
+    max_err = 0.0
+    for rows in (1, 16):
+        x = torch.randn(rows, k, generator=gen, device="cuda").bfloat16()
+        out = kern(x, q13, s13, q2, s2)
+        torch.cuda.synchronize()
+        err, ok = _within(out, plain(x, q13, s13, q2, s2), W4_ATOL, W4_RTOL)
+        check(ok, "kernel_w4ffn", f"rows={rows}: max_abs_err {err} over the limit")
+        max_err = max(max_err, err)
+    x = torch.randn(16, k, generator=gen, device="cuda").bfloat16()
+    w13 = dequantize_weight_w4(q13, s13, torch.bfloat16, k=k)
+    w2 = dequantize_weight_w4(q2, s2, torch.bfloat16, k=f)
+
+    def unfused():  # the library yardstick: bf16 SwiGLU with torch.matmul
+        h1, h3 = torch.matmul(x, w13).chunk(2, dim=-1)
+        return torch.matmul(F.silu(h1) * h3, w2)
+
+    nbytes = (q13.numel() + q2.numel() + (s13.numel() + s2.numel()) * 4
+              + x.numel() * 2 + 16 * n * 2)
+    bound, by = _roofline(nbytes, 2 * 16 * (k * 2 * f + f * n), BF16_FLOPS)
+    row = dict(case="ffn", k=k, f=f, n=n, rows=16,
+               ms=time_ms(lambda: kern(x, q13, s13, q2, s2), flush=flush),
+               plain_ms=time_ms(lambda: plain(x, q13, s13, q2, s2), flush=flush),
+               library_ms=time_ms(unfused, flush=flush), bound_ms=bound, bound_by=by)
+    emit("kernel_w4ffn", ok=True, name="w4_ffn", max_abs_err=max_err, atol=W4_ATOL,
+         rtol=W4_RTOL, timings=[row])
+    return row, max_err
+
+
 def phase_reference():
     """A small fp32 model on the card (kernel path) against the same weights
     on the CPU (plain path): Canny bit for bit, the adapter, prefill and
@@ -244,43 +493,127 @@ def phase_reference():
     errs["logits"] = (logits["cuda"] - logits["cpu"]).abs().max().item()
     for k, v in errs.items():
         check(v <= REF_TOL, "reference", f"{k}: card vs CPU max_abs_err {v} > {REF_TOL}")
-    emit("reference", ok=True, canny_bit_exact=True, max_abs_err=errs, tol=REF_TOL)
+    quant_errs = {name: _quantized_reference(mode, cache) for name, mode, cache in
+                  (("w8_kv8", "int8", torch.int8), ("w4split_kv4", "w4", "int4"))}
+    for name, (err, scale) in quant_errs.items():
+        check(err <= QUANT_REF_TOL[name] * scale, "reference",
+              f"{name}: card vs CPU max_abs_err {err} > {QUANT_REF_TOL[name]} * {scale}")
+    emit("reference", ok=True, canny_bit_exact=True, max_abs_err=errs, tol=REF_TOL,
+         quantized_max_abs_err={k: v[0] for k, v in quant_errs.items()},
+         quantized_logit_scale={k: v[1] for k, v in quant_errs.items()},
+         quantized_tol_relative=QUANT_REF_TOL)
 
 
-def phase_cell(name: str, runs: int) -> int:
+# Card (kernels) vs CPU (plain route), relative to max |logit|:
+# - W8 + int8 cache: both take fp32 products; the card's sums run in another
+#   order, which can flip a rare int8 rounding of a cache row (one step is
+#   1/127 of a head's max);
+# - W4 + int4 cache: on the CPU W4 takes the JAX package's fallback (weights
+#   dequantized to bf16, x kept fp32), the kernel rounds x to bf16 and keeps
+#   fp32 scales; each rounds ~2**-9 relative per product (a few 1e-3 of the
+#   logits after three layers), and a flipped int4 rounding of a cache row
+#   moves that value by 1/7 of its head's max.
+QUANT_REF_TOL = {"w8_kv8": 2e-3, "w4split_kv4": 2e-2}
+
+
+def _quantized_reference(mode: str, cache_dtype):
+    """Prefill and three decode steps of a small quantized t2i model (head
+    dim 64, W4-compatible widths, a column mask) on the card, kernels on,
+    and on the CPU; -> (max abs logit difference, max |logit| on the CPU)."""
+    from controlar_tpu_torch import decode as tdec
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.quant import quantize_gpt
+
+    cfg = GPTConfig(model_type="t2i", dim=256, n_layer=3, n_head=4, vocab_size=64,
+                    caption_dim=32, cls_token_num=5, block_size=16)
+    gpt = tgpt.init_gpt(cfg, seed=2)
+    torch.nn.init.normal_(gpt.output.weight, std=0.02)  # the t2i head is zero at init
+    quantize_gpt(gpt, cfg, mode=mode, split_rope=mode == "w4")
+    gen = torch.Generator().manual_seed(7)
+    prefix = torch.randn(3, 5, 256, generator=gen)
+    fused3 = torch.randn(3, 3, 16, 256, generator=gen) * 0.5
+    col_mask = torch.arange(5)[None, :] >= torch.tensor([0, 2, 4])[:, None]
+    toks = torch.randint(0, 64, (3, 3), generator=gen)
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        gpt = gpt.to(dev)
+        caches = tdec.init_flat_caches(cfg, 3, 256, cache_dtype, dev)
+        lg, caches = tdec.prefill_flat(gpt, cfg, caches, prefix.to(dev), fused3.to(dev),
+                                       col_mask.to(dev))
+        out = [lg.cpu()]
+        full = torch.cat([col_mask, torch.ones(3, 251, dtype=torch.bool)], 1).to(dev)
+        for i in range(3):
+            lg, caches = tdec.decode_step_flat(gpt, cfg, caches, toks[:, i].to(dev), 5 + i,
+                                               fused3.to(dev), full, use_flash=True)
+            out.append(lg.cpu())
+        logits[dev] = torch.stack(out)
+    return ((logits["cuda"] - logits["cpu"]).abs().max().item(),
+            logits["cpu"].abs().max().item())
+
+
+def _expected_per_call(name: str, cfg) -> dict:
+    """Launches of each kernel in one generate call of the cell: attention
+    at every decode step of every layer; on the W4 path two W4 products
+    (wqkv, wo) and one fused FFN per layer at the prefill (16 rows) and at
+    every decode step."""
+    from controlar_tpu_torch.cells import CELLS
+
+    cell, layers, steps = CELLS[name], cfg.n_layer, cfg.block_size - 1
+    if cell.get("quant") == "w4":
+        return {"flash_decode_attention_q4": layers * steps,
+                "w4_matmul": 2 * layers * (steps + 1), "w4_ffn": layers * (steps + 1)}
+    if cell.get("cache_dtype") == torch.int8:
+        return {"flash_decode_attention_q8": layers * steps}
+    return {"flash_decode_attention": layers * steps}
+
+
+def phase_cell(name: str, runs: int) -> dict:
     """One warm `ControlARPipeline.generate` call, then `runs` timed calls
-    with the launch counts set to 0 before them. Returns the launches."""
+    with every kernel's launch count set to 0 before them; each count must
+    be exactly its expected launches. Returns the launches."""
     from controlar_tpu_torch.cells import BATCH, CELLS, build_cell
-    from controlar_tpu_torch.ops.flash_decode import flash_decode_attention
 
+    t0 = time.perf_counter()
     pipe, kw = build_cell(name)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     cfg = pipe.gpt_cfg
     px = CELLS[name]["image_px"]
     pipe.generate(**kw, seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     seconds, outs = [], []
-    flash_decode_attention.launches = 0
+    wrappers = {k: v[0] for k, v in _kernels().items()}
+    for fn in wrappers.values():
+        fn.launches = 0
     for run in range(runs):
         t0 = time.perf_counter()
         outs.append(pipe.generate(**kw, seed=1 + run))
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-    launches = flash_decode_attention.launches
-    want = runs * cfg.n_layer * (cfg.block_size - 1)
-    check(launches == want, name, f"kernel launches {launches} != {want}")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    per_call = _expected_per_call(name, cfg)
+    for k, got in launches.items():
+        want = runs * per_call.get(k, 0)
+        check(got == want, name, f"{k} launches {got} != {want}")
     for out in outs:
         check(out.shape == (BATCH, px, px, 3) and out.dtype == np.uint8, name,
               f"output {out.shape} {out.dtype}")
         check(float(out.std()) > 0, name, "constant output image")
     # finite: ControlARPipeline.generate raises on a non-finite decoded image
     med = statistics.median(seconds)
-    emit(name, ok=True, model=CELLS[name]["size"], image_px=px, tokens=cfg.block_size,
-         batch=BATCH, cfg_scale=kw["cfg_scale"], top_k=kw["top_k"], runs=runs,
-         seconds=seconds, median_s=med, images_per_s=BATCH / med, shape=list(outs[0].shape),
-         dtype=str(outs[0].dtype), finite=True, launches=launches, expected_launches=want,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(name, ok=True, model=CELLS[name]["size"], quant=CELLS[name].get("quant"),
+         cache_dtype=str(kw.get("cache_dtype") or torch.bfloat16), image_px=px,
+         tokens=cfg.block_size, batch=BATCH, cfg_scale=kw["cfg_scale"], top_k=kw["top_k"],
+         runs=runs, build_s=build_s, seconds=seconds, median_s=med, images_per_s=BATCH / med,
+         shape=list(outs[0].shape), dtype=str(outs[0].dtype), finite=True,
+         launches={k: v for k, v in launches.items() if v},
+         launches_per_call=per_call, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     return launches
+
+
+CELL_RUNS = (("c2i", 3), ("t2i", 3), ("c2i_w8kv8", 3), ("c2i_3b_w4kv4", 3))
 
 
 def main() -> int:
@@ -292,26 +625,35 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     main_rows, max_err = phase_kernel()
+    timed = {  # kernel -> (the main-path row that is timed, max abs error, where)
+        "flash_decode_attention": (main_rows["c2i"], max_err,
+                                   "c2i last step: B=16 H=12 D=64 S=768 pos=575"),
+        "flash_decode_attention_q8": (*phase_kernel_q8(),
+                                      "c2i_w8kv8 last step: B=16 H=12 D=64 S=768 pos=575"),
+        "flash_decode_attention_q4": (*phase_kernel_q4(), "c2i_3b_w4kv4 last step, split: "
+                                      "B=16 H=32 D=100 S=768 pos=575"),
+        "w4_matmul": (*phase_kernel_w4mm(), "GPT-3B wqkv: 16 x 3200 -> 9600"),
+        "w4_ffn": (*phase_kernel_w4ffn(), "GPT-3B FFN: 16 x 3200, F=8704"),
+    }
     phase_reference()
-    launches = phase_cell("c2i", runs=3)
-    torch.cuda.empty_cache()
-    launches += phase_cell("t2i", runs=3)
+    launches = collections.Counter()
+    for name, runs in CELL_RUNS:
+        launches.update(phase_cell(name, runs))
+        torch.cuda.empty_cache()
     emit("total", seconds=time.perf_counter() - t_start)
-    main_row = main_rows["c2i"]
-    print(json.dumps({"kernels": [{
-        "name": "flash_decode_attention",
-        "route": "cuda",
-        "source": "controlar_tpu_torch/csrc/flash_decode.cu",
-        "replaces": "controlar_tpu/ops/flash_decode2.py:24",
-        "launches": launches,  # c2i and t2i timed runs
-        "max_abs_err": max_err,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "timed_at": "c2i last step: B=16 H=12 D=64 S=768 pos=575",
-    }]}), flush=True)
+    entries = []
+    for name, (fn, source, replaces) in _kernels().items():
+        row, err, where = timed[name]
+        check(launches[name] > 0, "kernels", f"{name} was not launched on the main path")
+        entries.append({
+            "name": name, "route": "cuda", "source": f"controlar_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches[name],  # the cells' timed runs
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "timed_at": where,
+        })
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

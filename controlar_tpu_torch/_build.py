@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
 Each `csrc/<name>.cu` becomes `_build/lib<name>-<hash>.so`, where the hash
-covers the source and the flags, so an edited source is rebuilt. All missing
-libraries are compiled at once, one nvcc process per source, on first use.
+covers the source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source or header is rebuilt. All missing libraries are compiled at
+once, one nvcc process per source, on first use.
 The build uses only the sources in this package; a failed build raises.
 """
 from __future__ import annotations
@@ -41,7 +42,9 @@ def sources() -> List[Path]:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 

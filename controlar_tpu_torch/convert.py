@@ -5,14 +5,22 @@ arrays (per-layer weights stacked on a leading (L, ...) axis, or a list of
 per-layer dicts) and returns the port's module, loaded with
 `load_state_dict(strict=True)`. Linears stored (in, out) become torch's
 (out, in); convolutions stored HWIO become OIHW.
+
+`gpt_from_jax` also takes the JAX package's quantized trees (from
+`quantize_gpt_params`, stacked or not, and `quantize_gpt_params_w4`): a
+{"q", "s"} weight becomes a `quant.W8Linear` and a {"q4", "s"} weight a
+`quant.W4Linear`, holding the same integer carriers and f32 scales in the
+same (in, out) layout; a fused `w13` replaces w1 and w3, and the
+`rope_split` marker marks the model as `quant.to_split_rope` does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from controlar_tpu_torch import quant
 from controlar_tpu_torch.config import GPTConfig, VQConfig
 from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.models import vit as vit_model
@@ -47,11 +55,31 @@ def _load(model: torch.nn.Module, sd: Dict[str, torch.Tensor], dtype, device) ->
     return model.to(dtype).eval().requires_grad_(False)
 
 
+def _quantized(w) -> Optional[torch.nn.Module]:
+    """A quantized JAX weight -> the port's module; None for a float one."""
+    if not isinstance(w, dict):
+        return None
+    s = _t(w["s"])
+    if "q4" in w:
+        return quant.W4Linear(torch.from_numpy(np.array(w["q4"], dtype=np.int8)), s)
+    return quant.W8Linear(torch.from_numpy(np.array(w["q"], dtype=np.int8)), s)
+
+
 def gpt_from_jax(params: Tree, cfg: GPTConfig, dtype: torch.dtype = torch.float32,
                  device="cpu") -> gpt_model.GPT:
+    device = torch.device(device)
     sd = {"tok_embeddings.weight": _t(params["tok_embeddings"]),
-          "norm": _t(params["norm"]),
-          "output.weight": _lin(params["output"])}
+          "norm": _t(params["norm"])}
+    qmods: Dict[str, torch.nn.Module] = {}  # module path -> quantized module
+
+    def linear(path: str, w) -> None:
+        m = _quantized(w)
+        if m is None:
+            sd[f"{path}.weight"] = _lin(w)
+        else:
+            qmods[path] = m
+
+    linear("output", params["output"])
     ce = params["cls_embedding"]
     if cfg.model_type == "c2i":
         sd["cls_embedding.embedding.weight"] = _t(ce["embedding"])
@@ -65,15 +93,32 @@ def gpt_from_jax(params: Tree, cfg: GPTConfig, dtype: torch.dtype = torch.float3
     for i in range(cfg.n_fusion_points):
         for fc in ("fc1", "fc2"):
             sd[f"condition_layers.{i}.{fc}.weight"] = _lin(params["condition_layers"][fc][i])
+    fused = set()
     for l in range(cfg.n_layer):
         lp = _layer(params["layers"], l)
         sd[f"layers.{l}.attention_norm"] = _t(lp["attention_norm"])
         sd[f"layers.{l}.ffn_norm"] = _t(lp["ffn_norm"])
-        for w in ("wqkv", "wo", "w1", "w3", "w2"):
-            sd[f"layers.{l}.{w}.weight"] = _lin(lp[w])
+        for w in ("wqkv", "wo", "w1", "w3", "w2", "w13"):
+            if w in lp:
+                linear(f"layers.{l}.{w}", lp[w])
+        if "w13" in lp:
+            fused.add(l)
     with torch.device("meta"):
         model = gpt_model.GPT(cfg)
-    return _load(model, sd, dtype, torch.device(device))
+    for l in fused:
+        del model.layers[l].w1, model.layers[l].w3
+    for path in qmods:
+        parent, _, name = path.rpartition(".")
+        owner = model.get_submodule(parent) if parent else model
+        if hasattr(owner, name):
+            delattr(owner, name)
+    model = _load(model, sd, dtype, device)
+    for path, m in qmods.items():
+        parent, _, name = path.rpartition(".")
+        setattr(model.get_submodule(parent) if parent else model, name, m.to(device))
+    if "rope_split" in params:
+        quant.mark_split(model)
+    return model
 
 
 def vit_from_jax(params: Tree, cfg: vit_model.ViTConfig, dtype: torch.dtype = torch.float32,

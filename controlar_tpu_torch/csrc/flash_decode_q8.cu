@@ -1,0 +1,234 @@
+// Single-query decode attention over an int8 [k|v] cache slab with per-row,
+// per-head f32 scales.
+//
+// Replaces the Pallas kernel `_kernel_q8` of controlar_tpu/ops/flash_decode2.py
+// (flash_decode_attention2_q8). For each batch row b and head h:
+//   s_r = (q[b,h] . kint[b,r,h]) * ks[b,r,h] / sqrt(D) + bias[b,r]
+//   out[b,h] = sum_r softmax(s)_r * vs[b,r,h] * vint[b,r,h]
+// over the cache rows r <= pos[b]; the softmax is taken online in fp32 and
+// the v scale is folded into p, as the TPU kernel does.
+//
+// Bound: memory. Each call reads every live row once: 2*H*D int8 values and
+// 2*H f32 scales per row, half the bytes of the bf16 slab. At the GPT-B c2i
+// last step (16 batch rows, 12 heads, D=64, 576 live rows) that is ~14.2 MB
+// of values and 0.9 MB of scales against ~2*H*D flops per byte pair, far
+// below the card's ridge point. The design is the bf16 kernel's
+// (csrc/flash_decode.cu), one pass with no intermediate in device memory:
+//   - one thread block per (b, head), 8 warps;
+//   - a warp is cut into row groups of LPR lanes; each lane converts VEC
+//     int8 values of the head to fp32 in registers (8-byte loads for D = 64
+//     and 128; 4-byte loads for D = 100, whose 100-byte head rows are only
+//     4-byte aligned);
+//   - q.k is reduced with warp shuffles inside the group; each group keeps
+//     its own running max, sum and accumulator, merged in shared memory.
+// q is read as bf16 (the JAX kernel casts it too); p * vs and alpha stay fp32
+// here, where the TPU kernel rounds them to bf16.
+//
+// Plain C interface, loaded with ctypes. The launch goes on the caller's
+// stream; the function returns cudaGetLastError() after the launch.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+
+// VEC: int8 elements per lane; LPR: lanes per cache row (power of two)
+template <int D> struct HeadCfg;
+template <> struct HeadCfg<64> { static constexpr int VEC = 8; static constexpr int LPR = 8; };
+template <> struct HeadCfg<100> { static constexpr int VEC = 4; static constexpr int LPR = 32; };
+template <> struct HeadCfg<128> { static constexpr int VEC = 8; static constexpr int LPR = 16; };
+
+template <int VEC> struct BfVecT;
+template <> struct BfVecT<8> { using T = uint4; };  // 16 bytes of bf16
+template <> struct BfVecT<4> { using T = uint2; };  // 8 bytes of bf16
+
+template <int VEC>
+__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
+  using T = typename BfVecT<VEC>::T;
+  T raw = *reinterpret_cast<const T*>(p);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC / 2; ++i) {
+    float2 f = __bfloat1622float2(h2[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// VEC signed bytes -> fp32, one 4- or 8-byte load
+template <int VEC>
+__device__ __forceinline__ void load_i8(const int8_t* p, float* out) {
+  uint32_t w[VEC / 4];
+  if constexpr (VEC == 8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    w[0] = raw.x;
+    w[1] = raw.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    out[i] = static_cast<float>(static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu));
+  }
+}
+
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+template <int D, typename OutT>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_decode_q8_kernel(const __nv_bfloat16* __restrict__ q,  // (B, H*D)
+                       const int8_t* __restrict__ kv,        // (B, S, 2*H*D)
+                       const float* __restrict__ sc,         // (B, S, 2*H) [ks | vs]
+                       const int* __restrict__ pos_ptr,      // (B,) or scalar, or null
+                       int pos_stride, int pos_scalar,
+                       const float* __restrict__ bias,       // (B, S) or null
+                       OutT* __restrict__ out,               // (B, H*D)
+                       int S, int H, float scale) {
+  constexpr int VEC = HeadCfg<D>::VEC;
+  constexpr int LPR = HeadCfg<D>::LPR;
+  constexpr int GPW = 32 / LPR;      // row groups per warp
+  constexpr int G = kWarps * GPW;    // row groups per block
+
+  __shared__ float sm_acc[G][D];
+  __shared__ float sm_m[G];
+  __shared__ float sm_l[G];
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int hd = H * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int li = lane % LPR;
+  const int sub = lane / LPR;
+  const int group = warp * GPW + sub;
+  const int d0 = li * VEC;
+  const bool active = d0 < D;  // D = 100 leaves the last lanes of a group idle
+
+  const int pos = pos_ptr ? pos_ptr[(size_t)b * pos_stride] : pos_scalar;
+  const int n_rows = min(pos + 1, S);
+
+  float qf[VEC], acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) { qf[i] = 0.f; acc[i] = 0.f; }
+  if (active) load_bf16<VEC>(q + (size_t)b * hd + (size_t)h * D + d0, qf);
+  float m = -INFINITY;
+  float l = 0.f;
+
+  const size_t row_stride = 2 * (size_t)hd;
+  const int8_t* kbase = kv + (size_t)b * S * row_stride + (size_t)h * D + d0;
+  const float* sbase = sc + (size_t)b * S * 2 * H + h;
+  const float* brow = bias ? bias + (size_t)b * S : nullptr;
+
+  // every lane of a warp runs the same trip count, so the full-mask shuffles
+  // below never see a diverged warp; rows past n_rows are skipped after them
+#pragma unroll 2
+  for (int base = warp * GPW; base < n_rows; base += G) {
+    const int r = base + sub;
+    const bool valid = r < n_rows;
+    float kf[VEC], vf[VEC];
+    if (valid && active) {
+      const int8_t* rp = kbase + (size_t)r * row_stride;
+      load_i8<VEC>(rp, kf);
+      load_i8<VEC>(rp + hd, vf);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) { kf[i] = 0.f; vf[i] = 0.f; }
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) s = fmaf(qf[i], kf[i], s);
+#pragma unroll
+    for (int off = LPR / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (valid) {
+      const float* srow = sbase + (size_t)r * 2 * H;
+      s = s * srow[0] * scale;
+      if (brow) s += brow[r];
+      const float m_new = fmaxf(m, s);
+      const float alpha = expf(m - m_new);  // exp(-inf) = 0 on the first row
+      const float p = expf(s - m_new);
+      l = l * alpha + p;
+      const float pv = p * srow[H];  // the v scale folded into p
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] = fmaf(pv, vf[i], acc[i] * alpha);
+      m = m_new;
+    }
+  }
+
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) sm_acc[group][d0 + i] = acc[i];
+  }
+  if (li == 0) {
+    sm_m[group] = m;
+    sm_l[group] = l;
+  }
+  __syncthreads();
+
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int g = 0; g < G; ++g) mx = fmaxf(mx, sm_m[g]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      // a group that saw no row has m = -inf, l = 0, acc = 0
+      const float w = sm_m[g] == -INFINITY ? 0.f : expf(sm_m[g] - mx);
+      den = fmaf(w, sm_l[g], den);
+      num = fmaf(w, sm_acc[g][d], num);
+    }
+    store_out(out + (size_t)b * hd + (size_t)h * D + d, num / den);
+  }
+}
+
+template <int D>
+void launch(const void* q, const void* kv, const void* sc, const void* pos_ptr,
+            int pos_stride, int pos_scalar, const void* bias, void* out, int out_f32,
+            int B, int S, int H, cudaStream_t stream) {
+  const dim3 grid(B * H);
+  const dim3 block(kWarps * 32);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kvp = static_cast<const int8_t*>(kv);
+  const auto* sp = static_cast<const float*>(sc);
+  const auto* pp = static_cast<const int*>(pos_ptr);
+  const auto* bp = static_cast<const float*>(bias);
+  if (out_f32) {
+    flash_decode_q8_kernel<D, float><<<grid, block, 0, stream>>>(
+        qp, kvp, sp, pp, pos_stride, pos_scalar, bp, static_cast<float*>(out), S, H, scale);
+  } else {
+    flash_decode_q8_kernel<D, __nv_bfloat16><<<grid, block, 0, stream>>>(
+        qp, kvp, sp, pp, pos_stride, pos_scalar, bp, static_cast<__nv_bfloat16*>(out), S, H,
+        scale);
+  }
+}
+
+}  // namespace
+
+// q (B, H*D) bf16; kv (B, S, 2*H*D) int8; sc (B, S, 2*H) f32; pos:
+// pos_ptr[b * pos_stride] int32 when pos_ptr is not null, else pos_scalar;
+// bias (B, S) f32 or null; out (B, H*D) f32 when out_f32, else bf16.
+// Returns a cudaError_t.
+extern "C" int flash_decode_q8(const void* q, const void* kv, const void* sc,
+                               const void* pos_ptr, int pos_stride, int pos_scalar,
+                               const void* bias, void* out, int out_f32, int B, int S, int H,
+                               int D, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      launch<64>(q, kv, sc, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32, B, S, H, st);
+      break;
+    case 100:
+      launch<100>(q, kv, sc, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32, B, S, H, st);
+      break;
+    case 128:
+      launch<128>(q, kv, sc, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32, B, S, H, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,19 +1,33 @@
-"""Decode engine: per-layer flat KV caches and the flash-decode kernel.
+"""Decode engine: per-layer flat KV caches and the flash-decode kernels.
 
 Each layer's cache is one (B, S, 2*H*D) tensor of interleaved [k | v] rows,
-the JAX package's layout, so the kernel reads a row's k and v from one slab.
-Unlike the JAX package, which returns new cache arrays, the port writes the
-new rows into the cache tensors in place and returns the same list.
+the JAX package's layout, so the kernel reads a row's k and v from one slab,
+or, for a quantized cache, a dict as in the JAX package:
 
-Decode attention runs `ops.flash_decode.flash_decode_attention` when
-`use_flash` (on the card: the CUDA kernel, reading only rows <= pos), else a
-masked einsum over the whole slab.
+- int8 (`cache_dtype=torch.int8`): {"kv": (B, S, 2*H*D) int8, "s": (B, S,
+  2*H) f32 per-head scales [k | v]}; attention runs
+  `flash_decode_attention_q8`;
+- int4 (`cache_dtype="int4"`; PyTorch has no usable int4 type):
+  {"kv4": (B, S, 2 * H*D/2) int8 nibble carriers, "s": as above}; attention
+  runs `flash_decode_attention_q4`, in split-rope layout for a split model.
+
+Scales and int4 rows are unpadded (the JAX package pads both to 128 lanes
+for the TPU). Unlike the JAX package, which returns new cache arrays, the
+port writes the new rows into the cache tensors in place and returns the
+same list.
+
+Decode attention runs the kernels when `use_flash` (on the card: CUDA,
+reading only rows <= pos), else a masked einsum over the whole (dequantized)
+slab. Quantized weights (`quant.W8Linear`, `quant.W4Linear`) are called
+where the linears are; a layer with a fused W4 `w13` runs the fused FFN
+kernel on the card (`ffn`).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from controlar_tpu_torch.config import GPTConfig
 from controlar_tpu_torch.models.gpt import (
@@ -23,25 +37,134 @@ from controlar_tpu_torch.models.gpt import (
     attend_masked,
     make_rope_table,
 )
-from controlar_tpu_torch.ops.flash_decode import flash_decode_attention
+from controlar_tpu_torch.ops.flash_decode import (
+    flash_decode_attention,
+    flash_decode_attention_q4,
+    flash_decode_attention_q8,
+)
 from controlar_tpu_torch.ops.norms import rms_norm
+from controlar_tpu_torch.ops.rope import apply_rope_split, make_split_rope_tables
+from controlar_tpu_torch.ops.w4_matmul import w4_ffn, w4_ffn_fits
+from controlar_tpu_torch.quant import (
+    dequantize_kv4_slab,
+    dequantize_kv_slab,
+    W4Linear,
+    is_split,
+    quantize_kv_rows,
+    quantize_kv_rows_4,
+)
 
-Caches = List[torch.Tensor]
+Cache = Union[torch.Tensor, Dict[str, torch.Tensor]]
+Caches = List[Cache]
+Rope = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+INT4 = "int4"  # cache_dtype of the nibble-packed cache
 
 
 def init_flat_caches(cfg: GPTConfig, batch: int, max_seq: int,
-                     dtype: torch.dtype = torch.bfloat16, device="cpu") -> Caches:
-    """One zeroed (batch, max_seq, 2*KV*D) cache per layer. Only floating
-    caches are ported; the int8 and int4 caches are not."""
-    if not dtype.is_floating_point:
-        raise NotImplementedError(f"quantized KV cache {dtype} is not ported")
-    shape = (batch, max_seq, 2 * cfg.kv_heads * cfg.head_dim)
-    return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.n_layer)]
+                     dtype: Union[torch.dtype, str] = torch.bfloat16, device="cpu") -> Caches:
+    """One zeroed cache per layer: a (batch, max_seq, 2*KV*D) tensor of a
+    floating dtype, or the int8 (`torch.int8`) or int4 (`"int4"`) dict."""
+    hd = cfg.kv_heads * cfg.head_dim
+    sshape = (batch, max_seq, 2 * cfg.kv_heads)
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if dtype == torch.int8:
+        return [{"kv": zeros((batch, max_seq, 2 * hd), torch.int8),
+                 "s": zeros(sshape, torch.float32)} for _ in range(cfg.n_layer)]
+    if dtype == INT4:
+        return [{"kv4": zeros((batch, max_seq, hd), torch.int8),
+                 "s": zeros(sshape, torch.float32)} for _ in range(cfg.n_layer)]
+    if not (isinstance(dtype, torch.dtype) and dtype.is_floating_point):
+        raise ValueError(f"cache dtype must be floating, torch.int8 or 'int4', got {dtype!r}")
+    return [zeros((batch, max_seq, 2 * hd), dtype) for _ in range(cfg.n_layer)]
+
+
+def cache_seq_len(caches: Caches) -> int:
+    c0 = caches[0]
+    return (c0["s"] if isinstance(c0, dict) else c0).shape[1]
+
+
+def rope_tables(model: GPT, cfg: GPTConfig, device) -> Rope:
+    """The model's RoPE: the (T, D/2, 2) table, or for a split-rope model
+    the full-width (cos, sin) rows, each (T, (H + KV) * D)."""
+    table = make_rope_table(cfg).to(device)
+    if is_split(model):
+        return make_split_rope_tables(table, cfg.n_head, cfg.kv_heads, cfg.head_dim)
+    return table
+
+
+def _rope_rows(rope: Rope, start: int, stop: int) -> Rope:
+    if isinstance(rope, tuple):
+        return tuple(t[start:stop] for t in rope)
+    return rope[start:stop]
+
+
+def _qkv_for(lp, cfg: GPTConfig, x: torch.Tensor, rope: Rope):
+    """Project and rotate under either layout: q (B,T,H,D), k/v (B,T,KV,D).
+    In split layout only the order of dims inside each head differs, which
+    cancels in q.k and in the permuted wo."""
+    if not isinstance(rope, tuple):
+        return _qkv(lp, cfg, x, rope)
+    b, t, _ = x.shape
+    nh, nkv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    qkv = lp.wqkv(x)
+    qk = apply_rope_split(qkv[..., : (nh + nkv) * hd], *rope, hd)
+    q = qk[..., : nh * hd].reshape(b, t, nh, hd)
+    k = qk[..., nh * hd:].reshape(b, t, nkv, hd)
+    return q, k, qkv[..., (nh + nkv) * hd:].reshape(b, t, nkv, hd)
+
+
+def _quantize_rows_for(cache: Dict[str, torch.Tensor], kv_rows: torch.Tensor, kv_heads: int,
+                       split: bool = False):
+    """New rows in the cache's own format -> (rows, scales)."""
+    if "kv4" in cache:
+        return quantize_kv_rows_4(kv_rows, kv_heads, split=split)
+    return quantize_kv_rows(kv_rows, kv_heads)
+
+
+def _write_rows(cache: Cache, kv_rows: torch.Tensor, start: int, kv_heads: int,
+                split: bool) -> None:
+    """cache[:, start:start+T] = kv_rows (B, T, 2*KV*D), quantized for a
+    quantized cache; in place."""
+    stop = start + kv_rows.shape[1]
+    if isinstance(cache, dict):
+        rows, scales = _quantize_rows_for(cache, kv_rows, kv_heads, split)
+        cache["kv4" if "kv4" in cache else "kv"][:, start:stop] = rows
+        cache["s"][:, start:stop] = scales
+    else:
+        cache[:, start:stop] = kv_rows
+
+
+def _dequant_slab(cache: Dict[str, torch.Tensor], cfg: GPTConfig, dtype, split: bool = False):
+    if "kv4" in cache:
+        return dequantize_kv4_slab(cache["kv4"], cache["s"], cfg.kv_heads, cfg.head_dim,
+                                   dtype, split=split)
+    return dequantize_kv_slab(cache["kv"], cache["s"], cfg.kv_heads, dtype)
+
+
+def _flash_quant_attn(q2d, cache, pos, col_bias, cfg: GPTConfig, split: bool = False):
+    if "kv4" in cache:
+        return flash_decode_attention_q4(q2d, cache["kv4"], cache["s"], pos, col_bias,
+                                         n_head=cfg.n_head, head_dim=cfg.head_dim, split=split)
+    return flash_decode_attention_q8(q2d, cache["kv"], cache["s"], pos, col_bias,
+                                     n_head=cfg.n_head)
 
 
 def ffn(lp, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN."""
-    return lp.w2(torch.nn.functional.silu(lp.w1(x)) * lp.w3(x))
+    """SwiGLU FFN. A fused `w13` = [w1 | w3] layer runs one product for both
+    halves; when w13 and w2 are W4 and the shapes pass `w4_ffn_fits`, the
+    card runs the whole FFN as the one `w4_ffn` kernel."""
+    if not hasattr(lp, "w13"):
+        return lp.w2(F.silu(lp.w1(x)) * lp.w3(x))
+    if isinstance(lp.w13, W4Linear) and isinstance(lp.w2, W4Linear):
+        x2 = x.reshape(-1, x.shape[-1])
+        if x2.is_cuda and w4_ffn_fits(lp.w13.q4, lp.w13.s, lp.w2.q4, lp.w2.s, *x2.shape):
+            out = w4_ffn(x2, lp.w13.q4, lp.w13.s, lp.w2.q4, lp.w2.s, out_dtype=x.dtype)
+            return out.reshape(*x.shape[:-1], out.shape[-1])
+    h1, h3 = torch.chunk(lp.w13(x), 2, dim=-1)
+    return lp.w2(F.silu(h1) * h3)
 
 
 def _logits(model: GPT, cfg: GPTConfig, h: torch.Tensor) -> torch.Tensor:
@@ -60,19 +183,22 @@ def prefill_flat(
     fused3: Optional[torch.Tensor],
     col_mask: Optional[torch.Tensor],
     control_strength=1.0,
-    rope_table: Optional[torch.Tensor] = None,
+    rope_table: Optional[Rope] = None,
 ) -> Tuple[torch.Tensor, Caches]:
     """Prefill the prefix; returns (last-position logits (B, V) f32, caches).
 
     Only the last prefix position receives control token 0. With a column
     mask, a position sees the columns that are causal AND (unmasked OR its
-    own), so fully masked padding rows still attend to themselves."""
+    own), so fully masked padding rows still attend to themselves. Attention
+    here uses the unquantized k and v, as in the JAX package.
+    rope_table: `rope_tables(model, cfg, device)`, made here when None."""
     b, t, _ = prefix_emb.shape
     dev = prefix_emb.device
     gate, fidx = _fusion_gates(cfg)
     if rope_table is None:
-        rope_table = make_rope_table(cfg).to(dev)
-    rope = rope_table[:t]
+        rope_table = rope_tables(model, cfg, dev)
+    rope = _rope_rows(rope_table, 0, t)
+    split = isinstance(rope, tuple)
     rows = torch.arange(t, device=dev)[:, None]
     cols = torch.arange(t, device=dev)[None, :]
     causal = rows >= cols
@@ -89,8 +215,9 @@ def prefill_flat(
             add = _fuse(fused3[fidx[l]][:, 0:1], control_strength, h.dtype)
             h = torch.cat([h[:, :-1], h[:, -1:] + add], dim=1)
         x = rms_norm(h, lp.attention_norm, cfg.norm_eps)
-        q, k, v = _qkv(lp, cfg, x, rope)
-        caches[l][:, :t] = torch.cat([k.reshape(b, t, hd), v.reshape(b, t, hd)], dim=-1)
+        q, k, v = _qkv_for(lp, cfg, x, rope)
+        _write_rows(caches[l], torch.cat([k.reshape(b, t, hd), v.reshape(b, t, hd)], dim=-1),
+                    0, cfg.kv_heads, split)
         h = h + lp.wo(attend_masked(q, k, v, mask))
         h = h + ffn(lp, rms_norm(h, lp.ffn_norm, cfg.norm_eps))
     return _logits(model, cfg, h[:, -1]), caches
@@ -106,7 +233,7 @@ def decode_step_flat(
     col_mask_full: Optional[torch.Tensor],
     control_strength=1.0,
     use_flash: bool = True,
-    rope_table: Optional[torch.Tensor] = None,
+    rope_table: Optional[Rope] = None,
 ) -> Tuple[torch.Tensor, Caches]:
     """One decode step at position pos for token (B,); returns (logits (B, V)
     f32, caches). Position pos receives control token pos - cls_token_num + 1."""
@@ -115,11 +242,12 @@ def decode_step_flat(
     hd = cfg.n_head * cfg.head_dim
     gate, fidx = _fusion_gates(cfg)
     if rope_table is None:
-        rope_table = make_rope_table(cfg).to(dev)
-    rope = rope_table[pos:pos + 1]
+        rope_table = rope_tables(model, cfg, dev)
+    rope = _rope_rows(rope_table, pos, pos + 1)
+    split = isinstance(rope, tuple)
     fuse_pos = pos - cfg.cls_token_num + 1
 
-    s_max = caches[0].shape[1]
+    s_max = cache_seq_len(caches)
     col_bias = None
     if use_flash:
         if col_mask_full is not None:
@@ -135,16 +263,22 @@ def decode_step_flat(
         if fused3 is not None and gate[l] > 0:
             h = h + _fuse(fused3[fidx[l]][:, fuse_pos:fuse_pos + 1], control_strength, h.dtype)
         x = rms_norm(h, lp.attention_norm, cfg.norm_eps)
-        q, k, v = _qkv(lp, cfg, x, rope)  # (B, 1, H, D)
+        q, k, v = _qkv_for(lp, cfg, x, rope)  # (B, 1, H, D)
         cache = caches[l]
-        cache[:, pos] = torch.cat([k.reshape(b, hd), v.reshape(b, hd)], dim=-1)
+        _write_rows(cache, torch.cat([k.reshape(b, 1, hd), v.reshape(b, 1, hd)], dim=-1),
+                    pos, cfg.kv_heads, split)
+        quant = isinstance(cache, dict)
         if use_flash:
-            attn = flash_decode_attention(
-                q.reshape(b, hd), cache, pos, col_bias, n_head=cfg.n_head
-            ).to(h.dtype)[:, None, :]
+            q2d = q.reshape(b, hd).contiguous()  # split-rope q is a slice of [q|k]
+            if quant:
+                attn = _flash_quant_attn(q2d, cache, pos, col_bias, cfg, split)
+            else:
+                attn = flash_decode_attention(q2d, cache, pos, col_bias, n_head=cfg.n_head)
+            attn = attn.to(h.dtype)[:, None, :]
         else:
-            kl = cache[:, :, :hd].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
-            vl = cache[:, :, hd:].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
+            slab = _dequant_slab(cache, cfg, h.dtype, split) if quant else cache
+            kl = slab[:, :, :hd].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
+            vl = slab[:, :, hd:].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
             attn = attend_masked(q, kl, vl, mask)
         h = h + lp.wo(attn)
         h = h + ffn(lp, rms_norm(h, lp.ffn_norm, cfg.norm_eps))

@@ -7,7 +7,7 @@ on the host and never waits for the device inside it.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -43,7 +43,7 @@ def generate_tokens(
     top_k: int = 0,
     top_p: float = 1.0,
     sample_logits: bool = True,
-    cache_dtype: torch.dtype = torch.bfloat16,
+    cache_dtype: Union[torch.dtype, str] = torch.bfloat16,
     use_flash: bool = False,
     on_step: Optional[Callable[[int], None]] = None,
 ) -> torch.Tensor:
@@ -53,9 +53,10 @@ def generate_tokens(
 
     prefix_emb: (Bc, T_cls, dim); fused3: (3, Bc, block_size, dim) or None;
     col_mask: (Bc, T_cls) bool or None. The cache holds
-    find_multiple(T_cls + max_new_tokens, 256 if use_flash else 8) rows.
-    `on_step(i)`, when given, is called after decode step i (i = 0 is the
-    first step after the prefill).
+    find_multiple(T_cls + max_new_tokens, 256 if use_flash else 8) rows;
+    cache_dtype is a floating dtype, torch.int8 or "int4" (see
+    `decode.init_flat_caches`). `on_step(i)`, when given, is called after
+    decode step i (i = 0 is the first step after the prefill).
     Returns (B, max_new_tokens) int64 tokens of the conditional half.
     """
     bc, t_cls, _ = prefix_emb.shape
@@ -63,7 +64,7 @@ def generate_tokens(
     use_cfg = cfg_scale > 1.0
     s_max = find_multiple(t_cls + max_new_tokens, 256 if use_flash else 8)
     caches = decode_engine.init_flat_caches(cfg, bc, s_max, cache_dtype, dev)
-    rope = gpt_model.make_rope_table(cfg).to(dev)
+    rope = decode_engine.rope_tables(model, cfg, dev)
 
     def sample(logits):
         return sample_from(logits, generator, temperature, top_k, top_p, sample_logits)
@@ -109,7 +110,7 @@ def generate(
     sample_logits: bool = True,
     control_strength: float = 1.0,
     seed: int = 0,
-    cache_dtype: torch.dtype = torch.bfloat16,
+    cache_dtype: Union[torch.dtype, str] = torch.bfloat16,
     use_flash: Optional[bool] = None,
     device="cuda",
     on_step: Optional[Callable[[int], None]] = None,
@@ -119,7 +120,9 @@ def generate(
     adapter_features are the raw adapter outputs (B, block_size,
     adapter_dim); the adapter MLP is applied here, and the unconditional CFG
     half gets zero control. `use_flash=None` takes the kernel on the card
-    when every head has its own K/V head. Runs on `device` ('cuda' unless
+    when every head has its own K/V head. cache_dtype torch.int8 or "int4"
+    selects a quantized KV cache; it pairs with a model quantized by
+    `quant.quantize_gpt` (any mix is allowed, as in the JAX package). Runs on `device` ('cuda' unless
     the caller asks for 'cpu'); the model must already be there.
     """
     dev = resolve_device(device)

@@ -7,6 +7,16 @@ column bias, rows > pos[b] excluded, online softmax in fp32, output (B, H*D)
 in q's dtype. On a CUDA tensor it launches the hand-written kernel in
 `csrc/flash_decode.cu`; on a CPU tensor it computes the same function with
 `flash_decode_attention_ref`.
+
+The quantized caches have their own kernels, with the same arguments plus
+the per-row, per-head f32 scales `scale` (B, S, 2*H) = [k scales | v scales]
+(unpadded: the JAX package pads this stream to 128 lanes for the TPU's DMA):
+
+- `flash_decode_attention_q8` (`csrc/flash_decode_q8.cu`): int8 rows;
+- `flash_decode_attention_q4` (`csrc/flash_decode_q4.cu`): nibble-packed
+  rows of 2 * H*D/2 carriers (unpadded: the JAX package pads each half to a
+  multiple of 128 bytes), carrier j of a head holding the pair (2j, 2j+1)
+  or, with split=True, the split-rope pair (j, D/2 + j).
 """
 from __future__ import annotations
 
@@ -17,6 +27,7 @@ from typing import Optional, Union
 import torch
 
 from controlar_tpu_torch import _build
+from controlar_tpu_torch.ops.w4_matmul import unpack_nibbles
 
 HEAD_DIMS = (64, 100, 128)
 
@@ -40,24 +51,106 @@ def flash_decode_attention_ref(
     k = kv[..., :hd].float().reshape(b, s, n_head, d)
     v = kv[..., hd:].float().reshape(b, s, n_head, d)
     scores = torch.einsum("bhd,bshd->bhs", qf, k) * (1.0 / math.sqrt(d))
-    if col_bias is not None:
-        scores = scores + col_bias.float()[:, None, :]
-    pos_t = torch.as_tensor(pos, device=kv.device).reshape(-1, 1)
-    rows = torch.arange(s, device=kv.device)[None, :]
-    scores = scores.masked_fill(~(rows <= pos_t)[:, None, :], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhs,bshd->bhd", probs, v)
+    out = torch.einsum("bhs,bshd->bhd", _softmax_rows(scores, pos, col_bias), v)
     return out.reshape(b, hd).to(q.dtype)
 
 
-def _check(q, kv, pos, col_bias, n_head):
-    if kv.dim() != 3 or kv.dtype != torch.bfloat16:
-        raise ValueError(f"kv must be (B, S, 2*H*D) bfloat16, got {tuple(kv.shape)} {kv.dtype}")
+def _softmax_rows(scores: torch.Tensor, pos: Pos, col_bias: Optional[torch.Tensor]):
+    """scores (B, H, S) fp32 -> probabilities over the rows <= pos[b], with
+    the additive column bias."""
+    if col_bias is not None:
+        scores = scores + col_bias.float()[:, None, :]
+    s = scores.shape[-1]
+    pos_t = torch.as_tensor(pos, device=scores.device).reshape(-1, 1)
+    allowed = torch.arange(s, device=scores.device)[None, :] <= pos_t
+    return torch.softmax(scores.masked_fill(~allowed[:, None, :], float("-inf")), dim=-1)
+
+
+def flash_decode_attention_q8_ref(
+    q: torch.Tensor,
+    kv: torch.Tensor,
+    scale: torch.Tensor,
+    pos: Pos,
+    col_bias: Optional[torch.Tensor] = None,
+    *,
+    n_head: int,
+) -> torch.Tensor:
+    """Plain version of the int8-cache kernel, with the Pallas kernel's
+    numerics: scores (k_int . q_bf16) * ks / sqrt(D), the v scale folded
+    into p; p stays fp32 (the TPU kernel rounds p * vs to bf16)."""
     b, s, hd2 = kv.shape
     hd = hd2 // 2
-    if hd2 % 2 or hd % n_head:
-        raise ValueError(f"kv row width {hd2} does not split into 2 x {n_head} heads")
     d = hd // n_head
+    qf = q.to(torch.bfloat16).float().reshape(b, n_head, d)
+    k = kv[..., :hd].float().reshape(b, s, n_head, d)
+    v = kv[..., hd:].float().reshape(b, s, n_head, d)
+    ks = scale[..., :n_head].float().transpose(1, 2)  # (B, H, S)
+    vs = scale[..., n_head:2 * n_head].float().transpose(1, 2)
+    scores = torch.einsum("bhd,bshd->bhs", qf, k) * ks * (1.0 / math.sqrt(d))
+    probs = _softmax_rows(scores, pos, col_bias)
+    out = torch.einsum("bhs,bshd->bhd", probs * vs, v)
+    return out.reshape(b, hd).to(q.dtype)
+
+
+def _q_halves(q: torch.Tensor, n_head: int, d: int, split: bool):
+    """q (B, H*D) -> (even, odd) halves (B, H, D/2) of each head's pairs."""
+    qh = q.to(torch.bfloat16).float().reshape(q.shape[0], n_head, d)
+    if split:
+        return qh[..., : d // 2], qh[..., d // 2:]
+    return qh[..., 0::2], qh[..., 1::2]
+
+
+def flash_decode_attention_q4_ref(
+    q: torch.Tensor,
+    kv: torch.Tensor,
+    scale: torch.Tensor,
+    pos: Pos,
+    col_bias: Optional[torch.Tensor] = None,
+    *,
+    n_head: int,
+    head_dim: int,
+    split: bool = False,
+) -> torch.Tensor:
+    """Plain version of the int4-cache kernel, with the Pallas kernel's
+    numerics: scores (lo . q_even + hi . q_odd) * ks / sqrt(2 * (D/2)), the
+    v scale folded into p (fp32 here, bf16 on the TPU), the output pairs put
+    back in the layout of q."""
+    b, s, _ = kv.shape
+    half_d = head_dim // 2
+    c = kv.reshape(b, s, 2, n_head, half_d)
+    lo, hi = (t.float() for t in unpack_nibbles(c))
+    qe, qo = _q_halves(q, n_head, head_dim, split)
+    ks = scale[..., :n_head].float().transpose(1, 2)
+    vs = scale[..., n_head:2 * n_head].float().transpose(1, 2)
+    scores = (torch.einsum("bhj,bshj->bhs", qe, lo[:, :, 0])
+              + torch.einsum("bhj,bshj->bhs", qo, hi[:, :, 0]))
+    scores = scores * ks * (1.0 / math.sqrt(2 * half_d))
+    pv = _softmax_rows(scores, pos, col_bias) * vs
+    o_even = torch.einsum("bhs,bshj->bhj", pv, lo[:, :, 1])
+    o_odd = torch.einsum("bhs,bshj->bhj", pv, hi[:, :, 1])
+    if split:
+        out = torch.cat([o_even, o_odd], dim=-1)
+    else:
+        out = torch.stack([o_even, o_odd], dim=-1)
+    return out.reshape(b, n_head * 2 * half_d).to(q.dtype)
+
+
+def _check(q, kv, pos, col_bias, n_head, kv_dtype=torch.bfloat16, int4_head_dim=None):
+    """Checks shared by the three kernels; returns (B, S, D). The int4 slab
+    has rows of H*D bytes (2 * H * D/2 carriers), the others 2*H*D values."""
+    if kv.dim() != 3 or kv.dtype != kv_dtype:
+        raise ValueError(f"kv must be 3-D {kv_dtype}, got {tuple(kv.shape)} {kv.dtype}")
+    b, s, width = kv.shape
+    if int4_head_dim is not None:  # the int4 row width does not give D
+        d = int4_head_dim
+        if width != n_head * d or d % 2:
+            raise ValueError(f"int4 kv rows must hold {n_head} x {d} nibbles, got width {width}")
+        hd = n_head * d
+    else:
+        hd = width // 2
+        if width % 2 or hd % n_head:
+            raise ValueError(f"kv row width {width} does not split into 2 x {n_head} heads")
+        d = hd // n_head
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported by the kernel (takes {HEAD_DIMS})")
     if q.shape != (b, hd) or q.dtype not in (torch.bfloat16, torch.float32):
@@ -86,13 +179,31 @@ def _check(q, kv, pos, col_bias, n_head):
     return b, s, d
 
 
-def _lib():
-    fn = _build.load("flash_decode").flash_decode_attention
-    if fn.argtypes is None:
+def _check_scale(scale, kv, n_head):
+    b, s = kv.shape[:2]
+    if scale.shape != (b, s, 2 * n_head) or scale.dtype != torch.float32:
+        raise ValueError(f"scale must be ({b}, {s}, {2 * n_head}) float32, got "
+                         f"{tuple(scale.shape)} {scale.dtype}")
+    if scale.device != kv.device or not scale.is_contiguous():
+        raise ValueError(f"scale must be contiguous on {kv.device}")
+
+
+def _pos_args(pos: Pos, b: int):
+    """-> (pointer or None, stride, scalar) as the kernels take pos."""
+    if isinstance(pos, torch.Tensor):
+        return pos.data_ptr(), int(pos.numel() == b and pos.dim() == 1), 0
+    return None, 0, int(pos)
+
+
+def _lib(name: str, fn: str, scale: bool = False, split: bool = False):
+    """The C entry of csrc/<name>.cu: q, kv, [scale,] pos, pos_stride,
+    pos_scalar, bias, out, out_f32, B, S, H, D, [split,] stream."""
+    f = getattr(_build.load(name), fn)
+    if f.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, p, p, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return fn
+        f.argtypes = [p, p] + [p] * scale + [p, i, i, p, p, i, i, i, i, i] + [i] * split + [p]
+        f.restype = ctypes.c_int
+    return f
 
 
 def flash_decode_attention(
@@ -111,11 +222,8 @@ def flash_decode_attention(
     b, s, d = _check(q, kv, pos, col_bias, n_head)
     qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
     out = torch.empty((b, n_head * d), dtype=q.dtype, device=q.device)
-    if isinstance(pos, torch.Tensor):
-        pos_ptr, pos_stride, pos_scalar = pos.data_ptr(), int(pos.numel() == b and pos.dim() == 1), 0
-    else:
-        pos_ptr, pos_stride, pos_scalar = None, 0, int(pos)
-    err = _lib()(
+    pos_ptr, pos_stride, pos_scalar = _pos_args(pos, b)
+    err = _lib("flash_decode", "flash_decode_attention")(
         qb.data_ptr(), kv.data_ptr(), pos_ptr, pos_stride, pos_scalar,
         None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
         int(out.dtype == torch.float32), b, s, n_head, d,
@@ -128,3 +236,73 @@ def flash_decode_attention(
 
 
 flash_decode_attention.launches = 0
+
+
+def flash_decode_attention_q8(
+    q: torch.Tensor,
+    kv: torch.Tensor,
+    scale: torch.Tensor,
+    pos: Pos,
+    col_bias: Optional[torch.Tensor] = None,
+    *,
+    n_head: int,
+) -> torch.Tensor:
+    """Decode attention over the int8 cache; see the module docstring."""
+    if kv.device.type == "cpu":
+        return flash_decode_attention_q8_ref(q, kv, scale, pos, col_bias, n_head=n_head)
+    if kv.device.type != "cuda":
+        raise ValueError(f"unsupported device {kv.device}")
+    b, s, d = _check(q, kv, pos, col_bias, n_head, kv_dtype=torch.int8)
+    _check_scale(scale, kv, n_head)
+    qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
+    out = torch.empty((b, n_head * d), dtype=q.dtype, device=q.device)
+    err = _lib("flash_decode_q8", "flash_decode_q8", scale=True)(
+        qb.data_ptr(), kv.data_ptr(), scale.data_ptr(), *_pos_args(pos, b),
+        None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
+        int(out.dtype == torch.float32), b, s, n_head, d,
+        torch.cuda.current_stream(kv.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_decode_attention_q8 launch failed: cudaError {err}")
+    flash_decode_attention_q8.launches += 1
+    return out
+
+
+flash_decode_attention_q8.launches = 0
+
+
+def flash_decode_attention_q4(
+    q: torch.Tensor,
+    kv: torch.Tensor,
+    scale: torch.Tensor,
+    pos: Pos,
+    col_bias: Optional[torch.Tensor] = None,
+    *,
+    n_head: int,
+    head_dim: int,
+    split: bool = False,
+) -> torch.Tensor:
+    """Decode attention over the int4 cache; see the module docstring."""
+    if kv.device.type == "cpu":
+        return flash_decode_attention_q4_ref(q, kv, scale, pos, col_bias, n_head=n_head,
+                                             head_dim=head_dim, split=split)
+    if kv.device.type != "cuda":
+        raise ValueError(f"unsupported device {kv.device}")
+    b, s, d = _check(q, kv, pos, col_bias, n_head, kv_dtype=torch.int8,
+                     int4_head_dim=head_dim)
+    _check_scale(scale, kv, n_head)
+    qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
+    out = torch.empty((b, n_head * d), dtype=q.dtype, device=q.device)
+    err = _lib("flash_decode_q4", "flash_decode_q4", scale=True, split=True)(
+        qb.data_ptr(), kv.data_ptr(), scale.data_ptr(), *_pos_args(pos, b),
+        None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
+        int(out.dtype == torch.float32), b, s, n_head, d, int(split),
+        torch.cuda.current_stream(kv.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_decode_attention_q4 launch failed: cudaError {err}")
+    flash_decode_attention_q4.launches += 1
+    return out
+
+
+flash_decode_attention_q4.launches = 0

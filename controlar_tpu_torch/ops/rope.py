@@ -68,3 +68,28 @@ def apply_rope(x: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
     even = xf[..., 0] * cos - xf[..., 1] * sin
     odd = xf[..., 1] * cos + xf[..., 0] * sin
     return torch.stack([even, odd], dim=-1).reshape(b, t, h, d).to(x.dtype)
+
+
+def make_split_rope_tables(table: torch.Tensor, n_head: int, kv_heads: int, head_dim: int):
+    """Full-width cos/sin rows for split-layout RoPE over a fused [q|k] block.
+
+    Split layout stores each head's dims as [evens | odds], so pair j lies
+    at lanes (j, D/2 + j) and the rotation is elementwise. table: (T, D/2, 2)
+    from precompute_rope_2d_rect. Returns (cos, sin), each (T, (H + KV) * D):
+    per head [c | c] and [-s | s], over the q heads then the k heads."""
+    c, s = table[..., 0], table[..., 1]
+    n = n_head + kv_heads
+    return (torch.cat([c, c], dim=-1).repeat(1, n),
+            torch.cat([-s, s], dim=-1).repeat(1, n))
+
+
+def apply_rope_split(qk: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                     head_dim: int) -> torch.Tensor:
+    """Rotate a fused [q|k] block (..., (H + KV) * D) in split layout:
+    qk * cos + swap(qk) * sin, where swap exchanges the two halves of every
+    head. cos/sin broadcast against qk. fp32 math, cast back."""
+    half = head_dim // 2
+    lanes = torch.arange(qk.shape[-1], device=qk.device) % head_dim
+    swapped = torch.where(lanes < half, torch.roll(qk, -half, dims=-1),
+                          torch.roll(qk, half, dims=-1))
+    return (qk.float() * cos + swapped.float() * sin).to(qk.dtype)

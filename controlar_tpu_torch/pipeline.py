@@ -91,16 +91,16 @@ class ControlARPipeline:
         timings: Optional[dict] = None,
         on_step: Optional[Callable[[int], None]] = None,
     ) -> np.ndarray:
-        """Returns generated images as uint8 (B, H, W, 3). Speculative decoding
-        (spec_draft) and quantized KV caches are not ported.
+        """Returns generated images as uint8 (B, H, W, 3). cache_dtype
+        torch.int8 or "int4" selects a quantized KV cache (it pairs with a
+        GPT quantized by `quant.quantize_gpt`); None keeps the bf16 cache.
+        Speculative decoding (spec_draft) is not ported.
 
         `timings`, when given, receives the host-clock seconds of each stage
         (condition, adapter, tokens, vq_decode), with the device synchronised
         at every stage's end. `on_step(i)` is called after decode step i."""
         if spec_draft is not None:
             raise NotImplementedError("speculative decoding is not ported")
-        if cache_dtype is not None and cache_dtype != torch.bfloat16:
-            raise NotImplementedError(f"cache_dtype {cache_dtype} is not ported")
         lap = _StageClock(self.device, timings)
         adapter_feats = None
         if condition_images is not None:
@@ -117,6 +117,7 @@ class ControlARPipeline:
             max_new_tokens=self.gpt_cfg.block_size,
             cfg_scale=cfg_scale, temperature=temperature, top_k=top_k, top_p=top_p,
             control_strength=control_strength, seed=seed, device=self.device,
+            cache_dtype=torch.bfloat16 if cache_dtype is None else cache_dtype,
             on_step=on_step,
         )
         lap("tokens")

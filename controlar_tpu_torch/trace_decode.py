@@ -2,8 +2,9 @@
 
     python -m controlar_tpu_torch.trace_decode --cell c2i [--seed 0] [--steps 20] [--out DIR]
 
-Builds the cell of `controlar_tpu_torch.cells` (`c2i` or `t2i`) and times
-`ControlARPipeline.generate` itself, after a warm call. Prints JSON lines:
+Builds a cell of `controlar_tpu_torch.cells` (c2i, t2i, c2i_w8kv8,
+c2i_3b_w4kv4) and times `ControlARPipeline.generate` itself, after a warm
+call. Prints JSON lines:
 
   stages   host-clock seconds of each pipeline stage, from the pipeline's
            own `timings` (device synchronised at each stage's end):
@@ -13,8 +14,9 @@ Builds the cell of `controlar_tpu_torch.cells` (`c2i` or `t2i`) and times
            `on_step` hook), then a torch.profiler window over the same
            steps of another call: ms per step with the profiler, device
            busy ms per step and its share of the unprofiled step, kernels
-           per step, and device time by kernel name. The trace is written
-           to DIR/trace_<cell>.json.gz.
+           per step, device time by kernel name, and the port's own CUDA
+           kernels' device time per step and share of the busy time. The
+           trace is written to DIR/trace_<cell>.json.gz.
 
 Needs a CUDA device.
 """
@@ -30,6 +32,10 @@ from pathlib import Path
 import torch
 
 from controlar_tpu_torch.cells import CELLS, build_cell
+
+# the port's hand-written kernels, by the names of their __global__ functions
+PORT_KERNELS = ("flash_decode_kernel", "flash_decode_q8_kernel", "flash_decode_q4_kernel",
+                "w4_matmul_kernel", "w4_ffn_kernel")
 
 
 def stages(pipe, kw: dict) -> dict:
@@ -54,12 +60,13 @@ def _device_summary(raw: bytes, steps: int) -> dict:
     by_name = collections.Counter()
     for e in dev:
         by_name[e["name"][:80]] += e["dur"]
+    port = {k: sum(e["dur"] for e in dev if k in e["name"]) for k in PORT_KERNELS}
     return {
         "device_busy_ms_per_step": busy / steps / 1e3,
         "device_busy_share_profiled": busy / (last - first),
         "kernels_per_step": len(dev) / steps,
-        "flash_decode_ms_per_step": sum(e["dur"] for e in dev
-                                        if "flash_decode" in e["name"]) / steps / 1e3,
+        "port_kernels_ms_per_step": {k: v / steps / 1e3 for k, v in port.items() if v},
+        "port_kernels_share_of_busy": sum(port.values()) / busy,
         "top_kernels_ms_per_step": {k: v / steps / 1e3 for k, v in by_name.most_common(12)},
     }
 

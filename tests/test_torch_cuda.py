@@ -9,8 +9,20 @@ import torch
 
 from controlar_tpu_torch.ops.flash_decode import (
     flash_decode_attention,
+    flash_decode_attention_q4,
+    flash_decode_attention_q4_ref,
+    flash_decode_attention_q8,
+    flash_decode_attention_q8_ref,
     flash_decode_attention_ref,
 )
+from controlar_tpu_torch.ops.w4_matmul import (
+    quantize_weight_w4,
+    w4_ffn,
+    w4_ffn_ref,
+    w4_matmul,
+    w4_matmul_ref,
+)
+from controlar_tpu_torch.quant import quantize_kv_rows, quantize_kv_rows_4
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +94,155 @@ def test_launch_count(dev):
         flash_decode_attention(q, kv, pos, n_head=2)
     assert flash_decode_attention.launches == 3
     assert np.isfinite(flash_decode_attention(q, kv, pos, n_head=2).float().cpu().numpy()).all()
+
+
+# ---- quantized caches: int8 (q8) and int4 (q4) decode attention ----------
+
+def _quant_inputs(dev, kind, b, s, h, d, pos, bias, split=False, seed=1):
+    q, kv, pos, col_bias = _inputs(dev, b, s, h, d, pos, bias, seed)
+    if kind == "q8":
+        rows, scale = quantize_kv_rows(kv, h)
+    else:
+        rows, scale = quantize_kv_rows_4(kv, h, split=split)
+    return q, rows, scale, pos, col_bias
+
+
+def _per_slot(dev, pos):
+    if pos == "per_slot":
+        return torch.tensor([0, 300, 511, 767], dtype=torch.int32, device=dev)
+    return pos
+
+
+@pytest.mark.parametrize("d", [64, 100, 128])
+@pytest.mark.parametrize("pos", [0, 1, 255, 256, 575, "per_slot"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_q8_kernel_matches_plain_version(dev, d, pos, bias):
+    q, kv, scale, pos, col_bias = _quant_inputs(dev, "q8", 4, 768, 3, d, _per_slot(dev, pos), bias)
+    out = flash_decode_attention_q8(q, kv, scale, pos, col_bias, n_head=3)
+    torch.cuda.synchronize()
+    want = flash_decode_attention_q8_ref(q, kv, scale, pos, col_bias, n_head=3)
+    # bf16 outputs on both sides, as in the bf16 kernel's test
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("d", [64, 100, 128])
+@pytest.mark.parametrize("pos", [0, 255, 256, "per_slot"])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("split", [False, True])
+def test_q4_kernel_matches_plain_version(dev, d, pos, bias, split):
+    q, kv, scale, pos, col_bias = _quant_inputs(dev, "q4", 4, 768, 3, d, _per_slot(dev, pos),
+                                                bias, split)
+    out = flash_decode_attention_q4(q, kv, scale, pos, col_bias, n_head=3, head_dim=d,
+                                    split=split)
+    torch.cuda.synchronize()
+    want = flash_decode_attention_q4_ref(q, kv, scale, pos, col_bias, n_head=3, head_dim=d,
+                                         split=split)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("kind", ["q8", "q4"])
+@pytest.mark.parametrize("bad", ["head_dim", "kv_dtype", "noncontig", "scale_shape"])
+def test_quant_wrappers_reject(dev, kind, bad):
+    q, kv, scale, pos, _ = _quant_inputs(dev, kind, 2, 256, 2, 64, 10, False)
+    h, d = 2, 64
+    if bad == "head_dim":
+        h, d = 4, 32
+    elif bad == "kv_dtype":
+        kv = kv.to(torch.int16)
+    elif bad == "noncontig":
+        kv = torch.cat([kv, kv], dim=1)[:, ::2]
+    else:
+        scale = scale[..., :-1].contiguous()
+    with pytest.raises(ValueError):
+        if kind == "q8":
+            flash_decode_attention_q8(q, kv, scale, pos, n_head=h)
+        else:
+            flash_decode_attention_q4(q, kv, scale, pos, n_head=h, head_dim=d)
+
+
+def test_quant_launch_counts(dev):
+    q, kv, scale, pos, _ = _quant_inputs(dev, "q8", 2, 256, 2, 64, 10, False)
+    q4a = _quant_inputs(dev, "q4", 2, 256, 2, 64, 10, False)
+    flash_decode_attention_q8.launches = flash_decode_attention_q4.launches = 0
+    for _ in range(3):
+        flash_decode_attention_q8(q, kv, scale, pos, n_head=2)
+    flash_decode_attention_q4(*q4a[:4], n_head=2, head_dim=64)
+    assert (flash_decode_attention_q8.launches, flash_decode_attention_q4.launches) == (3, 1)
+
+
+# ---- W4 weights: the dequant-matmul and the fused FFN ---------------------
+
+def _w4(dev, k, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return quantize_weight_w4(torch.randn(k, n, generator=g, device=dev) * 0.05)
+
+
+def _x(dev, b, k, seed=9):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(b, k, generator=g, device=dev) * 0.5).bfloat16()
+
+
+# K = 3200: 25 planes, the odd tail; K = 200: not a group multiple (x padded)
+@pytest.mark.parametrize("rows", [1, 16, 17, 256])
+@pytest.mark.parametrize("k", [3200, 256, 200])
+def test_w4_matmul_matches_plain_version(dev, rows, k):
+    q4, s = _w4(dev, k, 384, seed=k)
+    x = _x(dev, rows, k)
+    out = w4_matmul(x, q4, s, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want = w4_matmul_ref(x, q4, s, torch.float32)
+    # fp32 sums in another order (|out| ~ 1); a dropped plane moves it by ~0.1
+    torch.testing.assert_close(out, want, atol=1e-3, rtol=1e-4)
+    bf = w4_matmul(x, q4, s)
+    assert bf.dtype == torch.bfloat16
+    torch.testing.assert_close(bf.float(), want, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("rows", [1, 16, 40])
+@pytest.mark.parametrize("shape", [(384, 640, 256), (3200, 8704, 3200)])
+def test_w4_ffn_matches_plain_version(dev, rows, shape):
+    k, f, n = shape
+    q13, s13 = _w4(dev, k, 2 * f, seed=1)
+    q2, s2 = _w4(dev, f, n, seed=2)
+    x = _x(dev, rows, k)
+    out = w4_ffn(x, q13, s13, q2, s2, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want = w4_ffn_ref(x, q13, s13, q2, s2, torch.float32)
+    # z is rounded to bf16 on both sides; an fp32 difference that flips one
+    # rounding (|z| up to ~8 here, a step of 0.03) moves an output by up to
+    # ~5e-3 at these weights (std 0.05); a dropped plane of w2 moves it by ~0.5
+    torch.testing.assert_close(out, want, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("bad", ["group", "dtype", "noncontig", "k_too_long"])
+def test_w4_matmul_rejects(dev, bad):
+    q4, s = _w4(dev, 256, 128, seed=0)
+    x = _x(dev, 4, 256)
+    if bad == "group":
+        s = torch.cat([s, s])  # group 64
+    elif bad == "dtype":
+        q4 = q4.to(torch.int16)
+    elif bad == "noncontig":
+        q4 = torch.cat([q4, q4], dim=1)[:, ::2]
+    else:
+        x = _x(dev, 4, 512)
+    with pytest.raises(ValueError):
+        w4_matmul(x, q4, s)
+
+
+def test_w4_ffn_rejects_an_unfused_shape(dev):
+    q13, s13 = _w4(dev, 200, 512, seed=0)  # K = 200 is not a group multiple
+    q2, s2 = _w4(dev, 256, 128, seed=1)
+    with pytest.raises(ValueError):
+        w4_ffn(_x(dev, 4, 200), q13, s13, q2, s2)
+
+
+def test_w4_launch_counts(dev):
+    q13, s13 = _w4(dev, 256, 512, seed=0)
+    q2, s2 = _w4(dev, 256, 128, seed=1)
+    x = _x(dev, 4, 256)
+    w4_matmul.launches = w4_ffn.launches = 0
+    w4_matmul(x, q13, s13)
+    w4_ffn(x, q13, s13, q2, s2)
+    w4_ffn(x, q13, s13, q2, s2)
+    assert (w4_matmul.launches, w4_ffn.launches) == (1, 2)
