@@ -12,14 +12,24 @@ ending the run with a non-zero exit when it fails:
   kernel_q4     library call's and the bound: bf16, int8 and int4 decode
   kernel_w4mm   attention, the W4 dequant-matmul and the fused W4 FFN;
   kernel_w4ffn
+  kernel_append the per-slot KV-cache row append, bit for bit, on every
+                stream the serving paths write;
   reference     small models on the card against the same models on the CPU
                 (the CPU path is the one the tests hold to the JAX package):
                 bf16, W8 + int8 cache, W4 split-rope + int4 cache;
+  serve_reference  the same three small models through per-slot decode steps
+                (decode_step_multi), card against CPU, and a small serving
+                engine's slot isolation on the card;
   c2i           GPT-B class-to-image at 384 px through ControlARPipeline:
                 Canny -> DINOv2-small -> CFG decode -> VQ-16, batch 8;
   t2i           GPT-XL text-to-image at 512 px with left-padded captions;
   c2i_w8kv8     c2i with W8A16 weights and the int8 KV cache;
   c2i_3b_w4kv4  GPT-3B c2i with W4A16 split-rope weights and the int4 cache;
+  serve_c2i     continuous-batching serving (ServeEngine) of the c2i model,
+                16 requests with adapter features on 8 slots, quantum 72,
+                timed sync, overlapped, overlapped, sync (identical
+                tokens and statistics required), then VQ-16 decoded;
+  serve_c2i_w8kv8  the same traffic on the c2i_w8kv8 model and int8 cache;
 then the `kernels` line and, last, the `ok` line. The cells are built by
 `controlar_tpu_torch.cells`; weights are random, made from fixed seeds. Each
 cell phase sets every kernel's launch count to 0 before its timed calls and
@@ -86,6 +96,7 @@ def time_ms(fn, reps: int = 20, flush: torch.Tensor | None = None) -> float:
 
 def _kernels():
     """name -> (wrapper, CUDA source, the TPU kernel it replaces)."""
+    from controlar_tpu_torch.ops import cache_append as ca
     from controlar_tpu_torch.ops import flash_decode as fd
     from controlar_tpu_torch.ops import w4_matmul as w4
 
@@ -98,6 +109,8 @@ def _kernels():
                                       "controlar_tpu/ops/flash_decode2.py:592"),
         "w4_matmul": (w4.w4_matmul, "w4_matmul.cu", "controlar_tpu/ops/w4_matmul.py:160"),
         "w4_ffn": (w4.w4_ffn, "w4_ffn.cu", "controlar_tpu/ops/w4_matmul.py:242"),
+        "cache_append_rows": (ca.cache_append_rows, "cache_append.cu",
+                              "controlar_tpu/ops/cache_append.py:32"),
     }
 
 
@@ -438,6 +451,61 @@ def phase_kernel_w4ffn():
     return row, max_err
 
 
+# stream, cache dtype, cache rows, row width (elements): what the serving
+# decode step writes at 16 rows (8 slots with CFG)
+APPEND_STREAMS = (
+    ("gpt_b_bf16", torch.bfloat16, 768, 1536),    # [k|v] rows, 3072 B
+    ("gpt_b_int8", torch.int8, 768, 1536),        # int8 rows
+    ("gpt_b_scales", torch.float32, 768, 24),     # 12-head [k|v] scales, 96 B
+    ("gpt_xl_bf16", torch.bfloat16, 1280, 2560),
+    ("gpt_3b_int4", torch.int8, 768, 3200),       # nibble carriers
+    ("gpt_3b_scales", torch.float32, 768, 64),    # 32-head scales, 256 B
+    ("odd_width", torch.int8, 768, 7),            # 1-byte vectors
+)
+
+
+def phase_kernel_append():
+    """cache_append_rows against its plain version, bit for bit, on every
+    stream the serving paths write, at per-slot positions that include 0 and
+    S-1; timed at the GPT-B bf16 stream. The plain version is one indexed
+    assignment, which is also the one-call library yardstick: its time is
+    recorded under both."""
+    from controlar_tpu_torch.ops.cache_append import (
+        cache_append_rows as kern,
+        cache_append_rows_ref as plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    b, timed = 16, None
+    for name, dt, s, w in APPEND_STREAMS:
+        if dt == torch.int8:
+            cache = torch.randint(-128, 128, (b, s, w), generator=gen, device="cuda", dtype=dt)
+            rows = torch.randint(-128, 128, (b, w), generator=gen, device="cuda", dtype=dt)
+        else:
+            cache = torch.randn(b, s, w, generator=gen, device="cuda").to(dt)
+            rows = torch.randn(b, w, generator=gen, device="cuda").to(dt)
+        pos = torch.tensor([0, s - 1] + [(37 * i) % s for i in range(1, b - 1)],
+                           dtype=torch.int32, device="cuda")
+        want = plain(cache.clone(), rows, pos)
+        kern(cache, rows, pos)
+        torch.cuda.synchronize()
+        check(torch.equal(cache.view(torch.uint8), want.view(torch.uint8)), "kernel_append",
+              f"{name}: the cache differs from the plain version's")
+        if timed is None:
+            timed = (cache, rows, pos)
+    cache, rows, pos = timed
+    nbytes = 2 * rows.numel() * rows.element_size() + pos.numel() * 4  # rows in and out
+    bound, by = _roofline(nbytes, 0, FP32_FLOPS)
+    plain_ms = time_ms(lambda: plain(cache, rows, pos), flush=flush)
+    row = dict(case="gpt_b_bf16", rows=b, row_bytes=rows.shape[1] * rows.element_size(),
+               s=cache.shape[1], ms=time_ms(lambda: kern(cache, rows, pos), flush=flush),
+               plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound, bound_by=by)
+    emit("kernel_append", ok=True, name="cache_append_rows", bit_exact=True,
+         streams=[s[0] for s in APPEND_STREAMS], timings=[row])
+    return row, 0.0
+
+
 def phase_reference():
     """A small fp32 model on the card (kernel path) against the same weights
     on the CPU (plain path): Canny bit for bit, the adapter, prefill and
@@ -552,6 +620,99 @@ def _quantized_reference(mode: str, cache_dtype):
             logits["cpu"].abs().max().item())
 
 
+def _multi_reference(mode, cache_dtype):
+    """Prefill and three per-slot decode steps (`decode_step_multi`) of a
+    small t2i model with a column mask and per-row control strengths, on the
+    card (kernels on) and on the CPU (their plain versions). Rows start at
+    positions 5, 8, 6 and 0 and advance by 1, 1, 0 and 0: a frozen slot and
+    a never-admitted one. mode None keeps fp32 weights (bf16 cache).
+    -> (max abs logit difference over the first three rows, max |logit| on
+    the CPU, max abs logit difference of the never-admitted row). That row
+    attends to one cache row with weight 1, so a flipped int4 rounding of it
+    moves its output by up to 1/7 of a head's max (1-2% of the logits where
+    the other rows see 0.1-0.3%, in a CPU emulation of the kernels'
+    numerics); the engine discards its logits, so it is reported, not held
+    to the limit."""
+    from controlar_tpu_torch import decode as tdec
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.quant import quantize_gpt
+
+    cfg = GPTConfig(model_type="t2i", dim=256, n_layer=3, n_head=4, vocab_size=64,
+                    caption_dim=32, cls_token_num=5, block_size=16)
+    gpt = tgpt.init_gpt(cfg, seed=2)
+    gen = torch.Generator().manual_seed(8)
+    torch.nn.init.normal_(gpt.output.weight, std=0.02, generator=gen)  # zero at init (t2i)
+    if mode is not None:
+        quantize_gpt(gpt, cfg, mode=mode, split_rope=mode == "w4")
+    prefix = torch.randn(4, 5, 256, generator=gen)
+    fused3 = torch.randn(3, 4, 16, 256, generator=gen) * 0.5
+    col_mask = torch.arange(5)[None, :] >= torch.tensor([0, 2, 4, 0])[:, None]
+    full = torch.cat([col_mask, torch.ones(4, 251, dtype=torch.bool)], 1)
+    toks = torch.randint(0, 64, (4, 3), generator=gen)
+    strength = torch.tensor([0.8, 1.0, 1.2, 0.5])[:, None, None]
+    pos0, advance = torch.tensor([5, 8, 6, 0], dtype=torch.int32), torch.tensor([1, 1, 0, 0])
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        gpt = gpt.to(dev)
+        caches = tdec.init_flat_caches(cfg, 4, 256, cache_dtype or torch.bfloat16, dev)
+        lg, caches = tdec.prefill_flat(gpt, cfg, caches, prefix.to(dev), fused3.to(dev),
+                                       col_mask.to(dev))
+        out, pos = [lg.cpu()], pos0
+        for i in range(3):
+            lg, caches = tdec.decode_step_multi(
+                gpt, cfg, caches, toks[:, i].to(dev), pos.to(dev), fused3.to(dev),
+                control_strength=strength.to(dev), use_flash=True, col_mask_full=full.to(dev))
+            out.append(lg.cpu())
+            pos = (pos + advance).int()
+        logits[dev] = torch.stack(out)
+    diff = (logits["cuda"] - logits["cpu"]).abs()
+    check(bool(torch.isfinite(logits["cuda"]).all()), "serve_reference",
+          f"{mode}: non-finite logits on the card")
+    return (diff[:, :3].max().item(), logits["cpu"].abs().max().item(),
+            diff[:, 3].max().item())
+
+
+def phase_serve_reference():
+    """Per-slot decode steps, card against CPU, for the bf16 (fp32 weights),
+    W8 + int8-cache and W4 split-rope + int4-cache models; then request 0 of
+    a small bf16 serving engine alone and with a neighbour admitted one
+    step() later: identical sampled tokens on the card."""
+    from controlar_tpu_torch.cells import serve_requests, serve_staggered
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.serve import ServeConfig, ServeEngine
+
+    errs = {"bf16": _multi_reference(None, None)}
+    check(errs["bf16"][0] <= REF_TOL, "serve_reference",
+          f"bf16: card vs CPU max_abs_err {errs['bf16'][0]} > {REF_TOL}")
+    for name, mode, cache in (("w8_kv8", "int8", torch.int8), ("w4split_kv4", "w4", "int4")):
+        err, scale, _ = errs[name] = _multi_reference(mode, cache)
+        check(err <= QUANT_REF_TOL[name] * scale, "serve_reference",
+              f"{name}: card vs CPU max_abs_err {err} > {QUANT_REF_TOL[name]} * {scale}")
+
+    cfg = GPTConfig(model_type="c2i", dim=128, n_layer=3, n_head=2, vocab_size=64,
+                    num_classes=10, block_size=16)
+    model = tgpt.init_gpt(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+
+    def run(n):
+        eng = ServeEngine(model, cfg, ServeConfig(max_slots=2, quantum=6, top_k=8),
+                          device="cuda")
+        return serve_staggered(eng, serve_requests(n, num_classes=10), upfront=1,
+                               add_after_step=1)
+
+    solo, duo = run(1), run(2)
+    check(np.array_equal(solo[0].tokens, duo[0].tokens), "serve_reference",
+          "request 0's tokens depend on its neighbour")
+    check(not np.array_equal(duo[0].tokens, duo[1].tokens), "serve_reference",
+          "the two requests gave the same tokens")
+    emit("serve_reference", ok=True, max_abs_err={k: v[0] for k, v in errs.items()},
+         logit_scale={k: v[1] for k, v in errs.items()},
+         never_admitted_row_max_abs_err={k: v[2] for k, v in errs.items()},
+         tol_bf16_abs=REF_TOL,
+         tol_quantized_relative=QUANT_REF_TOL, slot_isolation=True)
+
+
 def _expected_per_call(name: str, cfg) -> dict:
     """Launches of each kernel in one generate call of the cell: attention
     at every decode step of every layer; on the W4 path two W4 products
@@ -613,7 +774,112 @@ def phase_cell(name: str, runs: int) -> dict:
     return launches
 
 
+def _serve_expected(cfg, scfg, slot_steps: int) -> dict:
+    """Launches of one serving run: at every decode step of every layer one
+    attention call and one row append per cache stream (rows, and scales for
+    the int8 cache); steps = slot_steps / max_slots. Admission prefills
+    launch no kernel."""
+    steps = cfg.n_layer * slot_steps // scfg.max_slots
+    if scfg.cache_dtype == torch.int8:
+        return {"flash_decode_attention_q8": steps, "cache_append_rows": 2 * steps}
+    return {"flash_decode_attention": steps, "cache_append_rows": steps}
+
+
+def _serve_run(engine, feats, wrappers):
+    """One timed serving run of the cell's traffic, every launch count set
+    to 0 just before it and read just after."""
+    from controlar_tpu_torch.cells import (
+        SERVE_ADD_AFTER_STEP, SERVE_REQUESTS, SERVE_UPFRONT, serve_requests, serve_staggered)
+
+    engine.stats = {"slot_steps": 0, "useful_steps": 0}
+    reqs = serve_requests(SERVE_REQUESTS, feats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    done = serve_staggered(engine, reqs, SERVE_UPFRONT, SERVE_ADD_AFTER_STEP)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    lat = sorted(r.t_done - r.t_submit for r in done)
+    stats = dict(engine.stats)
+    return done, dict(
+        seconds=seconds, images_per_s=len(done) / seconds,
+        latency_median_s=statistics.median(lat), latency_max_s=lat[-1], stats=stats,
+        waste_share=1 - stats["useful_steps"] / stats["slot_steps"],
+        launches={k: v for k, v in launches.items() if v},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30), launches
+
+
+def phase_serve(name: str, overlap: bool) -> dict:
+    """A warm serving run of 8 requests, then timed runs of the cell's 16
+    requests: one sync run, or with `overlap` four in the order sync,
+    overlapped admission, overlapped admission, sync (so neither mode always
+    runs second). Every run's tokens and statistics must equal the first's
+    and its launch counts must be exact; the tokens are decoded by the VQ-16
+    decoder into finite, non-constant images. Returns the launches of the
+    timed runs."""
+    import dataclasses
+
+    from controlar_tpu_torch.cells import CELLS, SERVE_CELLS, SERVE_REQUESTS, build_serve_cell
+    from controlar_tpu_torch.models import vq as vq_model
+    from controlar_tpu_torch.pipeline import to_uint8_image
+    from controlar_tpu_torch.serve import Request, ServeEngine
+
+    t0 = time.perf_counter()
+    pipe, eng, feats = build_serve_cell(name, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg, scfg = pipe.gpt_cfg, eng.scfg
+    eng.run([Request(request_id=999 + i, label=0, cfg_scale=4.0, seed=0,
+                     adapter_features=feats[i]) for i in range(8)])  # warm
+    wrappers = {k: v[0] for k, v in _kernels().items()}
+    engines = {"sync": eng}
+    order = ("sync",)
+    if overlap:
+        engines["overlap"] = ServeEngine(
+            pipe.gpt, cfg, dataclasses.replace(scfg, overlap_admission=True), device="cuda")
+        order = ("sync", "overlap", "overlap", "sync")
+    runs, total, tokens = collections.defaultdict(list), collections.Counter(), None
+    for mode in order:
+        done, run, launches = _serve_run(engines[mode], feats, wrappers)
+        runs[mode].append(run)
+        total.update(launches)
+        want = _serve_expected(cfg, scfg, run["stats"]["slot_steps"])
+        for k, got in launches.items():
+            check(got == want.get(k, 0), name, f"{mode}: {k} launches {got} != {want.get(k, 0)}")
+        got_tokens = np.stack([r.tokens for r in done])
+        check(got_tokens.shape == (SERVE_REQUESTS, cfg.block_size)
+              and int(got_tokens.min()) >= 0 and int(got_tokens.max()) < cfg.vocab_size,
+              name, f"{mode}: tokens {got_tokens.shape} out of shape or range")
+        if tokens is None:
+            tokens = got_tokens
+            continue
+        check(np.array_equal(got_tokens, tokens), name, f"{mode}: the tokens changed")
+        check(run["stats"] == runs["sync"][0]["stats"], name, f"{mode}: the statistics changed")
+    gh, gw = cfg.grid
+    imgs = []
+    with torch.inference_mode():
+        for chunk in np.split(tokens, SERVE_REQUESTS // 8):
+            idx = torch.as_tensor(chunk, device="cuda").long().reshape(-1, gh, gw)
+            imgs.append(to_uint8_image(vq_model.decode_code(pipe.vq, pipe.vq_cfg, idx)))
+    imgs = np.concatenate(imgs)
+    px = gh * 16
+    check(imgs.shape == (SERVE_REQUESTS, px, px, 3) and float(imgs.std()) > 0, name,
+          f"images {imgs.shape}, std {float(imgs.std())}")
+    # finite: to_uint8_image raises on a non-finite decoded image
+    emit(name, ok=True, model=CELLS[SERVE_CELLS[name]]["size"], cell=SERVE_CELLS[name],
+         cache_dtype=str(scfg.cache_dtype), max_slots=scfg.max_slots, quantum=scfg.quantum,
+         top_k=scfg.top_k, requests=SERVE_REQUESTS, tokens=cfg.block_size, build_s=build_s,
+         runs=runs, images=list(imgs.shape), finite=True,
+         launches_per_step={k: v / (runs["sync"][0]["stats"]["slot_steps"] // scfg.max_slots)
+                            for k, v in runs["sync"][0]["launches"].items()})
+    return total
+
+
 CELL_RUNS = (("c2i", 3), ("t2i", 3), ("c2i_w8kv8", 3), ("c2i_3b_w4kv4", 3))
+SERVE_RUNS = (("serve_c2i", True), ("serve_c2i_w8kv8", False))  # cell, overlap run too
 
 
 def main() -> int:
@@ -634,11 +900,17 @@ def main() -> int:
                                       "B=16 H=32 D=100 S=768 pos=575"),
         "w4_matmul": (*phase_kernel_w4mm(), "GPT-3B wqkv: 16 x 3200 -> 9600"),
         "w4_ffn": (*phase_kernel_w4ffn(), "GPT-3B FFN: 16 x 3200, F=8704"),
+        "cache_append_rows": (*phase_kernel_append(),
+                              "serve_c2i step: 16 GPT-B bf16 rows of 3072 B, S 768"),
     }
     phase_reference()
+    phase_serve_reference()
     launches = collections.Counter()
     for name, runs in CELL_RUNS:
         launches.update(phase_cell(name, runs))
+        torch.cuda.empty_cache()
+    for name, overlap in SERVE_RUNS:
+        launches.update(phase_serve(name, overlap))
         torch.cuda.empty_cache()
     emit("total", seconds=time.perf_counter() - t_start)
     entries = []
@@ -648,7 +920,7 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda", "source": f"controlar_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": launches[name],  # the cells' timed runs
+            "launches": launches[name],  # the timed runs of the cells and serving cells
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "timed_at": where,

@@ -16,8 +16,22 @@ their pipelines here, so both drive the same configuration.
 All: batch 8 (16 rows with CFG), top_k 2000, Canny on synthetic images,
 DINOv2-small adapter, VQ-16 decoder, bf16 GPT (quantized after it is made,
 layer by layer, on the device), fp32 adapter and decoder.
+
+The serving cells run `serve.ServeEngine` over the GPT of a pipeline cell,
+with the traffic of the JAX package's `bench.py` extra_serve:
+
+  serve_c2i         the c2i model, bf16 weights and cache
+  serve_c2i_w8kv8   the c2i_w8kv8 model: W8A16 weights and the int8 cache
+                    (the JAX CLI's `serve --quant`)
+
+max_slots 8 (16 rows with CFG), quantum 72, top_k 2000, CFG 4.0; 16
+requests (`serve_requests`), 8 submitted up front and 8 after the second
+`step()` (`serve_staggered`). Unlike extra_serve, each request carries the
+adapter features of its own synthetic condition image.
 """
 from __future__ import annotations
+
+from typing import List
 
 import numpy as np
 import torch
@@ -28,6 +42,7 @@ from controlar_tpu_torch.models import vit as vit_model
 from controlar_tpu_torch.models import vq as vq_model
 from controlar_tpu_torch.pipeline import ControlARPipeline
 from controlar_tpu_torch.quant import quantize_gpt
+from controlar_tpu_torch.serve.engine import Request, ServeConfig, ServeEngine
 
 _C2I = dict(model_type="c2i", cls_token_num=1, image_px=384, cfg_scale=4.0)
 CELLS = {
@@ -88,3 +103,52 @@ def build_cell(name: str, seed: int = 0, device="cuda"):
         kw["caption_emb"] = caption.bfloat16() * masks[:, :, None]
         kw["emb_masks"] = masks
     return pipe, kw
+
+
+SERVE_CELLS = {"serve_c2i": "c2i", "serve_c2i_w8kv8": "c2i_w8kv8"}  # -> pipeline cell
+SERVE_SLOTS, SERVE_QUANTUM = 8, 72
+SERVE_REQUESTS, SERVE_UPFRONT, SERVE_ADD_AFTER_STEP = 16, 8, 2
+
+
+def serve_requests(n: int, features=None, *, num_classes: int = 1000, cfg_scale: float = 4.0,
+                   start_id: int = 0) -> List[Request]:
+    """The serving traffic of the JAX package's extra_serve: request i has
+    label (i * 37) % num_classes and seed i; with `features`, request i
+    carries features[i] as its adapter features."""
+    return [Request(request_id=start_id + i, label=(i * 37) % num_classes, cfg_scale=cfg_scale,
+                    seed=i, adapter_features=None if features is None else features[i])
+            for i in range(n)]
+
+
+def serve_staggered(engine: ServeEngine, requests: List[Request], upfront: int,
+                    add_after_step: int) -> List[Request]:
+    """Submit the first `upfront` requests, the rest after step() number
+    `add_after_step`, step until every request is done, collect what is in
+    flight; returns the finished requests sorted by request_id."""
+    for r in requests[:upfront]:
+        engine.add_request(r)
+    pending, steps = list(requests[upfront:]), 0
+    while engine.has_unfinished() or pending:
+        engine.step()
+        steps += 1
+        if steps >= add_after_step and pending:
+            for r in pending:
+                engine.add_request(r)
+            pending = []
+    engine.flush()
+    done, engine.finished = engine.finished, []
+    return sorted(done, key=lambda r: r.request_id)
+
+
+def build_serve_cell(name: str, seed: int = 0, device="cuda"):
+    """-> (pipeline of the cell's model, engine over its GPT (sync
+    admission), adapter features (SERVE_REQUESTS, block_size, 384) of the
+    cell's synthetic condition images, computed on the device)."""
+    base = SERVE_CELLS[name]
+    pipe, _ = build_cell(base, seed, device)
+    scfg = ServeConfig(max_slots=SERVE_SLOTS, quantum=SERVE_QUANTUM, top_k=TOP_K,
+                       cache_dtype=CELLS[base].get("cache_dtype") or torch.bfloat16)
+    images = condition_images(SERVE_REQUESTS, CELLS[base]["image_px"], seed + 7)
+    with torch.inference_mode():
+        feats = pipe.control_features(pipe.extract_condition(images))
+    return pipe, ServeEngine(pipe.gpt, pipe.gpt_cfg, scfg, device=device), feats

@@ -18,8 +18,11 @@ same list.
 
 Decode attention runs the kernels when `use_flash` (on the card: CUDA,
 reading only rows <= pos), else a masked einsum over the whole (dequantized)
-slab. Quantized weights (`quant.W8Linear`, `quant.W4Linear`) are called
-where the linears are; a layer with a fused W4 `w13` runs the fused FFN
+slab. `decode_step_flat` decodes every row at one position (the generation
+loop); `decode_step_multi` at a position per row (the serving engine), with
+the new rows written by `cache_append_rows`. Both run one layer loop
+(`_decode_layers`). Quantized weights (`quant.W8Linear`, `quant.W4Linear`)
+are called where the linears are; a layer with a fused W4 `w13` runs the fused FFN
 kernel on the card (`ffn`).
 """
 from __future__ import annotations
@@ -37,6 +40,7 @@ from controlar_tpu_torch.models.gpt import (
     attend_masked,
     make_rope_table,
 )
+from controlar_tpu_torch.ops.cache_append import cache_append_rows
 from controlar_tpu_torch.ops.flash_decode import (
     flash_decode_attention,
     flash_decode_attention_q4,
@@ -124,17 +128,30 @@ def _quantize_rows_for(cache: Dict[str, torch.Tensor], kv_rows: torch.Tensor, kv
     return quantize_kv_rows(kv_rows, kv_heads)
 
 
+def _cache_streams(cache: Cache, kv_rows: torch.Tensor, kv_heads: int, split: bool):
+    """(destination, source) pairs that store new rows kv_rows (..., 2*KV*D):
+    the slab and the rows, or a quantized cache's rows and scales."""
+    if isinstance(cache, dict):
+        rows, scales = _quantize_rows_for(cache, kv_rows, kv_heads, split)
+        return ((cache["kv4" if "kv4" in cache else "kv"], rows), (cache["s"], scales))
+    return ((cache, kv_rows),)
+
+
 def _write_rows(cache: Cache, kv_rows: torch.Tensor, start: int, kv_heads: int,
                 split: bool) -> None:
     """cache[:, start:start+T] = kv_rows (B, T, 2*KV*D), quantized for a
     quantized cache; in place."""
     stop = start + kv_rows.shape[1]
-    if isinstance(cache, dict):
-        rows, scales = _quantize_rows_for(cache, kv_rows, kv_heads, split)
-        cache["kv4" if "kv4" in cache else "kv"][:, start:stop] = rows
-        cache["s"][:, start:stop] = scales
-    else:
-        cache[:, start:stop] = kv_rows
+    for dst, src in _cache_streams(cache, kv_rows, kv_heads, split):
+        dst[:, start:stop] = src
+
+
+def _append_rows(cache: Cache, kv_row: torch.Tensor, pos: torch.Tensor, kv_heads: int,
+                 split: bool) -> None:
+    """cache[b, pos[b]] = kv_row[b] (B, 2*KV*D), quantized for a quantized
+    cache, one `cache_append_rows` per stream; in place."""
+    for dst, src in _cache_streams(cache, kv_row, kv_heads, split):
+        cache_append_rows(dst, src, pos)
 
 
 def _dequant_slab(cache: Dict[str, torch.Tensor], cfg: GPTConfig, dtype, split: bool = False):
@@ -223,6 +240,59 @@ def prefill_flat(
     return _logits(model, cfg, h[:, -1]), caches
 
 
+def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, token: torch.Tensor,
+                   pos: Union[int, torch.Tensor], rope: Rope, control, write_row,
+                   col_mask_full: Optional[torch.Tensor], control_strength,
+                   use_flash: bool) -> torch.Tensor:
+    """The layer loop of the decode steps; returns the logits (B, V) f32.
+
+    pos is one position for every row, or a (B,) int32 tensor of a position
+    per row; rope holds the rows' RoPE; control(f) -> (B, 1, dim) picks each
+    row's control token from fusion slab f (None: no control);
+    write_row(cache, kv_row (B, 2*KV*D)) stores the new rows in place."""
+    b = token.shape[0]
+    dev = token.device
+    hd, kvd = cfg.n_head * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    split = isinstance(rope, tuple)
+    gate, fidx = _fusion_gates(cfg)
+    s_max = cache_seq_len(caches)
+    col_bias = None
+    if use_flash:
+        if col_mask_full is not None:
+            col_bias = torch.where(col_mask_full, 0.0, -1e9).float()
+    else:
+        last = pos[:, None] if isinstance(pos, torch.Tensor) else pos
+        allowed = torch.arange(s_max, device=dev)[None, :] <= last
+        if col_mask_full is not None:
+            allowed = allowed & col_mask_full
+        mask = allowed[:, None, None, :]
+
+    h = model.tok_embeddings(token)[:, None, :]
+    for l, lp in enumerate(model.layers):
+        if control is not None and gate[l] > 0:
+            h = h + _fuse(control(fidx[l]), control_strength, h.dtype)
+        x = rms_norm(h, lp.attention_norm, cfg.norm_eps)
+        q, k, v = _qkv_for(lp, cfg, x, rope)  # (B, 1, H, D), (B, 1, KV, D)
+        cache = caches[l]
+        write_row(cache, torch.cat([k.reshape(b, kvd), v.reshape(b, kvd)], dim=-1))
+        quant = isinstance(cache, dict)
+        if use_flash:
+            q2d = q.reshape(b, hd).contiguous()  # split-rope q is a slice of [q|k]
+            if quant:
+                attn = _flash_quant_attn(q2d, cache, pos, col_bias, cfg, split)
+            else:
+                attn = flash_decode_attention(q2d, cache, pos, col_bias, n_head=cfg.n_head)
+            attn = attn.to(h.dtype)[:, None, :]
+        else:
+            slab = _dequant_slab(cache, cfg, h.dtype, split) if quant else cache
+            kl = slab[:, :, :kvd].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
+            vl = slab[:, :, kvd:].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
+            attn = attend_masked(q, kl, vl, mask)
+        h = h + lp.wo(attn)
+        h = h + ffn(lp, rms_norm(h, lp.ffn_norm, cfg.norm_eps))
+    return _logits(model, cfg, h[:, -1])
+
+
 def decode_step_flat(
     model: GPT,
     cfg: GPTConfig,
@@ -237,49 +307,73 @@ def decode_step_flat(
 ) -> Tuple[torch.Tensor, Caches]:
     """One decode step at position pos for token (B,); returns (logits (B, V)
     f32, caches). Position pos receives control token pos - cls_token_num + 1."""
-    b = token.shape[0]
-    dev = token.device
-    hd = cfg.n_head * cfg.head_dim
-    gate, fidx = _fusion_gates(cfg)
     if rope_table is None:
-        rope_table = rope_tables(model, cfg, dev)
+        rope_table = rope_tables(model, cfg, token.device)
     rope = _rope_rows(rope_table, pos, pos + 1)
     split = isinstance(rope, tuple)
-    fuse_pos = pos - cfg.cls_token_num + 1
+    f = pos - cfg.cls_token_num + 1
+    control = None if fused3 is None else (lambda i: fused3[i][:, f:f + 1])
 
-    s_max = cache_seq_len(caches)
-    col_bias = None
-    if use_flash:
-        if col_mask_full is not None:
-            col_bias = torch.where(col_mask_full, 0.0, -1e9).float()
-    else:
-        allowed = torch.arange(s_max, device=dev)[None, :] <= pos
-        if col_mask_full is not None:
-            allowed = allowed & col_mask_full
-        mask = allowed[:, None, None, :]
+    def write_row(cache, kv_row):
+        _write_rows(cache, kv_row[:, None], pos, cfg.kv_heads, split)
 
-    h = model.tok_embeddings(token)[:, None, :]
-    for l, lp in enumerate(model.layers):
-        if fused3 is not None and gate[l] > 0:
-            h = h + _fuse(fused3[fidx[l]][:, fuse_pos:fuse_pos + 1], control_strength, h.dtype)
-        x = rms_norm(h, lp.attention_norm, cfg.norm_eps)
-        q, k, v = _qkv_for(lp, cfg, x, rope)  # (B, 1, H, D)
-        cache = caches[l]
-        _write_rows(cache, torch.cat([k.reshape(b, 1, hd), v.reshape(b, 1, hd)], dim=-1),
-                    pos, cfg.kv_heads, split)
-        quant = isinstance(cache, dict)
-        if use_flash:
-            q2d = q.reshape(b, hd).contiguous()  # split-rope q is a slice of [q|k]
-            if quant:
-                attn = _flash_quant_attn(q2d, cache, pos, col_bias, cfg, split)
-            else:
-                attn = flash_decode_attention(q2d, cache, pos, col_bias, n_head=cfg.n_head)
-            attn = attn.to(h.dtype)[:, None, :]
-        else:
-            slab = _dequant_slab(cache, cfg, h.dtype, split) if quant else cache
-            kl = slab[:, :, :hd].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
-            vl = slab[:, :, hd:].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
-            attn = attend_masked(q, kl, vl, mask)
-        h = h + lp.wo(attn)
-        h = h + ffn(lp, rms_norm(h, lp.ffn_norm, cfg.norm_eps))
-    return _logits(model, cfg, h[:, -1]), caches
+    logits = _decode_layers(model, cfg, caches, token, pos, rope, control, write_row,
+                            col_mask_full, control_strength, use_flash)
+    return logits, caches
+
+
+def _rope_at(rope: Rope, pos: torch.Tensor) -> Rope:
+    """Per-slot RoPE rows: (B, 1, D/2, 2), or for split rope (cos, sin),
+    each (B, 1, (H + KV) * D)."""
+    idx = pos.long()
+    if isinstance(rope, tuple):
+        return tuple(t[idx][:, None] for t in rope)
+    return rope[idx][:, None]
+
+
+def decode_step_multi(
+    model: GPT,
+    cfg: GPTConfig,
+    caches: Caches,
+    token: torch.Tensor,
+    pos: torch.Tensor,
+    fused3: Optional[torch.Tensor] = None,
+    control_strength=1.0,
+    use_flash: bool = True,
+    col_mask_full: Optional[torch.Tensor] = None,
+    rope_table: Optional[Rope] = None,
+) -> Tuple[torch.Tensor, Caches]:
+    """One decode step with a position per row: token (B,), pos (B,) int32
+    on the device (the serving engine's step, each slot at its own depth).
+    Returns (logits (B, V) f32, caches); the rows are written in place.
+
+    control_strength is a float or a (B, 1, 1) tensor. Row b receives control
+    token f = pos[b] - cls_token_num + 1, which leaves the block on a frozen
+    slot at the last position (f = block_size) and on a never-admitted slot
+    at position 0 (f = 1 - cls_token_num); as in the JAX package's dynamic
+    slice, a negative f counts once from the end and f is then clamped to
+    [0, block_size - 1] (the rows of such slots are discarded). The rows go
+    through `cache_append_rows` (its kernel on the card); attention through
+    the flash kernels with the column bias of col_mask_full under use_flash,
+    else the masked einsum. Only the flat cache is ported (`kv_stacked` is
+    ROADMAP slice 5)."""
+    if not isinstance(caches, (list, tuple)):
+        raise NotImplementedError("the stacked KV cache is not ported (ROADMAP slice 5)")
+    dev = token.device
+    if rope_table is None:
+        rope_table = rope_tables(model, cfg, dev)
+    rope = _rope_at(rope_table, pos)
+    split = isinstance(rope, tuple)
+    f = pos.long() - cfg.cls_token_num + 1
+    # the JAX package's dynamic slice: a negative start counts once from the
+    # end, then the start is clamped into the block
+    f = torch.clamp(torch.where(f < 0, f + cfg.block_size, f), 0, cfg.block_size - 1)
+    rows_idx = torch.arange(token.shape[0], device=dev)
+    control = None if fused3 is None else (lambda i: fused3[i][rows_idx, f][:, None])
+
+    def write_row(cache, kv_row):
+        _append_rows(cache, kv_row, pos, cfg.kv_heads, split)
+
+    logits = _decode_layers(model, cfg, caches, token, pos, rope, control, write_row,
+                            col_mask_full, control_strength, use_flash)
+    return logits, caches

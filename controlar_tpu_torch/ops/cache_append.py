@@ -1,0 +1,94 @@
+"""Per-slot KV-cache row append.
+
+`cache_append_rows(cache, rows, pos)` sets `cache[b, pos[b]] = rows[b]` in
+place for cache (B, S, W), rows (B, W) (cast to the cache's dtype, as the JAX
+package's `cache_append_rows` does) and pos (B,) int32, and returns `cache`.
+It takes every stream the serving decode step writes: bf16 `[k|v]` rows,
+int8 rows, nibble-packed int4 carriers and the unpadded f32 scales.
+
+On a CUDA tensor it launches `csrc/cache_append.cu`, which copies each row's
+bytes at the widest aligned vector width; on a CPU tensor it takes
+`cache_append_rows_ref`, one indexed assignment. Positions must lie in
+[0, S): the kernel skips a row whose position does not (it never writes
+outside the cache), while the plain version raises on it.
+
+The JAX package's kernel rewrites the aligned 8- or 32-row window around
+pos[b], a requirement of the TPU's DMA tiling only; one row is addressed
+directly here.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from controlar_tpu_torch import _build
+
+
+def cache_append_rows_ref(cache: torch.Tensor, rows: torch.Tensor,
+                          pos: torch.Tensor) -> torch.Tensor:
+    """Plain version: one indexed assignment, in place; returns cache."""
+    b = cache.shape[0]
+    cache[torch.arange(b, device=cache.device), pos.long()] = rows.to(cache.dtype)
+    return cache
+
+
+def _vec_bytes(row_bytes: int, *ptrs: int) -> int:
+    """The widest of 16, 8, 4, 2, 1 bytes dividing the row width and every
+    pointer."""
+    for v in (16, 8, 4, 2):
+        if row_bytes % v == 0 and all(p % v == 0 for p in ptrs):
+            return v
+    return 1
+
+
+def _check(cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor):
+    if cache.dim() != 3:
+        raise ValueError(f"cache must be (B, S, W), got {tuple(cache.shape)}")
+    b, s, w = cache.shape
+    if rows.shape != (b, w):
+        raise ValueError(f"rows must be ({b}, {w}), got {tuple(rows.shape)}")
+    if pos.shape != (b,) or pos.dtype != torch.int32:
+        raise ValueError(f"pos must be ({b},) int32, got {tuple(pos.shape)} {pos.dtype}")
+    for t in (rows, pos):
+        if t.device != cache.device:
+            raise ValueError(f"all operands must be on {cache.device}, got {t.device}")
+    if not (cache.is_contiguous() and pos.is_contiguous()):
+        raise ValueError("cache and pos must be contiguous")
+    if cache.device.index != torch.cuda.current_device():
+        raise ValueError(f"cache is on {cache.device}, the current device is cuda:"
+                         f"{torch.cuda.current_device()}")
+
+
+def _lib():
+    f = _build.load("cache_append").cache_append_rows
+    if f.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        f.argtypes = [p, p, p, i, i, ctypes.c_longlong, i, p]
+        f.restype = ctypes.c_int
+    return f
+
+
+def cache_append_rows(cache: torch.Tensor, rows: torch.Tensor,
+                      pos: torch.Tensor) -> torch.Tensor:
+    """cache[b, pos[b]] = rows[b], in place; see the module docstring."""
+    if cache.device.type == "cpu":
+        return cache_append_rows_ref(cache, rows, pos)
+    if cache.device.type != "cuda":
+        raise ValueError(f"unsupported device {cache.device}")
+    _check(cache, rows, pos)
+    b, s, w = cache.shape
+    if b == 0 or w == 0:
+        return cache
+    src = rows.to(cache.dtype).contiguous()
+    row_bytes = w * cache.element_size()
+    err = _lib()(cache.data_ptr(), src.data_ptr(), pos.data_ptr(), b, s, row_bytes,
+                 _vec_bytes(row_bytes, cache.data_ptr(), src.data_ptr()),
+                 torch.cuda.current_stream(cache.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cache_append_rows launch failed: cudaError {err}")
+    cache_append_rows.launches += 1
+    return cache
+
+
+cache_append_rows.launches = 0

@@ -4,7 +4,8 @@
 
 Builds a cell of `controlar_tpu_torch.cells` (c2i, t2i, c2i_w8kv8,
 c2i_3b_w4kv4) and times `ControlARPipeline.generate` itself, after a warm
-call. Prints JSON lines:
+call; or a serving cell (serve_c2i, serve_c2i_w8kv8) and times
+`ServeEngine.step` itself. Prints JSON lines:
 
   stages   host-clock seconds of each pipeline stage, from the pipeline's
            own `timings` (device synchronised at each stage's end):
@@ -16,7 +17,12 @@ call. Prints JSON lines:
            busy ms per step and its share of the unprofiled step, kernels
            per step, device time by kernel name, and the port's own CUDA
            kernels' device time per step and share of the busy time. The
-           trace is written to DIR/trace_<cell>.json.gz.
+           trace is written to DIR/trace_<cell>.json.gz;
+  serve    (serving cells) after a warm run of 8 requests, 8 requests fill
+           every slot; the first step() admits them and runs a quantum, the
+           second (a full-occupancy quantum, no admission) is timed with CUDA
+           events and the host clock, the third is profiled as above, per
+           decode step of the quantum.
 
 Needs a CUDA device.
 """
@@ -31,11 +37,12 @@ from pathlib import Path
 
 import torch
 
-from controlar_tpu_torch.cells import CELLS, build_cell
+from controlar_tpu_torch.cells import (
+    CELLS, SERVE_CELLS, build_cell, build_serve_cell, serve_requests)
 
 # the port's hand-written kernels, by the names of their __global__ functions
 PORT_KERNELS = ("flash_decode_kernel", "flash_decode_q8_kernel", "flash_decode_q4_kernel",
-                "w4_matmul_kernel", "w4_ffn_kernel")
+                "w4_matmul_kernel", "w4_ffn_kernel", "cache_append_kernel")
 
 
 def stages(pipe, kw: dict) -> dict:
@@ -127,9 +134,43 @@ def decode_window(pipe, kw: dict, steps: int, trace: Path) -> dict:
             **summary}
 
 
+def serve_window(name: str, seed: int, trace: Path) -> dict:
+    """Quanta of `ServeEngine.step` at full occupancy; see the docstring."""
+    pipe, eng, feats = build_serve_cell(name, seed)
+    eng.run(serve_requests(8, feats, start_id=999))  # warm
+    for r in serve_requests(8, feats):
+        eng.add_request(r)
+    eng.step()  # admission and the first quantum
+    q = eng.scfg.quantum
+    pos = eng.pos[:1].item()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    eng.step()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / q
+    device_ms = start.elapsed_time(end) / q
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    raw = trace.read_bytes()
+    trace.unlink()
+    trace.with_suffix(".json.gz").write_bytes(gzip.compress(raw))
+    while eng.has_unfinished():
+        eng.step()
+    summary = _device_summary(raw, q)
+    return {"quantum": q, "slots": eng.scfg.max_slots, "timed_positions": [pos, pos + q - 1],
+            "ms_per_step": wall_ms, "ms_per_step_events": device_ms,
+            "device_busy_share": summary["device_busy_ms_per_step"] / wall_ms, **summary}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cell", choices=sorted(CELLS), default="c2i")
+    ap.add_argument("--cell", choices=sorted(CELLS) + sorted(SERVE_CELLS), default="c2i")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", default="traces")
@@ -140,8 +181,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    pipe, kw = build_cell(args.cell, args.seed)
     device = torch.cuda.get_device_name(0)
+    if args.cell in SERVE_CELLS:
+        print(json.dumps({"cell": args.cell, "device": device, "serve": serve_window(
+            args.cell, args.seed, out / f"trace_{args.cell}.json")}), flush=True)
+        return 0
+    pipe, kw = build_cell(args.cell, args.seed)
     print(json.dumps({"cell": args.cell, "device": device, "stages": stages(pipe, kw)}),
           flush=True)
     print(json.dumps({"cell": args.cell, "device": device, "decode": decode_window(

@@ -246,3 +246,100 @@ def test_w4_launch_counts(dev):
     w4_ffn(x, q13, s13, q2, s2)
     w4_ffn(x, q13, s13, q2, s2)
     assert (w4_matmul.launches, w4_ffn.launches) == (1, 2)
+
+
+# ---- the per-slot KV-cache row append --------------------------------------
+
+# (dtype, row width): GPT-B bf16 [k|v] rows and int8 rows, 12-head f32 scales,
+# GPT-3B int4 carriers (3200 B) and 32-head scales, 3-head scales (24 B: an
+# 8-byte vector), an odd byte width (1-byte vectors)
+APPEND_STREAMS = [(torch.bfloat16, 1536), (torch.int8, 1536), (torch.float32, 24),
+                  (torch.int8, 3200), (torch.float32, 64), (torch.float32, 6), (torch.int8, 7)]
+
+
+@pytest.mark.parametrize("dtype,width", APPEND_STREAMS)
+def test_cache_append_matches_plain_version(dev, dtype, width):
+    from controlar_tpu_torch.ops.cache_append import cache_append_rows, cache_append_rows_ref
+
+    b, s = 16, 768
+    g = torch.Generator(device=dev).manual_seed(width)
+    if dtype == torch.int8:
+        cache = torch.randint(-128, 128, (b, s, width), generator=g, device=dev, dtype=dtype)
+        rows = torch.randint(-128, 128, (b, width), generator=g, device=dev, dtype=dtype)
+    else:
+        cache = torch.randn(b, s, width, generator=g, device=dev).to(dtype)
+        rows = torch.randn(b, width, generator=g, device=dev)  # cast by the wrapper
+    pos = torch.tensor([0, s - 1] + [7 * i + 3 for i in range(b - 2)], dtype=torch.int32,
+                       device=dev)
+    want = cache_append_rows_ref(cache.clone(), rows, pos)
+    before = cache_append_rows.launches
+    out = cache_append_rows(cache, rows, pos)
+    torch.cuda.synchronize()
+    assert out is cache and cache_append_rows.launches == before + 1
+    assert torch.equal(cache.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_cache_append_skips_out_of_range_rows(dev):
+    from controlar_tpu_torch.ops.cache_append import cache_append_rows
+
+    cache = torch.zeros(3, 8, 16, dtype=torch.bfloat16, device=dev)
+    rows = torch.ones(3, 16, device=dev)
+    cache_append_rows(cache, rows, torch.tensor([-1, 8, 2], dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert cache[:2].abs().sum().item() == 0 and cache[2, 2].float().sum().item() == 16
+
+
+@pytest.mark.parametrize("bad", ["pos_dtype", "rows_shape", "noncontig"])
+def test_cache_append_rejects(dev, bad):
+    from controlar_tpu_torch.ops.cache_append import cache_append_rows
+
+    cache = torch.zeros(2, 8, 16, dtype=torch.bfloat16, device=dev)
+    rows = torch.ones(2, 16, device=dev)
+    pos = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    if bad == "pos_dtype":
+        pos = pos.long()
+    elif bad == "rows_shape":
+        rows = rows[:, :8]
+    else:
+        cache = torch.zeros(2, 16, 16, dtype=torch.bfloat16, device=dev)[:, ::2]
+    with pytest.raises(ValueError):
+        cache_append_rows(cache, rows, pos)
+
+
+def test_serve_slot_isolation_on_the_card(dev):
+    """Request 0 alone and with a neighbour admitted one step() later: the
+    same sampled tokens, through the kernels (flash decode, row append)."""
+    from controlar_tpu_torch.cells import serve_requests, serve_staggered
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.ops.cache_append import cache_append_rows
+    from controlar_tpu_torch.serve import ServeConfig, ServeEngine
+
+    cfg = GPTConfig(model_type="c2i", dim=128, n_layer=3, n_head=2, vocab_size=64,
+                    num_classes=10, block_size=16)
+    model = tgpt.init_gpt(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+
+    def run(n):
+        eng = ServeEngine(model, cfg, ServeConfig(max_slots=2, quantum=6, top_k=8), device=dev)
+        return serve_staggered(eng, serve_requests(n, num_classes=10), upfront=1,
+                               add_after_step=1)
+
+    before = cache_append_rows.launches
+    solo, duo = run(1), run(2)
+    assert cache_append_rows.launches > before
+    np.testing.assert_array_equal(solo[0].tokens, duo[0].tokens)
+    assert not np.array_equal(duo[0].tokens, duo[1].tokens)
+
+
+def test_serve_engine_refuses_the_plain_route_on_the_card(dev):
+    """use_flash=False on the card is taken only by a model the attention
+    kernels cannot take (kv_heads != n_head)."""
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.serve import ServeConfig, ServeEngine
+
+    cfg = GPTConfig(model_type="c2i", dim=128, n_layer=1, n_head=2, vocab_size=64,
+                    num_classes=10, block_size=16)
+    model = tgpt.init_gpt(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        ServeEngine(model, cfg, ServeConfig(max_slots=2, use_flash=False), device=dev)

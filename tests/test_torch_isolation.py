@@ -16,6 +16,7 @@ from controlar_tpu_torch.models import gpt as tgpt
 from controlar_tpu_torch.models import vit as tvit
 from controlar_tpu_torch.models import vq as tvq
 from controlar_tpu_torch.pipeline import ControlARPipeline
+from controlar_tpu_torch.serve import Request, ServeConfig, ServeEngine
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "controlar_tpu_torch"
@@ -75,6 +76,19 @@ def test_pipeline_raises_without_a_card_unless_cpu_is_asked():
     pipe = ControlARPipeline(**mods, device="cpu")
     out = pipe.generate(labels=np.array([2]), top_k=4)
     assert out.shape == (1, 4, 4, 3) and out.dtype == np.uint8
+
+
+def test_serve_engine_raises_without_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg, model = _tiny()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(model, cfg)
+    eng = ServeEngine(model, cfg, ServeConfig(max_slots=2, quantum=3, top_k=4), device="cpu")
+    done = eng.run([Request(request_id=i, label=i, seed=i) for i in range(3)])
+    assert [r.tokens.shape for r in done] == [(4,)] * 3
+    with pytest.raises(ValueError):
+        ServeEngine(model, cfg, device="meta")
 
 
 def test_model_on_another_device_is_refused():
