@@ -14,12 +14,23 @@ ending the run with a non-zero exit when it fails:
   kernel_w4ffn
   kernel_append the per-slot KV-cache row append, bit for bit, on every
                 stream the serving paths write;
+  kernel_chunk  the speculative verify's K-query chunk attention, bf16,
+  kernel_chunk_q8  int8 and int4 (split and interleaved), against its plain
+  kernel_chunk_q4  version at the spec cells' verify (K = 4, GPT-3B heads),
+                with K = 1 and 8, the t2i caption bias (diagonal exception)
+                and a 120-query prefill chunk; timed with the plain version,
+                SDPA over the live rows and the bound;
+  kernel_append_block  the K-row block append, bit for bit, on every stream
+                a verify writes;
   reference     small models on the card against the same models on the CPU
                 (the CPU path is the one the tests hold to the JAX package):
                 bf16, W8 + int8 cache, W4 split-rope + int4 cache;
   serve_reference  the same three small models through per-slot decode steps
                 (decode_step_multi), card against CPU, and a small serving
                 engine's slot isolation on the card;
+  spec_reference  the three small models through verify chunks
+                (forward_chunk), card against CPU, and greedy speculative
+                decode against greedy decode on the card;
   c2i           GPT-B class-to-image at 384 px through ControlARPipeline:
                 Canny -> DINOv2-small -> CFG decode -> VQ-16, batch 8;
   t2i           GPT-XL text-to-image at 512 px with left-padded captions;
@@ -30,12 +41,19 @@ ending the run with a non-zero exit when it fails:
                 timed sync, overlapped, overlapped, sync (identical
                 tokens and statistics required), then VQ-16 decoded;
   serve_c2i_w8kv8  the same traffic on the c2i_w8kv8 model and int8 cache;
+  spec_c2i_3b   speculative decode through ControlARPipeline.generate(
+                spec_draft="model"): GPT-3B c2i at 384 px drafted by GPT-B,
+                k = 4, batch 8, CFG 4.0, top_k 2000, Leviathan sampling;
+  spec_c2i_3b_w8kv8  the same with a W8A16 target and the int8 cache;
+  spec_c2i_3b_w4kv4  the same with the c2i_3b_w4kv4 target and int4 cache;
 then the `kernels` line and, last, the `ok` line. The cells are built by
-`controlar_tpu_torch.cells`; weights are random, made from fixed seeds. Each
-cell phase sets every kernel's launch count to 0 before its timed calls and
-checks each count after them. TF32 is off throughout, so fp32 matmuls and
-convolutions run in full fp32 and the reference comparisons are fp32 against
-fp32.
+`controlar_tpu_torch.cells`; weights are random, made from fixed seeds. The
+generation cells run a warm call and two timed calls, the speculative cells
+a 16-token warm call and two timed calls. Each cell phase sets every
+kernel's launch count to 0 before its timed calls (a speculative cell before
+each call) and checks each count after them. TF32 is off throughout, so
+fp32 matmuls and convolutions run in full fp32 and the reference
+comparisons are fp32 against fp32.
 Exits non-zero, printing no result, when there is no CUDA device.
 """
 from __future__ import annotations
@@ -97,6 +115,7 @@ def time_ms(fn, reps: int = 20, flush: torch.Tensor | None = None) -> float:
 def _kernels():
     """name -> (wrapper, CUDA source, the TPU kernel it replaces)."""
     from controlar_tpu_torch.ops import cache_append as ca
+    from controlar_tpu_torch.ops import flash_chunk as fc
     from controlar_tpu_torch.ops import flash_decode as fd
     from controlar_tpu_torch.ops import w4_matmul as w4
 
@@ -111,6 +130,14 @@ def _kernels():
         "w4_ffn": (w4.w4_ffn, "w4_ffn.cu", "controlar_tpu/ops/w4_matmul.py:242"),
         "cache_append_rows": (ca.cache_append_rows, "cache_append.cu",
                               "controlar_tpu/ops/cache_append.py:32"),
+        "flash_chunk_attention": (fc.flash_chunk_attention, "flash_chunk.cu",
+                                  "controlar_tpu/ops/flash_chunk.py:27"),
+        "flash_chunk_attention_q8": (fc.flash_chunk_attention_q8, "flash_chunk.cu",
+                                     "controlar_tpu/ops/flash_chunk.py:27"),
+        "flash_chunk_attention_q4": (fc.flash_chunk_attention_q4, "flash_chunk_q4.cu",
+                                     "controlar_tpu/ops/flash_chunk.py:260"),
+        "cache_append_block": (ca.cache_append_block, "cache_append.cu",
+                               "controlar_tpu/ops/cache_append.py:90"),
     }
 
 
@@ -506,6 +533,157 @@ def phase_kernel_append():
     return row, 0.0
 
 
+def _chunk_cases(with_t2i: bool):
+    """(name, heads, head_dim, cache rows, chunk sizes K, positions, with the
+    caption bias) of the chunk kernels' checks: the spec_c2i_3b verify at its last
+    cycles and per-row positions (one past the block), the t2i shapes with
+    the left-padded bias including chunks inside the prefix (the diagonal
+    exception), K = 1 and 8, and a 120-query prefill chunk."""
+    def rows(*p):
+        return torch.tensor(p, dtype=torch.int32, device="cuda")
+
+    per_row = rows(1, 2, 100, 254, 255, 300, 400, 500, 572, 572, 575, 576, 579, 10, 20, 573)
+    cases = [("3b_verify", 32, 100, 768, (4,), (572, per_row), False),
+             ("3b_k1_k8", 32, 100, 768, (1, 8), (572, per_row), True)]
+    if with_t2i:
+        t2i = rows(0, 3, 100, 117, 119, 120, 500, 1000, 1139, 0, 50, 119, 120, 130, 700, 1100)
+        cases += [("t2i_verify", 20, 64, 1280, (4,), (119, 1139, t2i), True),
+                  ("t2i_prefill", 20, 64, 1280, (120,), (0,), True)]
+    return cases
+
+
+def _chunk_row(name, fn, plain, slab, q, h, d, s, pos, row_bytes, flush):
+    """Time one chunk-attention call (kernel, plain version, SDPA over the
+    first pos + K rows of the (dequantized) bf16 slab with the equivalent
+    boolean mask) and its bound: q and out bf16, row_bytes per live row
+    (values and the f32 scales of a quantized slab); 4 fp32 flops per value
+    pair and query."""
+    import torch.nn.functional as F
+
+    b, k, hd = q.shape
+    n = pos + k
+    nbytes = 2 * b * k * hd * 2 + b * n * row_bytes
+    bound, by = _roofline(nbytes, 4 * b * k * n * h * d, FP32_FLOPS)
+    q4 = q.view(b, k, h, d).transpose(1, 2)
+    k4 = slab[:, :n, :hd].reshape(b, n, h, d).transpose(1, 2)
+    v4 = slab[:, :n, hd:].reshape(b, n, h, d).transpose(1, 2)
+    mask = (torch.arange(n, device="cuda")[None, :]
+            <= pos + torch.arange(k, device="cuda")[:, None])[None, None]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), flush=flush)
+    return dict(case=name, b=b, k=k, h=h, d=d, s=s, pos=pos, ms=time_ms(fn, flush=flush),
+                plain_ms=time_ms(plain, flush=flush), library_ms=lib, bound_ms=bound, bound_by=by)
+
+
+def _phase_chunk(phase, kind):
+    """One chunk kernel against its plain version over `_chunk_cases`, each
+    position with and without the bias where the case has one; timed at the
+    spec cell's last verify (16 rows, K = 4, 32 x 100 heads, S 768, pos
+    572). kind: bf16, q8 or q4 (split and interleaved)."""
+    from controlar_tpu_torch.ops import flash_chunk as fc
+    from controlar_tpu_torch.quant import (
+        dequantize_kv4_slab, dequantize_kv_slab, quantize_kv_rows, quantize_kv_rows_4)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    max_err, timed, layouts = 0.0, None, (True, False) if kind == "q4" else (None,)
+    for name, h, d, s, ks, positions, with_bias in _chunk_cases(with_t2i=kind != "q4"):
+        b = 16
+        kv = (torch.randn(b, s, 2 * h * d, generator=gen, device="cuda") * 0.5).bfloat16()
+        biases = (None, _left_pad_bias(s, 120)) if with_bias else (None,)
+        for split in layouts:
+            if kind == "bf16":
+                args, kw = (kv,), {}
+                ref, kern = fc.flash_chunk_attention_ref, fc.flash_chunk_attention
+                slab, row_bytes = kv, 2 * h * d * 2
+            elif kind == "q8":
+                rows, scale = quantize_kv_rows(kv, h)
+                args, kw = (rows, scale), {}
+                ref, kern = fc.flash_chunk_attention_q8_ref, fc.flash_chunk_attention_q8
+                slab = dequantize_kv_slab(rows, scale, h, torch.bfloat16)
+                row_bytes = 2 * h * d + 2 * h * 4
+            else:
+                rows, scale = quantize_kv_rows_4(kv, h, split=split)
+                args, kw = (rows, scale), dict(head_dim=d, split=split)
+                ref, kern = fc.flash_chunk_attention_q4_ref, fc.flash_chunk_attention_q4
+                slab = dequantize_kv4_slab(rows, scale, h, d, torch.bfloat16, split=split)
+                row_bytes = h * d + 2 * h * 4
+            for kq in ks:
+                q = (torch.randn(b, kq, h * d, generator=gen, device="cuda") * 0.5).bfloat16()
+                for pos in positions:
+                    for col_bias in biases:
+                        out = kern(q, *args, pos, col_bias, n_head=h, **kw)
+                        torch.cuda.synchronize()
+                        err, ok = _kernel_error(out, ref(q, *args, pos, col_bias, n_head=h, **kw))
+                        where = pos if isinstance(pos, int) else "per_row"
+                        check(ok, phase, f"{name} K={kq} split={split} pos={where} bias="
+                              f"{col_bias is not None}: max_abs_err {err} over the limit")
+                        max_err = max(max_err, err)
+            if name == "3b_verify" and timed is None:
+                pos_t = torch.full((b,), 572, dtype=torch.int32, device="cuda")
+                timed = _chunk_row(f"{name}{'' if split is None else '_split'}",
+                                   lambda: kern(q, *args, pos_t, None, n_head=h, **kw),
+                                   lambda: ref(q, *args, pos_t, None, n_head=h, **kw),
+                                   slab, q, h, d, s, 572, row_bytes, flush)
+    emit(phase, ok=True, name=kern.__name__, max_abs_err=max_err, atol=KERNEL_ATOL,
+         rtol=KERNEL_RTOL, timings=[timed])
+    return timed, max_err
+
+
+# stream, cache dtype, cache rows, row width (elements): what a GPT-3B verify
+# writes at 16 rows (8 images with CFG), K = 4 rows each
+BLOCK_STREAMS = (
+    ("gpt_3b_bf16", torch.bfloat16, 768, 6400),   # [k|v] rows, 12800 B
+    ("gpt_3b_int8", torch.int8, 768, 6400),       # int8 rows
+    ("gpt_3b_scales", torch.float32, 768, 64),    # 32-head [k|v] scales, 256 B
+    ("gpt_3b_int4", torch.int8, 768, 3200),       # nibble carriers
+    ("gpt_b_scales", torch.float32, 768, 24),     # 12-head scales, 96 B
+    ("odd_width", torch.int8, 768, 7),            # 1-byte vectors
+)
+K_VERIFY = 4
+
+
+def phase_kernel_append_block():
+    """cache_append_block against its plain version, bit for bit, on every
+    stream a verify writes, with blocks at rows 0 and S - K among per-row
+    positions; timed at the GPT-3B bf16 stream. As for the row append, the
+    plain version is one indexed assignment, which is also the one-call
+    library yardstick."""
+    from controlar_tpu_torch.ops.cache_append import (
+        cache_append_block as kern,
+        cache_append_block_ref as plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    b, k, timed = 16, K_VERIFY, None
+    for name, dt, s, w in BLOCK_STREAMS:
+        if dt == torch.int8:
+            cache = torch.randint(-128, 128, (b, s, w), generator=gen, device="cuda", dtype=dt)
+            rows = torch.randint(-128, 128, (b, k, w), generator=gen, device="cuda", dtype=dt)
+        else:
+            cache = torch.randn(b, s, w, generator=gen, device="cuda").to(dt)
+            rows = torch.randn(b, k, w, generator=gen, device="cuda").to(dt)
+        pos = torch.tensor([0, s - k] + [(37 * i) % (s - k) for i in range(1, b - 1)],
+                           dtype=torch.int32, device="cuda")
+        want = plain(cache.clone(), rows, pos)
+        kern(cache, rows, pos)
+        torch.cuda.synchronize()
+        check(torch.equal(cache.view(torch.uint8), want.view(torch.uint8)), "kernel_append_block",
+              f"{name}: the cache differs from the plain version's")
+        if timed is None:
+            timed = (cache, rows, pos)
+    cache, rows, pos = timed
+    nbytes = 2 * rows.numel() * rows.element_size() + pos.numel() * 4  # rows in and out
+    bound, by = _roofline(nbytes, 0, FP32_FLOPS)
+    plain_ms = time_ms(lambda: plain(cache, rows, pos), flush=flush)
+    row = dict(case="gpt_3b_bf16", rows=b, k=k, row_bytes=rows.shape[2] * rows.element_size(),
+               s=cache.shape[1], ms=time_ms(lambda: kern(cache, rows, pos), flush=flush),
+               plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound, bound_by=by)
+    emit("kernel_append_block", ok=True, name="cache_append_block", bit_exact=True,
+         streams=[s[0] for s in BLOCK_STREAMS], timings=[row])
+    return row, 0.0
+
+
 def phase_reference():
     """A small fp32 model on the card (kernel path) against the same weights
     on the CPU (plain path): Canny bit for bit, the adapter, prefill and
@@ -713,6 +891,114 @@ def phase_serve_reference():
          tol_quantized_relative=QUANT_REF_TOL, slot_isolation=True)
 
 
+def _chunk_reference(mode, cache_dtype):
+    """Prefill and two verify cycles (`forward_chunk`, K = 4, per-row base
+    positions, one chunk past the block) of a small t2i model with a column
+    mask, on the card (kernels on) and on the CPU (their plain versions).
+    mode None keeps fp32 weights (bf16 cache). -> (max abs logit difference,
+    max |logit| on the CPU)."""
+    from controlar_tpu_torch import decode as tdec
+    from controlar_tpu_torch import spec_decode as tspec
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.quant import quantize_gpt
+
+    cfg = GPTConfig(model_type="t2i", dim=256, n_layer=3, n_head=4, vocab_size=64,
+                    caption_dim=32, cls_token_num=5, block_size=16)
+    gpt = tgpt.init_gpt(cfg, seed=2)
+    gen = torch.Generator().manual_seed(9)
+    torch.nn.init.normal_(gpt.output.weight, std=0.02, generator=gen)  # zero at init (t2i)
+    if mode is not None:
+        quantize_gpt(gpt, cfg, mode=mode, split_rope=mode == "w4")
+    prefix = torch.randn(4, 5, 256, generator=gen)
+    fused3 = torch.randn(3, 4, 16, 256, generator=gen) * 0.5
+    col_mask = torch.arange(5)[None, :] >= torch.tensor([0, 2, 4, 0])[:, None]
+    full = torch.cat([col_mask, torch.ones(4, 251, dtype=torch.bool)], 1)
+    toks = torch.randint(0, 64, (2, 4, 4), generator=gen)
+    pos0 = torch.tensor([5, 9, 18, 6], dtype=torch.int32)  # row 2: past the block
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        gpt = gpt.to(dev)
+        caches = tdec.init_flat_caches(cfg, 4, 256, cache_dtype or torch.bfloat16, dev)
+        lg, caches = tdec.prefill_flat(gpt, cfg, caches, prefix.to(dev), fused3.to(dev),
+                                       col_mask.to(dev))
+        out = [lg.cpu()[:, None]]
+        for i in range(2):
+            lg, caches = tspec.forward_chunk(gpt, cfg, caches, toks[i].to(dev),
+                                             (pos0 + 4 * i).to(dev), fused3.to(dev),
+                                             full.to(dev), use_flash=True)
+            out.append(lg.cpu())
+        logits[dev] = torch.cat(out, dim=1)
+    check(bool(torch.isfinite(logits["cuda"]).all()), "spec_reference",
+          f"{mode}: non-finite logits on the card")
+    return ((logits["cuda"] - logits["cpu"]).abs().max().item(),
+            logits["cpu"].abs().max().item())
+
+
+def _greedy_margin(model, cfg, labels, tokens, i, cfg_scale):
+    """Top-2 margin and max |logit| of the plain loop's CFG-mixed logits at
+    token i, teacher-forced with `tokens` on the card."""
+    from controlar_tpu_torch import decode as tdec
+    from controlar_tpu_torch.generate import cfg_mix, prepare_inputs
+
+    with torch.inference_mode():
+        prefix, _, _ = prepare_inputs(model, cfg, torch.device("cuda"), True, labels=labels)
+        caches = tdec.init_flat_caches(cfg, prefix.shape[0], 256, torch.bfloat16, "cuda")
+        lg, caches = tdec.prefill_flat(model, cfg, caches, prefix, None, None)
+        for j in range(i):
+            cur = torch.cat([tokens[:, j], tokens[:, j]])
+            lg, caches = tdec.decode_step_flat(model, cfg, caches, cur, cfg.cls_token_num + j,
+                                               None, None)
+        mixed = cfg_mix(lg, True, cfg_scale)
+        top2 = mixed.topk(2, dim=-1).values
+        return (top2[:, 0] - top2[:, 1]).min().item(), mixed.abs().max().item()
+
+
+def phase_spec_reference():
+    """forward_chunk card vs CPU for the fp32 (bf16 cache), W8 + int8-cache
+    and W4 split-rope + int4-cache small models (the `reference` phase's
+    limits); then greedy generate_spec against greedy generate on the card,
+    a small fp32 c2i model with CFG and no control features (the reference's
+    clamped control rows make a chunk at the block end differ from decode
+    steps), drafted by an unrelated model: the same tokens, or a first
+    difference at a near-tie (top-2 margin below 1e-4 of max |logit|)."""
+    from controlar_tpu_torch import generate as tgen
+    from controlar_tpu_torch import spec_decode as tspec
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.models import gpt as tgpt
+
+    errs = {"fp32": _chunk_reference(None, None)}
+    check(errs["fp32"][0] <= REF_TOL, "spec_reference",
+          f"fp32: card vs CPU max_abs_err {errs['fp32'][0]} > {REF_TOL}")
+    for name, mode, cache in (("w8_kv8", "int8", torch.int8), ("w4split_kv4", "w4", "int4")):
+        err, scale = errs[name] = _chunk_reference(mode, cache)
+        check(err <= QUANT_REF_TOL[name] * scale, "spec_reference",
+              f"{name}: card vs CPU max_abs_err {err} > {QUANT_REF_TOL[name]} * {scale}")
+
+    cfg = GPTConfig(model_type="c2i", dim=256, n_layer=3, n_head=4, vocab_size=256,
+                    num_classes=10, block_size=64)
+    model = tgpt.init_gpt(cfg, seed=3, device="cuda")
+    draft = tgpt.init_gpt(cfg, seed=4, device="cuda")
+    labels = torch.arange(4, device="cuda")
+    kw = dict(labels=labels, max_new_tokens=cfg.block_size, cfg_scale=4.0, device="cuda")
+    spec, stats = tspec.generate_spec(model, cfg, draft, k_draft=4, return_stats=True, **kw)
+    plain = tgen.generate(model, cfg, sample_logits=False, **kw)
+    diff = (spec != plain).any(0).nonzero()
+    margin = None
+    if len(diff):
+        i = int(diff[0])
+        margin, top = _greedy_margin(model, cfg, labels, plain, i, 4.0)
+        print(f"spec_reference: first token difference at {i}, top-2 margin {margin}, "
+              f"max |logit| {top}", flush=True)
+        check(margin < 1e-4 * top, "spec_reference",
+              f"greedy spec tokens differ at {i} with a top-2 margin of {margin}")
+    check(1.0 <= stats["accepted_per_cycle"] <= 4, "spec_reference", f"stats {stats}")
+    emit("spec_reference", ok=True, max_abs_err={k: v[0] for k, v in errs.items()},
+         logit_scale={k: v[1] for k, v in errs.items()}, tol_fp32_abs=REF_TOL,
+         tol_quantized_relative=QUANT_REF_TOL, greedy_tokens_equal=not len(diff),
+         first_difference_margin=margin, greedy_stats=stats)
+
+
 def _expected_per_call(name: str, cfg) -> dict:
     """Launches of each kernel in one generate call of the cell: attention
     at every decode step of every layer; on the W4 path two W4 products
@@ -772,6 +1058,93 @@ def phase_cell(name: str, runs: int) -> dict:
          launches={k: v for k, v in launches.items() if v},
          launches_per_call=per_call, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     return launches
+
+
+def _spec_expected(name: str, cfg, dcfg, cycles: int) -> dict:
+    """Launches of one speculative generate call of `cycles` cycles: each
+    cycle runs k draft decode steps (attention and a row append per layer,
+    the append twice on a quantized cache: rows and scales) and one verify
+    (chunk attention and a block append per layer, likewise); on the W4
+    target two W4 products (wqkv, wo) and one fused FFN per layer at the
+    prefill and at every verify. The prefills launch no attention or append
+    kernel."""
+    from controlar_tpu_torch.cells import SPEC_CELLS, SPEC_K
+
+    cell = SPEC_CELLS[name]
+    cache = cell.get("cache_dtype")
+    streams = 1 if cache is None else 2
+    draft_steps = dcfg.n_layer * SPEC_K * cycles
+    verify = cfg.n_layer * cycles
+    attn = {None: "", torch.int8: "_q8", "int4": "_q4"}[cache]
+    out = {f"flash_decode_attention{attn}": draft_steps,
+           "cache_append_rows": streams * draft_steps,
+           f"flash_chunk_attention{attn}": verify,
+           "cache_append_block": streams * verify}
+    if cell.get("quant") == "w4":
+        out.update(w4_matmul=2 * cfg.n_layer * (cycles + 1), w4_ffn=cfg.n_layer * (cycles + 1))
+    return out
+
+
+def phase_spec_cell(name: str, runs: int) -> dict:
+    """A short warm speculative call, then `runs` timed
+    `ControlARPipeline.generate` calls (seeds 1, 2, ...) with every kernel's
+    launch count set to 0 just before each; each count must equal its
+    expected launches for the call's cycles, and accepted_per_cycle lie in
+    [1, k]. The warm call decodes 16 tokens on the cell's models, batch, k
+    and cache dtype, which runs every kernel and matrix shape of the timed
+    calls (the condition, adapter and VQ shapes are warm from the c2i cells;
+    a full 576-token warm call would add a minute per cell). Returns the
+    launches of the timed calls."""
+    from controlar_tpu_torch import spec_decode
+    from controlar_tpu_torch.cells import (
+        BATCH, SPEC_CELLS, SPEC_DRAFT_SIZE, SPEC_K, build_spec_cell)
+
+    t0 = time.perf_counter()
+    pipe, kw = build_spec_cell(name)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg, dcfg = pipe.gpt_cfg, pipe.draft_gpt_cfg
+    px = SPEC_CELLS[name]["image_px"]
+    with torch.inference_mode():
+        feats = pipe.control_features(pipe.extract_condition(kw["condition_images"]))
+    spec_decode.generate_spec(pipe.gpt, cfg, pipe.draft_gpt, dcfg, labels=kw["labels"],
+                              adapter_features=feats, max_new_tokens=16, k_draft=SPEC_K,
+                              cfg_scale=kw["cfg_scale"], top_k=kw["top_k"],
+                              cache_dtype=kw["cache_dtype"] or torch.bfloat16, seed=0,
+                              device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = {k: v[0] for k, v in _kernels().items()}
+    seconds, calls, total = [], [], collections.Counter()
+    for run in range(runs):
+        stats = {}
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = pipe.generate(**kw, seed=1 + run, spec_stats=stats)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        total.update(launches)
+        want = _spec_expected(name, cfg, dcfg, stats["loop_iters"])
+        for k, got in launches.items():
+            check(got == want.get(k, 0), name, f"run {run}: {k} launches {got} != "
+                  f"{want.get(k, 0)}")
+        check(1.0 <= stats["accepted_per_cycle"] <= SPEC_K, name, f"run {run}: stats {stats}")
+        check(out.shape == (BATCH, px, px, 3) and out.dtype == np.uint8, name,
+              f"output {out.shape} {out.dtype}")
+        check(float(out.std()) > 0, name, "constant output image")
+        # finite: ControlARPipeline.generate raises on a non-finite decoded image
+        calls.append(dict(stats, launches={k: v for k, v in launches.items() if v}))
+    med = statistics.median(seconds)
+    emit(name, ok=True, model=SPEC_CELLS[name]["size"], draft=SPEC_DRAFT_SIZE,
+         quant=SPEC_CELLS[name].get("quant"),
+         cache_dtype=str(kw.get("cache_dtype") or torch.bfloat16), image_px=px,
+         tokens=cfg.block_size, batch=BATCH, cfg_scale=kw["cfg_scale"], top_k=kw["top_k"],
+         k_draft=SPEC_K, runs=runs, build_s=build_s, seconds=seconds, median_s=med,
+         images_per_s=BATCH / med, calls=calls, finite=True,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return total
 
 
 def _serve_expected(cfg, scfg, slot_steps: int) -> dict:
@@ -878,8 +1251,9 @@ def phase_serve(name: str, overlap: bool) -> dict:
     return total
 
 
-CELL_RUNS = (("c2i", 3), ("t2i", 3), ("c2i_w8kv8", 3), ("c2i_3b_w4kv4", 3))
+CELL_RUNS = (("c2i", 2), ("t2i", 2), ("c2i_w8kv8", 2), ("c2i_3b_w4kv4", 2))
 SERVE_RUNS = (("serve_c2i", True), ("serve_c2i_w8kv8", False))  # cell, overlap run too
+SPEC_RUNS = (("spec_c2i_3b", 2), ("spec_c2i_3b_w8kv8", 2), ("spec_c2i_3b_w4kv4", 2))
 
 
 def main() -> int:
@@ -902,15 +1276,29 @@ def main() -> int:
         "w4_ffn": (*phase_kernel_w4ffn(), "GPT-3B FFN: 16 x 3200, F=8704"),
         "cache_append_rows": (*phase_kernel_append(),
                               "serve_c2i step: 16 GPT-B bf16 rows of 3072 B, S 768"),
+        "flash_chunk_attention": (*_phase_chunk("kernel_chunk", "bf16"),
+                                  "spec_c2i_3b last verify: B=16 K=4 H=32 D=100 S=768 pos=572"),
+        "flash_chunk_attention_q8": (*_phase_chunk("kernel_chunk_q8", "q8"),
+                                     "spec_c2i_3b_w8kv8 last verify: B=16 K=4 H=32 D=100 "
+                                     "S=768 pos=572"),
+        "flash_chunk_attention_q4": (*_phase_chunk("kernel_chunk_q4", "q4"),
+                                     "spec_c2i_3b_w4kv4 last verify, split: B=16 K=4 H=32 "
+                                     "D=100 S=768 pos=572"),
+        "cache_append_block": (*phase_kernel_append_block(),
+                               "spec_c2i_3b verify: 16 x 4 GPT-3B bf16 rows of 12800 B, S 768"),
     }
     phase_reference()
     phase_serve_reference()
+    phase_spec_reference()
     launches = collections.Counter()
     for name, runs in CELL_RUNS:
         launches.update(phase_cell(name, runs))
         torch.cuda.empty_cache()
     for name, overlap in SERVE_RUNS:
         launches.update(phase_serve(name, overlap))
+        torch.cuda.empty_cache()
+    for name, runs in SPEC_RUNS:
+        launches.update(phase_spec_cell(name, runs))
         torch.cuda.empty_cache()
     emit("total", seconds=time.perf_counter() - t_start)
     entries = []
@@ -920,7 +1308,7 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda", "source": f"controlar_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": launches[name],  # the timed runs of the cells and serving cells
+            "launches": launches[name],  # the timed runs of the cells
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "timed_at": where,

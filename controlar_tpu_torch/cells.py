@@ -28,6 +28,17 @@ max_slots 8 (16 rows with CFG), quantum 72, top_k 2000, CFG 4.0; 16
 requests (`serve_requests`), 8 submitted up front and 8 after the second
 `step()` (`serve_staggered`). Unlike extra_serve, each request carries the
 adapter features of its own synthetic condition image.
+
+The speculative cells run `pipeline.generate(spec_draft="model")`: the JAX
+CLI's `sample-c2i --gpt-model GPT-3B --spec-draft model --draft-gpt-model
+GPT-B`, at the workload of the JAX package's `scripts/bench_spec.py` (c2i
+384 px = 576 tokens, batch 8, CFG 4.0, top_k 2000, temperature 1.0, k = 4
+drafts per cycle, Leviathan sampling). The draft is GPT-B (12 layers, 12
+heads, dim 768), bf16, from another seed, on the target's cache dtype:
+
+  spec_c2i_3b          target GPT-3B bf16, bf16 cache
+  spec_c2i_3b_w8kv8    target GPT-3B W8A16 (head included), int8 cache
+  spec_c2i_3b_w4kv4    target the c2i_3b_w4kv4 model, int4 cache
 """
 from __future__ import annotations
 
@@ -73,15 +84,21 @@ def caption_mask(lens, width: int, device) -> torch.Tensor:
     return (torch.arange(width, device=device)[None, :] >= (width - lens)[:, None]).int()
 
 
-def build_cell(name: str, seed: int = 0, device="cuda"):
-    """-> (pipeline, keyword arguments of one `pipeline.generate` call)."""
-    cell = CELLS[name]
+def _gpt(cell: dict, size: str, seed: int, device):
+    """-> (config, bf16 GPT of the cell's model type and image size)."""
+    cfg = gpt_config(size, model_type=cell["model_type"], cls_token_num=cell["cls_token_num"],
+                     block_size=(cell["image_px"] // 16) ** 2, vocab_size=16384,
+                     num_classes=1000)
+    return cfg, gpt_model.init_gpt(cfg, seed=seed, dtype=torch.bfloat16, device=device)
+
+
+def build_cell(name: str, seed: int = 0, device="cuda", cells=CELLS, **pipe_kw):
+    """-> (pipeline, keyword arguments of one `pipeline.generate` call).
+    pipe_kw go to the pipeline (the speculative cells' draft)."""
+    cell = cells[name]
     px = cell["image_px"]
-    cfg = gpt_config(cell["size"], model_type=cell["model_type"],
-                     cls_token_num=cell["cls_token_num"], block_size=(px // 16) ** 2,
-                     vocab_size=16384, num_classes=1000)
+    cfg, gpt = _gpt(cell, cell["size"], seed, device)
     vcfg = vq_config("VQ-16")
-    gpt = gpt_model.init_gpt(cfg, seed=seed, dtype=torch.bfloat16, device=device)
     if "quant" in cell:
         quantize_gpt(gpt, cfg, mode=cell["quant"], split_rope=cell.get("split_rope", False))
     pipe = ControlARPipeline(
@@ -90,7 +107,7 @@ def build_cell(name: str, seed: int = 0, device="cuda"):
         vq_cfg=vcfg, vq=vq_model.init_vq(vcfg, seed=seed + 1, device=device),
         adapter_cfg=vit_model.DINOV2_SMALL,
         adapter=vit_model.init_vit(vit_model.DINOV2_SMALL, seed=seed + 2, device=device),
-        device=device)
+        device=device, **pipe_kw)
     kw = dict(condition_images=condition_images(BATCH, px, seed + 7),
               cfg_scale=cell["cfg_scale"], top_k=TOP_K, cache_dtype=cell.get("cache_dtype"))
     if cell["model_type"] == "c2i":
@@ -152,3 +169,22 @@ def build_serve_cell(name: str, seed: int = 0, device="cuda"):
     with torch.inference_mode():
         feats = pipe.control_features(pipe.extract_condition(images))
     return pipe, ServeEngine(pipe.gpt, pipe.gpt_cfg, scfg, device=device), feats
+
+
+SPEC_CELLS = {
+    "spec_c2i_3b": dict(size="GPT-3B", **_C2I),
+    "spec_c2i_3b_w8kv8": dict(size="GPT-3B", **_C2I, quant="int8", cache_dtype=torch.int8),
+    "spec_c2i_3b_w4kv4": CELLS["c2i_3b_w4kv4"],
+}
+SPEC_DRAFT_SIZE = "GPT-B"
+SPEC_K = 4  # drafts per cycle: the pipeline's k
+
+
+def build_spec_cell(name: str, seed: int = 0, device="cuda"):
+    """-> (pipeline with the GPT-B draft, keyword arguments of one
+    speculative `pipeline.generate` call)."""
+    cell = SPEC_CELLS[name]
+    dcfg, draft = _gpt(cell, SPEC_DRAFT_SIZE, seed + 5, device)
+    pipe, kw = build_cell(name, seed, device=device, cells=SPEC_CELLS, draft_gpt_cfg=dcfg,
+                          draft_gpt=draft)
+    return pipe, dict(kw, spec_draft="model")

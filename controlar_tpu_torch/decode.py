@@ -19,8 +19,10 @@ same list.
 Decode attention runs the kernels when `use_flash` (on the card: CUDA,
 reading only rows <= pos), else a masked einsum over the whole (dequantized)
 slab. `decode_step_flat` decodes every row at one position (the generation
-loop); `decode_step_multi` at a position per row (the serving engine), with
-the new rows written by `cache_append_rows`. Both run one layer loop
+loop); `decode_step_multi` at a position per row (the serving engine and
+the speculative draft), with the new rows written by `cache_append_rows`.
+Both, and `spec_decode.forward_chunk` (T query rows per batch row, the
+chunk kernels and `cache_append_block`), run one layer loop
 (`_decode_layers`). Quantized weights (`quant.W8Linear`, `quant.W4Linear`)
 are called where the linears are; a layer with a fused W4 `w13` runs the fused FFN
 kernel on the card (`ffn`).
@@ -40,7 +42,12 @@ from controlar_tpu_torch.models.gpt import (
     attend_masked,
     make_rope_table,
 )
-from controlar_tpu_torch.ops.cache_append import cache_append_rows
+from controlar_tpu_torch.ops.cache_append import cache_append_block, cache_append_rows
+from controlar_tpu_torch.ops.flash_chunk import (
+    flash_chunk_attention,
+    flash_chunk_attention_q4,
+    flash_chunk_attention_q8,
+)
 from controlar_tpu_torch.ops.flash_decode import (
     flash_decode_attention,
     flash_decode_attention_q4,
@@ -146,12 +153,17 @@ def _write_rows(cache: Cache, kv_rows: torch.Tensor, start: int, kv_heads: int,
         dst[:, start:stop] = src
 
 
-def _append_rows(cache: Cache, kv_row: torch.Tensor, pos: torch.Tensor, kv_heads: int,
-                 split: bool) -> None:
-    """cache[b, pos[b]] = kv_row[b] (B, 2*KV*D), quantized for a quantized
-    cache, one `cache_append_rows` per stream; in place."""
-    for dst, src in _cache_streams(cache, kv_row, kv_heads, split):
-        cache_append_rows(dst, src, pos)
+def _append_rows(cache: Cache, kv_rows: torch.Tensor, pos: torch.Tensor, kv_heads: int,
+                 split: bool, block: bool = False) -> None:
+    """cache[b, pos[b] + j] = kv_rows[b, j] (B, T, 2*KV*D), quantized for a
+    quantized cache, in place: one `cache_append_rows` per stream for a
+    decode step (T = 1), one `cache_append_block` per stream for a chunk
+    (block=True)."""
+    for dst, src in _cache_streams(cache, kv_rows, kv_heads, split):
+        if block:
+            cache_append_block(dst, src, pos)
+        else:
+            cache_append_rows(dst, src[:, 0], pos)
 
 
 def _dequant_slab(cache: Dict[str, torch.Tensor], cfg: GPTConfig, dtype, split: bool = False):
@@ -161,12 +173,26 @@ def _dequant_slab(cache: Dict[str, torch.Tensor], cfg: GPTConfig, dtype, split: 
     return dequantize_kv_slab(cache["kv"], cache["s"], cfg.kv_heads, dtype)
 
 
-def _flash_quant_attn(q2d, cache, pos, col_bias, cfg: GPTConfig, split: bool = False):
-    if "kv4" in cache:
-        return flash_decode_attention_q4(q2d, cache["kv4"], cache["s"], pos, col_bias,
-                                         n_head=cfg.n_head, head_dim=cfg.head_dim, split=split)
-    return flash_decode_attention_q8(q2d, cache["kv"], cache["s"], pos, col_bias,
-                                     n_head=cfg.n_head)
+def _flash_attn(q: torch.Tensor, cache: Cache, pos, col_bias, cfg: GPTConfig, split: bool,
+                chunk: bool) -> torch.Tensor:
+    """Attention through the kernels for the cache's format: q (B, T, H, D)
+    -> (B, T, H*D). A decode step (chunk=False, T = 1) runs the decode
+    kernels, a chunk the chunk kernels."""
+    b, t = q.shape[:2]
+    hd = cfg.n_head * cfg.head_dim
+    # split-rope q is a slice of [q|k]: the kernels take it contiguous
+    q = (q.reshape(b, t, hd) if chunk else q.reshape(b, hd)).contiguous()
+    kw = dict(n_head=cfg.n_head)
+    if not isinstance(cache, dict):
+        fn, args = (flash_chunk_attention if chunk else flash_decode_attention), (cache,)
+    elif "kv4" in cache:
+        fn = flash_chunk_attention_q4 if chunk else flash_decode_attention_q4
+        args = (cache["kv4"], cache["s"])
+        kw.update(head_dim=cfg.head_dim, split=split)
+    else:
+        fn = flash_chunk_attention_q8 if chunk else flash_decode_attention_q8
+        args = (cache["kv"], cache["s"])
+    return fn(q, *args, pos, col_bias, **kw).reshape(b, t, hd)
 
 
 def ffn(lp, x: torch.Tensor) -> torch.Tensor:
@@ -240,19 +266,26 @@ def prefill_flat(
     return _logits(model, cfg, h[:, -1]), caches
 
 
-def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, token: torch.Tensor,
-                   pos: Union[int, torch.Tensor], rope: Rope, control, write_row,
+def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
+                   pos: Union[int, torch.Tensor], rope: Rope, control, write_rows,
                    col_mask_full: Optional[torch.Tensor], control_strength,
-                   use_flash: bool) -> torch.Tensor:
-    """The layer loop of the decode steps; returns the logits (B, V) f32.
+                   use_flash: bool, chunk: bool = False) -> torch.Tensor:
+    """The layer loop of the decode steps and of the chunk forward; returns
+    the final hidden state (B, T, dim).
 
-    pos is one position for every row, or a (B,) int32 tensor of a position
-    per row; rope holds the rows' RoPE; control(f) -> (B, 1, dim) picks each
-    row's control token from fusion slab f (None: no control);
-    write_row(cache, kv_row (B, 2*KV*D)) stores the new rows in place."""
-    b = token.shape[0]
-    dev = token.device
-    hd, kvd = cfg.n_head * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    h (B, T, dim) holds the embedded input rows: one per batch row for a
+    decode step, the chunk's T rows for a chunk (chunk=True), row j at
+    position pos[b] + j. pos is one position for every row, or a (B,) int32
+    tensor of a position per row; rope holds the rows' RoPE; control(f) ->
+    (B, T | 1, dim) picks the rows' control tokens from fusion slab f (None:
+    no control); write_rows(cache, kv_rows (B, T, 2*KV*D)) stores the new
+    rows in place. Row j of a chunk attends to the cache rows <= pos[b] + j,
+    and the column mask is not applied on its own row (the diagonal
+    exception of the chunk kernels); a decode step applies the mask
+    everywhere, as the JAX package's decode steps do."""
+    b, t = h.shape[:2]
+    dev = h.device
+    kvd = cfg.kv_heads * cfg.head_dim
     split = isinstance(rope, tuple)
     gate, fidx = _fusion_gates(cfg)
     s_max = cache_seq_len(caches)
@@ -262,35 +295,31 @@ def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, token: torch.Tens
             col_bias = torch.where(col_mask_full, 0.0, -1e9).float()
     else:
         last = pos[:, None] if isinstance(pos, torch.Tensor) else pos
-        allowed = torch.arange(s_max, device=dev)[None, :] <= last
+        own = (torch.arange(t, device=dev)[None, :] + last)[..., None]  # (B|1, T, 1)
+        cols = torch.arange(s_max, device=dev)[None, None, :]
+        allowed = cols <= own
         if col_mask_full is not None:
-            allowed = allowed & col_mask_full
-        mask = allowed[:, None, None, :]
+            keep = col_mask_full[:, None, :]
+            allowed = allowed & ((keep | (cols == own)) if chunk else keep)
+        mask = allowed[:, None]  # (B|1, 1, T, S)
 
-    h = model.tok_embeddings(token)[:, None, :]
     for l, lp in enumerate(model.layers):
         if control is not None and gate[l] > 0:
             h = h + _fuse(control(fidx[l]), control_strength, h.dtype)
         x = rms_norm(h, lp.attention_norm, cfg.norm_eps)
-        q, k, v = _qkv_for(lp, cfg, x, rope)  # (B, 1, H, D), (B, 1, KV, D)
+        q, k, v = _qkv_for(lp, cfg, x, rope)  # (B, T, H, D), (B, T, KV, D)
         cache = caches[l]
-        write_row(cache, torch.cat([k.reshape(b, kvd), v.reshape(b, kvd)], dim=-1))
-        quant = isinstance(cache, dict)
+        write_rows(cache, torch.cat([k.reshape(b, t, kvd), v.reshape(b, t, kvd)], dim=-1))
         if use_flash:
-            q2d = q.reshape(b, hd).contiguous()  # split-rope q is a slice of [q|k]
-            if quant:
-                attn = _flash_quant_attn(q2d, cache, pos, col_bias, cfg, split)
-            else:
-                attn = flash_decode_attention(q2d, cache, pos, col_bias, n_head=cfg.n_head)
-            attn = attn.to(h.dtype)[:, None, :]
+            attn = _flash_attn(q, cache, pos, col_bias, cfg, split, chunk).to(h.dtype)
         else:
-            slab = _dequant_slab(cache, cfg, h.dtype, split) if quant else cache
+            slab = _dequant_slab(cache, cfg, h.dtype, split) if isinstance(cache, dict) else cache
             kl = slab[:, :, :kvd].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
             vl = slab[:, :, kvd:].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
             attn = attend_masked(q, kl, vl, mask)
         h = h + lp.wo(attn)
         h = h + ffn(lp, rms_norm(h, lp.ffn_norm, cfg.norm_eps))
-    return _logits(model, cfg, h[:, -1])
+    return h
 
 
 def decode_step_flat(
@@ -314,21 +343,30 @@ def decode_step_flat(
     f = pos - cfg.cls_token_num + 1
     control = None if fused3 is None else (lambda i: fused3[i][:, f:f + 1])
 
-    def write_row(cache, kv_row):
-        _write_rows(cache, kv_row[:, None], pos, cfg.kv_heads, split)
+    def write_rows(cache, kv_rows):
+        _write_rows(cache, kv_rows, pos, cfg.kv_heads, split)
 
-    logits = _decode_layers(model, cfg, caches, token, pos, rope, control, write_row,
-                            col_mask_full, control_strength, use_flash)
-    return logits, caches
+    h = _decode_layers(model, cfg, caches, model.tok_embeddings(token)[:, None, :], pos, rope,
+                       control, write_rows, col_mask_full, control_strength, use_flash)
+    return _logits(model, cfg, h[:, -1]), caches
 
 
 def _rope_at(rope: Rope, pos: torch.Tensor) -> Rope:
-    """Per-slot RoPE rows: (B, 1, D/2, 2), or for split rope (cos, sin),
-    each (B, 1, (H + KV) * D)."""
+    """RoPE rows at a position per row, pos (B,), or per row and chunk
+    position, pos (B, T): (B, T, D/2, 2), or for split rope (cos, sin), each
+    (B, T, (H + KV) * D), with T = 1 for pos (B,). A position past the table
+    takes its last row, as the JAX package's gather clamps an index (the
+    rows of a finished sequence in speculative decode run past the block)."""
     idx = pos.long()
+    if idx.dim() == 1:
+        idx = idx[:, None]
+
+    def rows(table):
+        return table[idx.clamp(0, table.shape[0] - 1)]
+
     if isinstance(rope, tuple):
-        return tuple(t[idx][:, None] for t in rope)
-    return rope[idx][:, None]
+        return tuple(rows(t) for t in rope)
+    return rows(rope)
 
 
 def decode_step_multi(
@@ -371,9 +409,9 @@ def decode_step_multi(
     rows_idx = torch.arange(token.shape[0], device=dev)
     control = None if fused3 is None else (lambda i: fused3[i][rows_idx, f][:, None])
 
-    def write_row(cache, kv_row):
-        _append_rows(cache, kv_row, pos, cfg.kv_heads, split)
+    def write_rows(cache, kv_rows):
+        _append_rows(cache, kv_rows, pos, cfg.kv_heads, split)
 
-    logits = _decode_layers(model, cfg, caches, token, pos, rope, control, write_row,
-                            col_mask_full, control_strength, use_flash)
-    return logits, caches
+    h = _decode_layers(model, cfg, caches, model.tok_embeddings(token)[:, None, :], pos, rope,
+                       control, write_rows, col_mask_full, control_strength, use_flash)
+    return _logits(model, cfg, h[:, -1]), caches

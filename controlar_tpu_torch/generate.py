@@ -92,6 +92,47 @@ def generate_tokens(
     return torch.stack(tokens, dim=1)
 
 
+def prepare_inputs(model: gpt_model.GPT, cfg: GPTConfig, dev: torch.device, use_cfg: bool, *,
+                   labels=None, caption_emb=None, emb_masks=None, adapter_features=None):
+    """The model's inputs for a generate call, with the CFG doubling:
+    -> (prefix_emb (Bc, T_cls, dim), col_mask (Bc, T_cls) bool or None,
+    fused3 (3, Bc, block_size, dim) or None). adapter_features are the raw
+    adapter outputs (B, block_size, adapter_dim); the adapter MLP is applied
+    here, and the unconditional CFG half gets zero control."""
+    dtype = gpt_model.param_dtype(model)
+    col_mask = None
+    if cfg.model_type == "c2i":
+        if labels is None:
+            raise ValueError("c2i generation needs labels")
+        labels = torch.as_tensor(labels, device=dev).long()
+        if use_cfg:
+            labels = torch.cat([labels, torch.full_like(labels, cfg.num_classes)])
+        prefix = gpt_model.embed_prefix_c2i(model, labels)
+    else:
+        if caption_emb is None:
+            raise ValueError("t2i generation needs caption_emb")
+        caption_emb = torch.as_tensor(caption_emb, device=dev).to(dtype)
+        if use_cfg:
+            uncond = model.cls_embedding.uncond_embedding[None].expand_as(caption_emb)
+            caption_emb = torch.cat([caption_emb, uncond.to(caption_emb.dtype)])
+        prefix = gpt_model.embed_prefix_t2i(model, caption_emb)
+        if emb_masks is not None:
+            col_mask = torch.as_tensor(emb_masks, device=dev).bool()
+            if use_cfg:
+                col_mask = torch.cat([col_mask, col_mask])
+        prefix = prefix[:, : cfg.cls_token_num]
+
+    fused3 = None
+    if adapter_features is not None:
+        feats = torch.as_tensor(adapter_features, device=dev).to(dtype)
+        cond_tok = gpt_model.mlp_gelu(model.adapter_mlp, feats)
+        if use_cfg:
+            cond_tok = torch.cat([cond_tok, torch.zeros_like(cond_tok)])
+        cond_tok = gpt_model.mlp_gelu(model.condition_mlp, cond_tok)
+        fused3 = gpt_model.fusion_projections(model, cond_tok)
+    return prefix, col_mask, fused3
+
+
 @torch.inference_mode()
 def generate(
     model: gpt_model.GPT,
@@ -127,42 +168,11 @@ def generate(
     """
     dev = resolve_device(device)
     check_on(model, dev)
-    dtype = gpt_model.param_dtype(model)
-    use_cfg = cfg_scale > 1.0
     if use_flash is None:
         use_flash = dev.type == "cuda" and cfg.kv_heads == cfg.n_head
-
-    if cfg.model_type == "c2i":
-        if labels is None:
-            raise ValueError("c2i generation needs labels")
-        labels = torch.as_tensor(labels, device=dev).long()
-        if use_cfg:
-            labels = torch.cat([labels, torch.full_like(labels, cfg.num_classes)])
-        prefix = gpt_model.embed_prefix_c2i(model, labels)
-        col_mask = None
-    else:
-        if caption_emb is None:
-            raise ValueError("t2i generation needs caption_emb")
-        caption_emb = torch.as_tensor(caption_emb, device=dev).to(dtype)
-        if use_cfg:
-            uncond = model.cls_embedding.uncond_embedding[None].expand_as(caption_emb)
-            caption_emb = torch.cat([caption_emb, uncond.to(caption_emb.dtype)])
-        prefix = gpt_model.embed_prefix_t2i(model, caption_emb)
-        col_mask = None
-        if emb_masks is not None:
-            col_mask = torch.as_tensor(emb_masks, device=dev).bool()
-            if use_cfg:
-                col_mask = torch.cat([col_mask, col_mask])
-        prefix = prefix[:, : cfg.cls_token_num]
-
-    fused3 = None
-    if adapter_features is not None:
-        feats = torch.as_tensor(adapter_features, device=dev).to(dtype)
-        cond_tok = gpt_model.mlp_gelu(model.adapter_mlp, feats)
-        if use_cfg:
-            cond_tok = torch.cat([cond_tok, torch.zeros_like(cond_tok)])
-        cond_tok = gpt_model.mlp_gelu(model.condition_mlp, cond_tok)
-        fused3 = gpt_model.fusion_projections(model, cond_tok)
+    prefix, col_mask, fused3 = prepare_inputs(
+        model, cfg, dev, cfg_scale > 1.0, labels=labels, caption_emb=caption_emb,
+        emb_masks=emb_masks, adapter_features=adapter_features)
 
     generator = torch.Generator(device=dev).manual_seed(seed)
     return generate_tokens(

@@ -1,20 +1,24 @@
-"""Per-slot KV-cache row append.
+"""Per-slot KV-cache row and block append.
 
 `cache_append_rows(cache, rows, pos)` sets `cache[b, pos[b]] = rows[b]` in
 place for cache (B, S, W), rows (B, W) (cast to the cache's dtype, as the JAX
 package's `cache_append_rows` does) and pos (B,) int32, and returns `cache`.
-It takes every stream the serving decode step writes: bf16 `[k|v]` rows,
-int8 rows, nibble-packed int4 carriers and the unpadded f32 scales.
+`cache_append_block(cache, rows, pos)` sets `cache[b, pos[b] + j] = rows[b,
+j]` for j < K, rows (B, K, W): the K rows of a speculative verify chunk.
+Both take every stream the decode steps write: bf16 `[k|v]` rows, int8
+rows, nibble-packed int4 carriers and the unpadded f32 scales.
 
-On a CUDA tensor it launches `csrc/cache_append.cu`, which copies each row's
-bytes at the widest aligned vector width; on a CPU tensor it takes
-`cache_append_rows_ref`, one indexed assignment. Positions must lie in
-[0, S): the kernel skips a row whose position does not (it never writes
-outside the cache), while the plain version raises on it.
+On a CUDA tensor they launch `csrc/cache_append.cu`, which copies each
+element's contiguous K * W span at the widest aligned vector width; on a
+CPU tensor they take the plain versions, one indexed assignment. Rows
+pos[b] .. pos[b] + K - 1 must lie in [0, S): the kernel skips an element
+whose rows do not (it never writes outside the cache), while the plain
+versions raise on it.
 
-The JAX package's kernel rewrites the aligned 8- or 32-row window around
-pos[b], a requirement of the TPU's DMA tiling only; one row is addressed
-directly here.
+The JAX package's kernels rewrite the aligned 8- or 32-row window around
+pos[b], and the block form needs a window of slack past the chunk: both are
+requirements of the TPU's DMA tiling only; the rows are addressed directly
+here.
 """
 from __future__ import annotations
 
@@ -42,11 +46,28 @@ def _vec_bytes(row_bytes: int, *ptrs: int) -> int:
     return 1
 
 
-def _check(cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor):
+def cache_append_block_ref(cache: torch.Tensor, rows: torch.Tensor,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """Plain version of the block append: one indexed assignment, in place;
+    returns cache. Raises when a block does not fit in the cache."""
+    b, s, _ = cache.shape
+    k = rows.shape[1]
+    p = pos.long()
+    if bool(((p < 0) | (p + k > s)).any()):
+        raise IndexError(f"rows pos[b] .. pos[b] + {k - 1} must lie in [0, {s}), pos = "
+                         f"{pos.tolist()}")
+    span = p[:, None] + torch.arange(k, device=cache.device)[None, :]
+    cache[torch.arange(b, device=cache.device)[:, None], span] = rows.to(cache.dtype)
+    return cache
+
+
+def _check(cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor, block: bool = False):
     if cache.dim() != 3:
         raise ValueError(f"cache must be (B, S, W), got {tuple(cache.shape)}")
     b, s, w = cache.shape
-    if rows.shape != (b, w):
+    if block and (rows.dim() != 3 or rows.shape[0] != b or rows.shape[2] != w):
+        raise ValueError(f"rows must be ({b}, K, {w}), got {tuple(rows.shape)}")
+    if not block and rows.shape != (b, w):
         raise ValueError(f"rows must be ({b}, {w}), got {tuple(rows.shape)}")
     if pos.shape != (b,) or pos.dtype != torch.int32:
         raise ValueError(f"pos must be ({b},) int32, got {tuple(pos.shape)} {pos.dtype}")
@@ -60,11 +81,12 @@ def _check(cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor):
                          f"{torch.cuda.current_device()}")
 
 
-def _lib():
-    f = _build.load("cache_append").cache_append_rows
+def _lib(block: bool = False):
+    lib = _build.load("cache_append")
+    f = lib.cache_append_block if block else lib.cache_append_rows
     if f.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p, p, i, i, ctypes.c_longlong, i, p]
+        f.argtypes = [p, p, p, i, i] + [i] * block + [ctypes.c_longlong, i, p]
         f.restype = ctypes.c_int
     return f
 
@@ -92,3 +114,30 @@ def cache_append_rows(cache: torch.Tensor, rows: torch.Tensor,
 
 
 cache_append_rows.launches = 0
+
+
+def cache_append_block(cache: torch.Tensor, rows: torch.Tensor,
+                       pos: torch.Tensor) -> torch.Tensor:
+    """cache[b, pos[b] + j] = rows[b, j] for j < K, in place; see the module
+    docstring."""
+    if cache.device.type == "cpu":
+        return cache_append_block_ref(cache, rows, pos)
+    if cache.device.type != "cuda":
+        raise ValueError(f"unsupported device {cache.device}")
+    _check(cache, rows, pos, block=True)
+    b, s, w = cache.shape
+    k = rows.shape[1]
+    if b == 0 or w == 0 or k == 0:
+        return cache
+    src = rows.to(cache.dtype).contiguous()
+    row_bytes = w * cache.element_size()
+    err = _lib(block=True)(cache.data_ptr(), src.data_ptr(), pos.data_ptr(), b, s, k, row_bytes,
+                           _vec_bytes(row_bytes, cache.data_ptr(), src.data_ptr()),
+                           torch.cuda.current_stream(cache.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cache_append_block launch failed: cudaError {err}")
+    cache_append_block.launches += 1
+    return cache
+
+
+cache_append_block.launches = 0

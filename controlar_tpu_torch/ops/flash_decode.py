@@ -135,9 +135,11 @@ def flash_decode_attention_q4_ref(
     return out.reshape(b, n_head * 2 * half_d).to(q.dtype)
 
 
-def _check(q, kv, pos, col_bias, n_head, kv_dtype=torch.bfloat16, int4_head_dim=None):
-    """Checks shared by the three kernels; returns (B, S, D). The int4 slab
-    has rows of H*D bytes (2 * H * D/2 carriers), the others 2*H*D values."""
+def _check(q, kv, pos, col_bias, n_head, kv_dtype=torch.bfloat16, int4_head_dim=None,
+           chunk=False):
+    """Checks shared by the decode and chunk kernels; returns (B, S, D). The
+    int4 slab has rows of H*D bytes (2 * H * D/2 carriers), the others 2*H*D
+    values. q is (B, H*D), or with chunk=True (B, K, H*D)."""
     if kv.dim() != 3 or kv.dtype != kv_dtype:
         raise ValueError(f"kv must be 3-D {kv_dtype}, got {tuple(kv.shape)} {kv.dtype}")
     b, s, width = kv.shape
@@ -153,8 +155,10 @@ def _check(q, kv, pos, col_bias, n_head, kv_dtype=torch.bfloat16, int4_head_dim=
         d = hd // n_head
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported by the kernel (takes {HEAD_DIMS})")
-    if q.shape != (b, hd) or q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"q must be ({b}, {hd}) bf16/f32, got {tuple(q.shape)} {q.dtype}")
+    q_ok = (q.dim() == 3 and q.shape[0] == b and q.shape[2] == hd) if chunk else q.shape == (b, hd)
+    if not q_ok or q.dtype not in (torch.bfloat16, torch.float32):
+        want = f"({b}, K, {hd})" if chunk else f"({b}, {hd})"
+        raise ValueError(f"q must be {want} bf16/f32, got {tuple(q.shape)} {q.dtype}")
     tensors = [q, kv]
     if isinstance(pos, torch.Tensor):
         if pos.dtype != torch.int32 or pos.numel() not in (1, b) or pos.dim() > 1:

@@ -1,8 +1,9 @@
-"""End-to-end generation: condition image -> control tokens -> CFG decode ->
-VQ decode -> uint8 image. Images are NHWC at the boundary, as in the JAX
-package's `ControlARPipeline`."""
+"""End-to-end generation: condition image -> control tokens -> CFG decode
+(plain or speculative) -> VQ decode -> uint8 image. Images are NHWC at the
+boundary, as in the JAX package's `ControlARPipeline`."""
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Callable, Optional, Union
@@ -12,12 +13,14 @@ import torch
 
 from controlar_tpu_torch import check_on, resolve_device
 from controlar_tpu_torch import generate as tgen
+from controlar_tpu_torch import spec_decode
 from controlar_tpu_torch.config import GPTConfig, VQConfig
 from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.models import vit as vit_model
 from controlar_tpu_torch.models import vq as vq_model
 from controlar_tpu_torch.ops.canny import canny
 from controlar_tpu_torch.ops.resize import to_patch14
+from controlar_tpu_torch.quant import quantize_gpt
 
 
 def normalize_condition(x: torch.Tensor) -> torch.Tensor:
@@ -44,11 +47,16 @@ class ControlARPipeline:
     adapter: vit_model.ViT
     condition_type: str = "canny"
     device: Union[str, torch.device] = "cuda"
+    # a smaller family member drafting for the GPT (e.g. GPT-B for GPT-3B),
+    # used by generate(spec_draft="model" | "model-int8")
+    draft_gpt_cfg: Optional[GPTConfig] = None
+    draft_gpt: Optional[gpt_model.GPT] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        for module in (self.gpt, self.vq, self.adapter):
-            check_on(module, self.device)
+        for module in (self.gpt, self.vq, self.adapter, self.draft_gpt):
+            if module is not None:
+                check_on(module, self.device)
 
     def extract_condition(self, images_u8, *, canny_low: int = 100,
                           canny_high: int = 200, preprocess: bool = True) -> torch.Tensor:
@@ -90,17 +98,28 @@ class ControlARPipeline:
         spec_draft: Optional[str] = None,
         timings: Optional[dict] = None,
         on_step: Optional[Callable[[int], None]] = None,
+        spec_stats: Optional[dict] = None,
     ) -> np.ndarray:
         """Returns generated images as uint8 (B, H, W, 3). cache_dtype
         torch.int8 or "int4" selects a quantized KV cache (it pairs with a
         GPT quantized by `quant.quantize_gpt`); None keeps the bf16 cache.
-        Speculative decoding (spec_draft) is not ported.
+
+        spec_draft decodes speculatively (`spec_decode.generate_spec`, k = 4
+        drafts per cycle); Leviathan accept/reject keeps the distribution the
+        plain sampler draws from:
+          "int8" | "w4"          a quantized copy of the GPT drafts for it
+                                 ("w4" without the split-rope layout);
+          "model" | "model-int8" the pipeline's draft_gpt, as it is or a
+                                 W8 copy of it.
+        The draft's cache has the GPT's cache dtype; the GPT and draft_gpt
+        are left unchanged. `spec_stats`, when given, receives the call's
+        accepted_per_cycle, k_draft and loop_iters.
 
         `timings`, when given, receives the host-clock seconds of each stage
         (condition, adapter, tokens, vq_decode), with the device synchronised
-        at every stage's end. `on_step(i)` is called after decode step i."""
-        if spec_draft is not None:
-            raise NotImplementedError("speculative decoding is not ported")
+        at every stage's end. `on_step(i)` is called after decode step i, or
+        after cycle i of a speculative call."""
+        draft, draft_cfg = self._draft(spec_draft)
         lap = _StageClock(self.device, timings)
         adapter_feats = None
         if condition_images is not None:
@@ -110,8 +129,7 @@ class ControlARPipeline:
             lap("condition")
             adapter_feats = self.control_features(cond)
             lap("adapter")
-        tokens = tgen.generate(
-            self.gpt, self.gpt_cfg,
+        common = dict(
             labels=labels, caption_emb=caption_emb, emb_masks=emb_masks,
             adapter_features=adapter_feats,
             max_new_tokens=self.gpt_cfg.block_size,
@@ -120,12 +138,39 @@ class ControlARPipeline:
             cache_dtype=torch.bfloat16 if cache_dtype is None else cache_dtype,
             on_step=on_step,
         )
+        if draft is None:
+            tokens = tgen.generate(self.gpt, self.gpt_cfg, **common)
+        else:
+            tokens, stats = spec_decode.generate_spec(
+                self.gpt, self.gpt_cfg, draft, draft_cfg, return_stats=True, **common)
+            if spec_stats is not None:
+                spec_stats.update(stats)
         lap("tokens")
         gh, gw = self.gpt_cfg.grid
         imgs = to_uint8_image(
             vq_model.decode_code(self.vq, self.vq_cfg, tokens.reshape(-1, gh, gw)))
         lap("vq_decode")
         return imgs
+
+
+    def _draft(self, spec_draft: Optional[str]):
+        """-> (draft GPT, its config) for spec_draft, or (None, None). A
+        quantized draft is a quantized copy: the GPT and draft_gpt stay as
+        they are."""
+        if spec_draft is None:
+            return None, None
+        if spec_draft in ("model", "model-int8"):
+            if self.draft_gpt is None:
+                raise ValueError(f"spec_draft={spec_draft!r} needs draft_gpt and draft_gpt_cfg "
+                                 "on the pipeline")
+            if spec_draft == "model":
+                return self.draft_gpt, self.draft_gpt_cfg
+            return (quantize_gpt(copy.deepcopy(self.draft_gpt), self.draft_gpt_cfg, "int8"),
+                    self.draft_gpt_cfg)
+        if spec_draft in ("int8", "w4"):
+            return quantize_gpt(copy.deepcopy(self.gpt), self.gpt_cfg, spec_draft), self.gpt_cfg
+        raise ValueError(f"spec_draft must be 'int8', 'w4', 'model' or 'model-int8', "
+                         f"got {spec_draft!r}")
 
 
 class _StageClock:

@@ -3,8 +3,9 @@
     python -m controlar_tpu_torch.trace_decode --cell c2i [--seed 0] [--steps 20] [--out DIR]
 
 Builds a cell of `controlar_tpu_torch.cells` (c2i, t2i, c2i_w8kv8,
-c2i_3b_w4kv4) and times `ControlARPipeline.generate` itself, after a warm
-call; or a serving cell (serve_c2i, serve_c2i_w8kv8) and times
+c2i_3b_w4kv4, or a speculative cell spec_c2i_3b, spec_c2i_3b_w8kv8,
+spec_c2i_3b_w4kv4) and times `ControlARPipeline.generate` itself, after a
+warm call; or a serving cell (serve_c2i, serve_c2i_w8kv8) and times
 `ServeEngine.step` itself. Prints JSON lines:
 
   stages   host-clock seconds of each pipeline stage, from the pipeline's
@@ -17,7 +18,17 @@ call; or a serving cell (serve_c2i, serve_c2i_w8kv8) and times
            busy ms per step and its share of the unprofiled step, kernels
            per step, device time by kernel name, and the port's own CUDA
            kernels' device time per step and share of the busy time. The
-           trace is written to DIR/trace_<cell>.json.gz;
+           trace is written to DIR/trace_<cell>.json.gz. For a speculative
+           cell the unit is the cycle (k draft steps and one verify) in
+           place of the decode step: --steps cycles from the middle of the
+           call's cycles;
+  spec     (speculative cells) the cycle's parts timed alone on the cell's
+           models at the middle of the block: the k draft decode steps
+           (`decode_step_multi`) and the verify (`forward_chunk`), host
+           clock and CUDA events, each without the sampling between them;
+           the rest of a cycle (sampling, accept/reject, the cycle's one
+           read from the device) is the decode window's ms per cycle
+           less the two;
   serve    (serving cells) after a warm run of 8 requests, 8 requests fill
            every slot; the first step() admits them and runs a quantum, the
            second (a full-occupancy quantum, no admission) is timed with CUDA
@@ -32,25 +43,35 @@ import argparse
 import collections
 import gzip
 import json
+import statistics
 import time
 from pathlib import Path
 
 import torch
 
 from controlar_tpu_torch.cells import (
-    CELLS, SERVE_CELLS, build_cell, build_serve_cell, serve_requests)
+    BATCH, CELLS, SERVE_CELLS, SPEC_CELLS, SPEC_K, build_cell, build_serve_cell,
+    build_spec_cell, serve_requests)
 
 # the port's hand-written kernels, by the names of their __global__ functions
 PORT_KERNELS = ("flash_decode_kernel", "flash_decode_q8_kernel", "flash_decode_q4_kernel",
-                "w4_matmul_kernel", "w4_ffn_kernel", "cache_append_kernel")
+                "w4_matmul_kernel", "w4_ffn_kernel", "cache_append_kernel",
+                "flash_chunk_kernel", "flash_chunk_q4_kernel")
 
 
 def stages(pipe, kw: dict) -> dict:
+    """Stage seconds of one call after a warm one; for a speculative cell
+    also its cycles, accepted tokens per cycle and ms per cycle of the
+    tokens stage."""
     timings = {}
     pipe.generate(**kw, seed=0)  # warm call
+    stats = {}
+    extra = {"spec_stats": stats} if kw.get("spec_draft") else {}
     t0 = time.perf_counter()
-    pipe.generate(**kw, seed=1, timings=timings)
+    pipe.generate(**kw, seed=1, timings=timings, **extra)
     timings["total"] = time.perf_counter() - t0
+    if stats:
+        timings.update(stats, tokens_ms_per_cycle=timings["tokens"] * 1e3 / stats["loop_iters"])
     return timings
 
 
@@ -79,10 +100,13 @@ def _device_summary(raw: bytes, steps: int) -> dict:
 
 
 def decode_window(pipe, kw: dict, steps: int, trace: Path) -> dict:
-    """Decode steps start..start+steps-1 of real `generate` calls, where
-    start is half way through the tokens."""
+    """Decode steps (or speculative cycles) start..start+steps-1 of real
+    `generate` calls, where start is half way through the tokens (the
+    cycles of a speculative call: at random weights a cycle emits about one
+    token)."""
     cfg = pipe.gpt_cfg
     start = cfg.block_size // 2
+    spec = kw.get("spec_draft") is not None
 
     # unprofiled: events at the end of step start-1 and of step start+steps-1
     marks = {}
@@ -126,12 +150,76 @@ def decode_window(pipe, kw: dict, steps: int, trace: Path) -> dict:
     summary = _device_summary(raw["trace"], steps)
     busy = summary["device_busy_ms_per_step"]
     t_cls = cfg.cls_token_num
-    return {"steps": steps, "positions": [t_cls + start, t_cls + start + steps - 1],
+    where = ({"cycles": [start, start + steps - 1]} if spec
+             else {"positions": [t_cls + start, t_cls + start + steps - 1]})
+    return {"steps": steps, **where,
             "ms_per_step": plain_ms,
             "ms_per_step_profiled": (wall["t1"] - wall["t0"]) / steps * 1e3,
             # kernel time against the unprofiled step; the profiler slows the host
             "device_busy_share": busy / plain_ms,
             **summary}
+
+
+def spec_parts(pipe, kw: dict, reps: int = 10) -> dict:
+    """The k draft decode steps and the verify chunk of a speculative cell,
+    each timed alone at the middle of the block on fresh caches (attention
+    reads the rows <= pos whatever they hold) with the cell's control
+    features and CFG batch; host clock (device synchronised) and CUDA
+    events, medians of `reps` after a warm call."""
+    from controlar_tpu_torch import decode as dec
+    from controlar_tpu_torch import spec_decode
+    from controlar_tpu_torch.config import find_multiple
+    from controlar_tpu_torch.generate import prepare_inputs
+
+    cfg, dcfg, dev = pipe.gpt_cfg, pipe.draft_gpt_cfg, pipe.device
+    bc = 2 * BATCH
+    with torch.inference_mode():
+        feats = pipe.control_features(pipe.extract_condition(kw["condition_images"]))
+        inputs = dict(labels=kw["labels"], adapter_features=feats)
+        _, _, fused = prepare_inputs(pipe.gpt, cfg, dev, True, **inputs)
+        _, _, dfused = prepare_inputs(pipe.draft_gpt, dcfg, dev, True, **inputs)
+        s_max = find_multiple(cfg.cls_token_num + cfg.block_size + SPEC_K + 64, 256)
+        cache_dtype = kw.get("cache_dtype") or torch.bfloat16
+        caches_t = dec.init_flat_caches(cfg, bc, s_max, cache_dtype, dev)
+        caches_d = dec.init_flat_caches(dcfg, bc, s_max, cache_dtype, dev)
+        rope_t, rope_d = dec.rope_tables(pipe.gpt, cfg, dev), dec.rope_tables(pipe.draft_gpt,
+                                                                               dcfg, dev)
+        pos = torch.full((bc,), cfg.cls_token_num + cfg.block_size // 2, dtype=torch.int32,
+                         device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        tok = torch.randint(0, cfg.vocab_size, (bc,), generator=gen, device=dev)
+        chunk = torch.randint(0, cfg.vocab_size, (bc, SPEC_K), generator=gen, device=dev)
+
+    @torch.inference_mode()
+    def draft():
+        for j in range(SPEC_K):
+            dec.decode_step_multi(pipe.draft_gpt, dcfg, caches_d, tok, pos + j, dfused,
+                                  use_flash=True, rope_table=rope_d)
+
+    @torch.inference_mode()
+    def verify():
+        spec_decode.forward_chunk(pipe.gpt, cfg, caches_t, chunk, pos, fused, None,
+                                  use_flash=True, rope_table=rope_t)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        wall, dev_ms = [], []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+        return statistics.median(wall), statistics.median(dev_ms)
+
+    (draft_ms, draft_ev), (verify_ms, verify_ev) = timed(draft), timed(verify)
+    return {"k_draft": SPEC_K, "position": int(pos[0]), "draft_steps_ms": draft_ms,
+            "draft_steps_ms_events": draft_ev, "verify_ms": verify_ms,
+            "verify_ms_events": verify_ev}
 
 
 def serve_window(name: str, seed: int, trace: Path) -> dict:
@@ -170,7 +258,8 @@ def serve_window(name: str, seed: int, trace: Path) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cell", choices=sorted(CELLS) + sorted(SERVE_CELLS), default="c2i")
+    ap.add_argument("--cell", choices=sorted(CELLS) + sorted(SERVE_CELLS) + sorted(SPEC_CELLS),
+                    default="c2i")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", default="traces")
@@ -186,11 +275,15 @@ def main() -> int:
         print(json.dumps({"cell": args.cell, "device": device, "serve": serve_window(
             args.cell, args.seed, out / f"trace_{args.cell}.json")}), flush=True)
         return 0
-    pipe, kw = build_cell(args.cell, args.seed)
+    spec = args.cell in SPEC_CELLS
+    pipe, kw = (build_spec_cell if spec else build_cell)(args.cell, args.seed)
     print(json.dumps({"cell": args.cell, "device": device, "stages": stages(pipe, kw)}),
           flush=True)
     print(json.dumps({"cell": args.cell, "device": device, "decode": decode_window(
         pipe, kw, args.steps, out / f"trace_{args.cell}.json")}), flush=True)
+    if spec:
+        print(json.dumps({"cell": args.cell, "device": device, "spec": spec_parts(pipe, kw)}),
+              flush=True)
     return 0
 
 

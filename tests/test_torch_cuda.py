@@ -343,3 +343,135 @@ def test_serve_engine_refuses_the_plain_route_on_the_card(dev):
     model = tgpt.init_gpt(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         ServeEngine(model, cfg, ServeConfig(max_slots=2, use_flash=False), device=dev)
+
+
+# ---- speculative decode: chunk attention and the block append -----------------
+
+def _chunk_inputs(dev, b, s, h, d, k, bias, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, k, h * d, generator=g, device=dev) * 0.5).bfloat16()
+    kv = (torch.randn(b, s, 2 * h * d, generator=g, device=dev) * 0.5).bfloat16()
+    col_bias = None
+    if bias:  # left padding; row 0's chunk at pos 0 masks its own rows
+        pad = torch.arange(b, device=dev)[:, None] * 7 + 3
+        col_bias = torch.where(torch.arange(s, device=dev)[None, :] < pad, -1e9, 0.0).float()
+    pos = torch.tensor([0, 1, 254, 255, 300, 572][:b], dtype=torch.int32, device=dev)
+    return q, kv, pos, col_bias
+
+
+@pytest.mark.parametrize("kind", ["bf16", "q8", "q4", "q4_split"])
+@pytest.mark.parametrize("d", [64, 100, 128])
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 20])
+@pytest.mark.parametrize("bias", [False, True])
+def test_chunk_kernel_matches_plain_version(dev, kind, d, k, bias):
+    from controlar_tpu_torch.ops import flash_chunk as fc
+
+    h = 3
+    q, kv, pos, col_bias = _chunk_inputs(dev, 6, 768, h, d, k, bias, seed=d + k)
+    if kind == "bf16":
+        args, kw = (kv,), {}
+        kern, ref = fc.flash_chunk_attention, fc.flash_chunk_attention_ref
+    elif kind == "q8":
+        args, kw = quantize_kv_rows(kv, h), {}
+        kern, ref = fc.flash_chunk_attention_q8, fc.flash_chunk_attention_q8_ref
+    else:
+        split = kind == "q4_split"
+        args, kw = quantize_kv_rows_4(kv, h, split=split), dict(head_dim=d, split=split)
+        kern, ref = fc.flash_chunk_attention_q4, fc.flash_chunk_attention_q4_ref
+    before = kern.launches
+    out = kern(q, *args, pos, col_bias, n_head=h, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1 and out.shape == q.shape and out.dtype == q.dtype
+    want = ref(q, *args, pos, col_bias, n_head=h, **kw)
+    err = (out.float() - want.float()).abs()
+    assert bool(torch.isfinite(out).all())
+    assert bool((err <= 2e-3 + 1e-2 * want.float().abs()).all()), err.max().item()
+
+
+def test_chunk_f32_query_gives_f32_output(dev):
+    from controlar_tpu_torch.ops.flash_chunk import (
+        flash_chunk_attention, flash_chunk_attention_ref)
+
+    q, kv, pos, _ = _chunk_inputs(dev, 4, 256, 2, 64, 4, False)
+    out = flash_chunk_attention(q.float(), kv, pos, n_head=2)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, flash_chunk_attention_ref(q.float(), kv, pos, n_head=2),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["q_shape", "pos_dtype", "bias_dtype", "head_dim"])
+def test_chunk_wrapper_rejects(dev, bad):
+    from controlar_tpu_torch.ops.flash_chunk import flash_chunk_attention
+
+    q, kv, pos, bias = _chunk_inputs(dev, 4, 256, 2, 64, 4, True)
+    h = 2
+    if bad == "q_shape":
+        q = q[:, 0]
+    elif bad == "pos_dtype":
+        pos = pos.long()
+    elif bad == "bias_dtype":
+        bias = bias.bfloat16()
+    else:
+        kv, q, h = kv[..., :96].contiguous(), q[..., :48].contiguous(), 2
+    with pytest.raises(ValueError):
+        flash_chunk_attention(q, kv, pos, bias, n_head=h)
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 6400), (torch.int8, 6400),
+                                         (torch.float32, 64), (torch.int8, 3200),
+                                         (torch.float32, 6), (torch.int8, 7)])
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_cache_append_block_matches_plain_version(dev, dtype, width, k):
+    from controlar_tpu_torch.ops.cache_append import cache_append_block, cache_append_block_ref
+
+    b, s = 16, 768
+    g = torch.Generator(device=dev).manual_seed(width + k)
+    if dtype == torch.int8:
+        cache = torch.randint(-128, 128, (b, s, width), generator=g, device=dev, dtype=dtype)
+        rows = torch.randint(-128, 128, (b, k, width), generator=g, device=dev, dtype=dtype)
+    else:
+        cache = torch.randn(b, s, width, generator=g, device=dev).to(dtype)
+        rows = torch.randn(b, k, width, generator=g, device=dev)  # cast by the wrapper
+    pos = torch.tensor([0, s - k] + [37 * i + 3 for i in range(b - 2)], dtype=torch.int32,
+                       device=dev)
+    want = cache_append_block_ref(cache.clone(), rows, pos)
+    before = cache_append_block.launches
+    out = cache_append_block(cache, rows, pos)
+    torch.cuda.synchronize()
+    assert out is cache and cache_append_block.launches == before + 1
+    assert torch.equal(cache.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_cache_append_block_skips_blocks_outside_the_cache(dev):
+    from controlar_tpu_torch.ops.cache_append import cache_append_block
+
+    cache = torch.zeros(3, 8, 16, dtype=torch.bfloat16, device=dev)
+    rows = torch.ones(3, 4, 16, device=dev)
+    cache_append_block(cache, rows, torch.tensor([-1, 5, 4], dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert cache[:2].abs().sum().item() == 0 and cache[2, 4:].float().sum().item() == 64
+
+
+def test_spec_greedy_equals_plain_greedy_on_the_card(dev):
+    """Greedy speculative decode through the kernels gives the plain greedy
+    loop's tokens (small fp32 model, no control features)."""
+    from controlar_tpu_torch import generate as tgen
+    from controlar_tpu_torch import spec_decode as tspec
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.ops.cache_append import cache_append_block
+    from controlar_tpu_torch.ops.flash_chunk import flash_chunk_attention
+
+    cfg = GPTConfig(model_type="c2i", dim=128, n_layer=3, n_head=2, vocab_size=64,
+                    num_classes=10, block_size=16)
+    model = tgpt.init_gpt(cfg, seed=0, device=dev)
+    draft = tgpt.init_gpt(cfg, seed=1, device=dev)
+    kw = dict(labels=torch.arange(3, device=dev), max_new_tokens=16, cfg_scale=2.0, device=dev)
+    before = (flash_chunk_attention.launches, cache_append_block.launches)
+    spec, stats = tspec.generate_spec(model, cfg, draft, return_stats=True, **kw)
+    assert flash_chunk_attention.launches - before[0] == cfg.n_layer * stats["loop_iters"]
+    assert cache_append_block.launches - before[1] == cfg.n_layer * stats["loop_iters"]
+    plain = tgen.generate(model, cfg, sample_logits=False, **kw)
+    assert torch.equal(spec, plain)
+    with pytest.raises(ValueError, match="use_flash=False"):
+        tspec.generate_spec(model, cfg, draft, use_flash=False, **kw)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from controlar_tpu_torch import generate as tgen
+from controlar_tpu_torch import spec_decode as tspec
 from controlar_tpu_torch.config import GPTConfig, VQConfig
 from controlar_tpu_torch.models import gpt as tgpt
 from controlar_tpu_torch.models import vit as tvit
@@ -63,6 +64,17 @@ def test_generate_raises_without_a_card_unless_cpu_is_asked():
     assert toks.shape == (1, 2)
 
 
+def test_generate_spec_raises_without_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg, model = _tiny()
+    with pytest.raises(RuntimeError, match="cuda"):
+        tspec.generate_spec(model, cfg, model, labels=torch.tensor([1]), max_new_tokens=2)
+    toks = tspec.generate_spec(model, cfg, model, labels=torch.tensor([1]), max_new_tokens=2,
+                               device="cpu")
+    assert toks.shape == (1, 2)
+
+
 def test_pipeline_raises_without_a_card_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -76,6 +88,9 @@ def test_pipeline_raises_without_a_card_unless_cpu_is_asked():
     pipe = ControlARPipeline(**mods, device="cpu")
     out = pipe.generate(labels=np.array([2]), top_k=4)
     assert out.shape == (1, 4, 4, 3) and out.dtype == np.uint8
+    with pytest.raises(ValueError, match="expected cpu"):  # the draft is on the pipeline's device
+        ControlARPipeline(**mods, device="cpu", draft_gpt_cfg=cfg,
+                          draft_gpt=tgpt.init_gpt(cfg).to("meta"))
 
 
 def test_serve_engine_raises_without_a_card_unless_cpu_is_asked():
