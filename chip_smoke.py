@@ -22,6 +22,11 @@ ending the run with a non-zero exit when it fails:
                 SDPA over the live rows and the bound;
   kernel_append_block  the K-row block append, bit for bit, on every stream
                 a verify writes;
+  kernel_train_fwd  the training attention's forward, dq and dk/dv kernels
+  kernel_train_dq   against their plain versions at the training cells'
+  kernel_train_dkv  shapes (caption bias), c2i without bias and D = 100;
+                timed with the plain version, SDPA (boolean mask; forward,
+                and the autograd backward) and the bound;
   reference     small models on the card against the same models on the CPU
                 (the CPU path is the one the tests hold to the JAX package):
                 bf16, W8 + int8 cache, W4 split-rope + int4 cache;
@@ -31,6 +36,9 @@ ending the run with a non-zero exit when it fails:
   spec_reference  the three small models through verify chunks
                 (forward_chunk), card against CPU, and greedy speculative
                 decode against greedy decode on the card;
+  train_reference  small t2i and c2i control models: loss and gradients
+                under the six remat policies on the card (equal, forward
+                launches exact), then control train steps card against CPU;
   c2i           GPT-B class-to-image at 384 px through ControlARPipeline:
                 Canny -> DINOv2-small -> CFG decode -> VQ-16, batch 8;
   t2i           GPT-XL text-to-image at 512 px with left-padded captions;
@@ -46,10 +54,14 @@ ending the run with a non-zero exit when it fails:
                 k = 4, batch 8, CFG 4.0, top_k 2000, Leviathan sampling;
   spec_c2i_3b_w8kv8  the same with a W8A16 target and the int8 cache;
   spec_c2i_3b_w4kv4  the same with the c2i_3b_w4kv4 target and int4 cache;
+  train_t2i_b256  control fine-tuning through Trainer.fit: GPT-B t2i 256 px,
+                DINOv2-small trained, Canny, batch 16, remat full;
+  train_t2i_xl512  the TrainerConfig defaults: GPT-XL t2i 512 px, batch 8;
 then the `kernels` line and, last, the `ok` line. The cells are built by
 `controlar_tpu_torch.cells`; weights are random, made from fixed seeds. The
 generation cells run a warm call and two timed calls, the speculative cells
-a 16-token warm call and two timed calls. Each cell phase sets every
+a 16-token warm call and one timed call, the training cells two warm and
+five timed steps on one fixed batch. Each cell phase sets every
 kernel's launch count to 0 before its timed calls (a speculative cell before
 each call) and checks each count after them. TF32 is off throughout, so
 fp32 matmuls and convolutions run in full fp32 and the reference
@@ -59,6 +71,7 @@ Exits non-zero, printing no result, when there is no CUDA device.
 from __future__ import annotations
 
 import collections
+import copy
 import json
 import statistics
 import subprocess
@@ -117,6 +130,7 @@ def _kernels():
     from controlar_tpu_torch.ops import cache_append as ca
     from controlar_tpu_torch.ops import flash_chunk as fc
     from controlar_tpu_torch.ops import flash_decode as fd
+    from controlar_tpu_torch.ops import flash_train as ft
     from controlar_tpu_torch.ops import w4_matmul as w4
 
     return {
@@ -138,6 +152,12 @@ def _kernels():
                                      "controlar_tpu/ops/flash_chunk.py:260"),
         "cache_append_block": (ca.cache_append_block, "cache_append.cu",
                                "controlar_tpu/ops/cache_append.py:90"),
+        "flash_train_fwd": (ft.flash_train_fwd, "flash_train.cu",
+                            "controlar_tpu/ops/flash_train_pallas.py:54"),
+        "flash_train_dq": (ft.flash_train_dq, "flash_train.cu",
+                           "controlar_tpu/ops/flash_train_pallas.py:123"),
+        "flash_train_dkv": (ft.flash_train_dkv, "flash_train.cu",
+                            "controlar_tpu/ops/flash_train_pallas.py:155"),
     }
 
 
@@ -684,6 +704,137 @@ def phase_kernel_append_block():
     return row, 0.0
 
 
+# Training attention kernels vs their plain versions: |out - ref| <= TRAIN_ATOL +
+# TRAIN_RTOL * |ref|. The forward's p is rounded to bf16 against the running
+# max in the kernel and against the row max in the plain version (2**-9
+# relative each), and out is rounded to bf16 (2**-8); dq, dk and dv sum T
+# products of bf16-rounded ds or p, where an fp32 difference in the scores
+# can flip one rounding (2**-8 of that term). |out| and the gradients are
+# O(1) at these inputs; a dropped key tile or a misapplied bias moves them
+# by O(0.1).
+TRAIN_ATOL, TRAIN_RTOL = 2e-2, 2e-2
+
+
+def _train_cases():
+    """name, B, T, H, D, left-padded caption columns (0: no bias): the two
+    training cells' shapes, a c2i case without bias, and GPT-3B heads."""
+    return [("t2i_xl512", 8, 1143, 20, 64, 120), ("t2i_b256", 16, 375, 12, 64, 120),
+            ("c2i_b384", 4, 576, 12, 64, 0), ("d100", 2, 333, 32, 100, 120)]
+
+
+def _train_inputs(b, t, h, d, n_cls, seed):
+    """q, k, v, dO (B, T, H, D) bf16, the column bias (or None) and the
+    valid rows; dO is zero on the fully masked rows, as in the model."""
+    from controlar_tpu_torch.cells import train_caption_lens
+    from controlar_tpu_torch.ops.flash_train import key_bias
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device="cuda").bfloat16()
+                   for _ in range(4))
+    valid = torch.ones(b, t, dtype=torch.bool, device="cuda")
+    if n_cls:
+        lens = torch.as_tensor(train_caption_lens(b, seed), device="cuda")
+        valid[:, :n_cls] = torch.arange(n_cls, device="cuda")[None, :] >= (n_cls - lens)[:, None]
+    do = do * valid[:, :, None, None]
+    return q, k, v, do, (key_bias(valid) if n_cls else None), valid
+
+
+def _train_bound(kind, b, t, h, d, with_bias):
+    """Least time for one call: causal (query, key) pairs; the forward does
+    two products (4 D flops a pair), dq three, dk/dv four, in bf16 on the
+    tensor cores; bytes: each bf16 tensor read or written once, lse, delta
+    and the bias in f32."""
+    pairs = b * h * t * (t + 1) // 2
+    elem = b * t * h * d * 2
+    f32_rows = b * h * t * 4
+    n_bf16, n_f32, products = {"fwd": (4, 1, 2), "dq": (5, 2, 3), "dkv": (6, 2, 4)}[kind]
+    nbytes = n_bf16 * elem + n_f32 * f32_rows + (b * t * 4 if with_bias else 0)
+    return _roofline(nbytes, 2 * products * d * pairs, BF16_FLOPS)
+
+
+def _sdpa_train(q, k, v, valid):
+    """The library yardstick: SDPA with a boolean mask, causal & (key_valid
+    | diagonal) so that no row is empty, over (B, H, T, D) views; returns
+    the forward and the autograd backward of dq, dk, dv (never called by
+    the port)."""
+    import torch.nn.functional as F
+
+    t = q.shape[1]
+    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    eye = torch.eye(t, dtype=torch.bool, device=q.device)
+    mask = (causal[None] & (valid[:, None, :] | eye[None]))[:, None]
+    qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    out = fwd()
+    do = torch.randn_like(out)
+    return fwd, lambda: torch.autograd.grad(out, (qh, kh, vh), do, retain_graph=True)
+
+
+def phase_kernel_train():
+    """flash_train_fwd, flash_train_dq and flash_train_dkv against their
+    plain versions at the training cells' shapes (left-padded caption bias),
+    a c2i case without bias and GPT-3B heads (D = 100); each timed at every
+    case with the plain version, SDPA and the bound. Emits one phase per
+    kernel; returns {kernel: (the XL cell's row, max abs error)}."""
+    from controlar_tpu_torch.ops import flash_train as ft
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = collections.defaultdict(list)
+    errs = collections.defaultdict(float)
+    for i, (name, b, t, h, d, n_cls) in enumerate(_train_cases()):
+        q, k, v, do, bias, valid = _train_inputs(b, t, h, d, n_cls, seed=40 + i)
+        out_ref, lse_ref = ft.flash_train_fwd_ref(q, k, v, bias)
+        delta = (do.float() * out_ref.float()).sum(-1).transpose(1, 2).contiguous()
+        dq_ref, dk_ref, dv_ref = ft.flash_train_bwd_ref(q, k, v, bias, do, lse_ref, delta)
+        out, lse = ft.flash_train_fwd(q, k, v, bias)
+        dq = ft.flash_train_dq(q, k, v, bias, do, lse_ref, delta)
+        dk, dv = ft.flash_train_dkv(q, k, v, bias, do, lse_ref, delta)
+        torch.cuda.synchronize()
+        rowmask = valid[:, :, None, None]
+        lse_rows = valid[:, None, :].expand(b, h, t)
+        checks = {  # fully masked rows are junk: out and lse compared on valid rows
+            "flash_train_fwd": [(out * rowmask, out_ref * rowmask),
+                                (lse.where(lse_rows, 0.0), lse_ref.where(lse_rows, 0.0))],
+            "flash_train_dq": [(dq, dq_ref)],
+            "flash_train_dkv": [(dk, dk_ref), (dv, dv_ref)],
+        }
+        for kern, pairs in checks.items():
+            for got, want in pairs:
+                err, ok = _within(got, want, TRAIN_ATOL, TRAIN_RTOL)
+                check(ok, "kernel_train", f"{kern} {name}: max_abs_err {err} over the limit")
+                errs[kern] = max(errs[kern], err)
+        lib_fwd, lib_bwd = _sdpa_train(q, k, v, valid)
+        lib_fwd_ms, lib_bwd_ms = time_ms(lib_fwd, flush=flush), time_ms(lib_bwd, flush=flush)
+        calls = {
+            "flash_train_fwd": (lambda: ft.flash_train_fwd(q, k, v, bias),
+                                lambda: ft.flash_train_fwd_ref(q, k, v, bias), lib_fwd_ms, "fwd"),
+            "flash_train_dq": (lambda: ft.flash_train_dq(q, k, v, bias, do, lse_ref, delta),
+                               lambda: ft.flash_train_bwd_ref(q, k, v, bias, do, lse_ref, delta),
+                               lib_bwd_ms, "dq"),
+            "flash_train_dkv": (lambda: ft.flash_train_dkv(q, k, v, bias, do, lse_ref, delta),
+                                lambda: ft.flash_train_bwd_ref(q, k, v, bias, do, lse_ref,
+                                                               delta), lib_bwd_ms, "dkv"),
+        }
+        for kern, (fn, plain, lib, kind) in calls.items():
+            bound, by = _train_bound(kind, b, t, h, d, bias is not None)
+            rows[kern].append(dict(case=name, b=b, t=t, h=h, d=d, bias=bias is not None,
+                                   ms=time_ms(fn, flush=flush), plain_ms=time_ms(plain, flush=flush),
+                                   library_ms=lib, bound_ms=bound, bound_by=by))
+        del q, k, v, do, out_ref, dq_ref, dk_ref, dv_ref, out, dq, dk, dv, lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
+    phases = {"flash_train_fwd": "kernel_train_fwd", "flash_train_dq": "kernel_train_dq",
+              "flash_train_dkv": "kernel_train_dkv"}
+    for kern, phase in phases.items():
+        emit(phase, ok=True, name=kern, max_abs_err=errs[kern], atol=TRAIN_ATOL,
+             rtol=TRAIN_RTOL, library="SDPA, boolean mask" + (
+                 "" if kern == "flash_train_fwd" else ", autograd backward (dq, dk, dv)"),
+             timings=rows[kern])
+    return {kern: (rows[kern][0], errs[kern]) for kern in phases}
+
+
 def phase_reference():
     """A small fp32 model on the card (kernel path) against the same weights
     on the CPU (plain path): Canny bit for bit, the adapter, prefill and
@@ -999,6 +1150,224 @@ def phase_spec_reference():
          first_difference_margin=margin, greedy_stats=stats)
 
 
+# Training card vs CPU (fp32 compute; the attention rounds q, k, v, p and ds
+# to bf16 on both): the loss to 1e-4 relative, every gradient element to
+# 1e-2 of its tensor's max (a different order of fp32 sums can flip one bf16
+# rounding of a p or ds, 2**-8 of that term), or of 1e-4 of the largest
+# gradient where the tensor's is smaller: a gradient that is zero by
+# symmetry (the adapter's key bias: softmax ignores a constant added to a
+# row) holds only rounding noise, ~1e-14; after the steps every parameter
+# within 2 lr a step (Adam's normalised update of a small gradient whose
+# sign flipped). A wrong gradient moves the loss and the norms far more.
+TRAIN_REF_LR = 1e-4
+TRAIN_REF_TOL = dict(loss=1e-4, grad=1e-2)
+TRAIN_REF_STEPS = 2
+
+
+def _small_control(kind: str):
+    """A small control-training setup: (gpt config, adapter config, host
+    batch), 128 px (64 tokens), 3 layers of 2 x 64 heads, dropout 0,
+    left-padded captions for t2i."""
+    from controlar_tpu_torch.cells import train_batch
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.models import vit as tvit
+
+    cfg = GPTConfig(model_type=kind, dim=128, n_layer=3, n_head=2, vocab_size=64,
+                    num_classes=10, caption_dim=32, block_size=64,
+                    cls_token_num=8 if kind == "t2i" else 1, token_dropout_p=0.0,
+                    resid_dropout_p=0.0, ffn_dropout_p=0.0, class_dropout_prob=0.0)
+    acfg = tvit.ViTConfig(hidden_size=384, n_layer=1, n_head=6, pos_grid=8)
+    batch = train_batch(cfg, 3, 128, seed=21)
+    if kind == "c2i":
+        batch["labels"] = np.array([1, 5, 9], np.int32)
+    else:  # captions of 2, 5 and all 8 columns
+        batch["emb_mask"] = (np.arange(8)[None, :] >= np.array([6, 3, 0])[:, None]).astype(np.int32)
+    return cfg, acfg, batch
+
+
+def _control_model(cfg, acfg):
+    """The small setup's ControlModel on the CPU, from seeds; gradients on
+    for every parameter but the frozen ones."""
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.models import vit as tvit
+    from controlar_tpu_torch.train.control_step import ControlModel
+    from controlar_tpu_torch.train.optimizer import frozen_mask
+
+    model = ControlModel(tgpt.init_gpt(cfg, seed=3), tvit.init_vit(acfg, seed=4))
+    with torch.no_grad():  # the t2i head is zero at init, which zeroes every other gradient
+        model.gpt.output.weight.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(5))
+    frozen = frozen_mask(dict(model.named_parameters()))
+    for n, p in model.named_parameters():
+        p.requires_grad_(not frozen[n])
+    return model
+
+
+def _loss_and_grads(model, cfg, acfg, batch, remat):
+    """The control step's fp32 loss and gradients (no update)."""
+    from controlar_tpu_torch.train import optimizer as topt
+    from controlar_tpu_torch.train.control_step import make_control_train_step
+
+    fn = make_control_train_step(cfg, acfg, topt.make_optimizer(lr=TRAIN_REF_LR), "canny",
+                                 compute_dtype=torch.float32, remat_policy=remat)
+    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    loss = fn.loss_fn(model, batch, (0, 0))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def _fwd_per_layer(remat: str) -> int:
+    """Forward kernel launches per layer and step: twice where the layer is
+    recomputed and (out, lse) are not saved."""
+    return 1 if remat in ("attn", "qkv_attn", "none") else 2
+
+
+def phase_train_reference():
+    """Small t2i and c2i control models: the loss and gradients under all six
+    remat policies on the card (each equal to "none" bit for bit, forward
+    launches exact), then TRAIN_REF_STEPS control train steps on the card
+    (kernels) and on the CPU (plain versions) from the same weights: loss,
+    first-step gradients and parameters after the steps."""
+    from controlar_tpu_torch.ops import flash_train as ft
+    from controlar_tpu_torch.remat import REMAT_POLICIES
+    from controlar_tpu_torch.train import optimizer as topt
+    from controlar_tpu_torch.train import step as tstep
+    from controlar_tpu_torch.train.control_step import make_control_train_step
+
+    report = {}
+    for kind in ("t2i", "c2i"):
+        cfg, acfg, host = _small_control(kind)
+        cpu_model = _control_model(cfg, acfg)
+        models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to("cuda")}
+        batches = {d: {k: torch.from_numpy(v).to(d) for k, v in host.items()} for d in models}
+        # the six remat policies on the card, with cuDNN's deterministic
+        # algorithms: its default weight-gradient algorithm for the adapter's
+        # patch projection differs from run to run by ~1e-12
+        grads, launches = {}, {}
+        torch.backends.cudnn.deterministic = True
+        for remat in REMAT_POLICIES:
+            for f in (ft.flash_train_fwd, ft.flash_train_dq, ft.flash_train_dkv):
+                f.launches = 0
+            grads[remat] = _loss_and_grads(models["cuda"], cfg, acfg, batches["cuda"], remat)
+            torch.cuda.synchronize()
+            launches[remat] = [ft.flash_train_fwd.launches, ft.flash_train_dq.launches,
+                               ft.flash_train_dkv.launches]
+            want = [cfg.n_layer * _fwd_per_layer(remat), cfg.n_layer, cfg.n_layer]
+            check(launches[remat] == want, "train_reference",
+                  f"{kind} {remat}: launches fwd/dq/dkv {launches[remat]} != {want}")
+        torch.backends.cudnn.deterministic = False
+        base_loss, base_grads = grads["none"]
+        identical = {r: bool(torch.equal(l, base_loss)
+                             and all(torch.equal(g, base_grads[n]) for n, g in gs.items()))
+                     for r, (l, gs) in grads.items()}
+        check(all(identical.values()), "train_reference",
+              f"{kind}: remat policies differ from 'none': {identical}")
+        # card vs CPU: first-step gradients, then the steps
+        cpu_loss, cpu_grads = _loss_and_grads(models["cpu"], cfg, acfg, batches["cpu"], "full")
+        loss_err = abs(base_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+        floor = 1e-4 * max(g.abs().max().item() for g in cpu_grads.values())
+        grad_errs = {n: (base_grads[n].cpu() - g).abs().max().item()
+                     / max(g.abs().max().item(), floor) for n, g in cpu_grads.items()}
+        grad_err = max(grad_errs.values())
+        worst = sorted(grad_errs, key=grad_errs.get)[-3:]
+        check(loss_err <= TRAIN_REF_TOL["loss"] and grad_err <= TRAIN_REF_TOL["grad"],
+              "train_reference", f"{kind}: loss rel err {loss_err}, grad rel err {grad_err} "
+              f"(worst {[(n, grad_errs[n]) for n in worst]})")
+        losses, final = {}, {}
+        for dev, model in models.items():
+            tx = topt.make_optimizer(lr=TRAIN_REF_LR)
+            fn = make_control_train_step(cfg, acfg, tx, "canny", compute_dtype=torch.float32)
+            state = tstep.init_train_state(model, tx)
+            losses[dev] = []
+            for _ in range(TRAIN_REF_STEPS):
+                state, m = fn(model, state, batches[dev], 0)
+                losses[dev].append(m["loss"].item())
+            final[dev] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        param_err = max((final["cuda"][n] - p).abs().max().item() for n, p in final["cpu"].items())
+        step_loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        check(step_loss_err <= TRAIN_REF_TOL["loss"]
+              and param_err <= 2 * TRAIN_REF_LR * TRAIN_REF_STEPS, "train_reference",
+              f"{kind}: step loss rel err {step_loss_err}, param max abs err {param_err}")
+        report[kind] = dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
+                            step_losses=losses, step_loss_rel_err=step_loss_err,
+                            param_max_abs_err=param_err, remat_bit_identical=identical,
+                            launches_fwd_dq_dkv=launches)
+    emit("train_reference", ok=True, lr=TRAIN_REF_LR, steps=TRAIN_REF_STEPS,
+         tol=TRAIN_REF_TOL, param_tol=2 * TRAIN_REF_LR * TRAIN_REF_STEPS, **report)
+
+
+def _palm_flops(trainer) -> float:
+    """Model FLOPs of one step by scripts/bench_train.py's PaLM convention:
+    B * sum over the GPT and the adapter of 6 N T + 12 L T^2 d, N the
+    matmul parameters (two or more dimensions in the JAX package's stacked
+    layout), T the sequence each runs (the adapter's patch tokens plus CLS);
+    recomputation not counted."""
+    from controlar_tpu_torch.train.optimizer import _PER_LAYER
+
+    def matmul_params(module):
+        return sum(p.numel() for n, p in module.named_parameters()
+                   if p.dim() + bool(_PER_LAYER.search(n)) >= 2)
+
+    g, a, tcfg = trainer.gpt_cfg, trainer.adapter_cfg, trainer.cfg
+    t_gpt = g.cls_token_num + g.block_size - 1
+    side = tcfg.image_size // 16 * 14  # to_patch14
+    t_ad = (side // a.patch_size) ** 2 + 1
+    f_gpt = 6 * matmul_params(trainer.model.gpt) * t_gpt + 12 * g.n_layer * t_gpt ** 2 * g.dim
+    f_ad = (6 * matmul_params(trainer.model.adapter) * t_ad
+            + 12 * a.n_layer * t_ad ** 2 * a.hidden_size)
+    return tcfg.global_batch_size * (f_gpt + f_ad), t_gpt, t_ad
+
+
+def phase_train_cell(name: str, warm: int = 2, timed: int = 5) -> dict:
+    """`Trainer.fit` on the cell's fixed batch: `warm` steps, then `timed`
+    steps with every kernel's launch count set to 0 just before them (each
+    count must be exact), each step timed on the host clock around the
+    synchronised step (the trainer logs every step, reading its loss).
+    Reports ms per step, img/s, model TFLOP and MFU against the H100's
+    dense bf16 peak, peak memory and the loss at the first and last step
+    (finite, and lower at the end). Returns the launches."""
+    from controlar_tpu_torch.cells import FixedBatchLoader, build_train_cell
+
+    t0 = time.perf_counter()
+    trainer, batch = build_train_cell(name, log_every=1, ckpt_every=10 ** 9)
+    state = trainer.fit(FixedBatchLoader(batch, warm), max_steps=warm)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = {k: v[0] for k, v in _kernels().items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    state = trainer.fit(FixedBatchLoader(batch, timed), state, max_steps=warm + timed)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    cfg, tcfg = trainer.gpt_cfg, trainer.cfg
+    per_step = {"flash_train_fwd": cfg.n_layer * _fwd_per_layer(tcfg.remat_policy),
+                "flash_train_dq": cfg.n_layer, "flash_train_dkv": cfg.n_layer}
+    for k, got in launches.items():
+        check(got == timed * per_step.get(k, 0), name,
+              f"{k} launches {got} != {timed * per_step.get(k, 0)}")
+    hist = trainer.history
+    seconds = [r["seconds"] for r in hist if r["step"] > warm]
+    check(len(seconds) == timed and all(r.get("steps", 1) == 1 for r in hist), name,
+          f"step records {hist}")
+    losses = [r["loss"] for r in hist]
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0], name,
+          f"losses {losses}: not finite, or not lower at the end")
+    ms = statistics.median(seconds) * 1e3
+    flops, t_gpt, t_ad = _palm_flops(trainer)
+    emit(name, ok=True, model=tcfg.gpt_model, model_type=tcfg.model_type,
+         image_px=tcfg.image_size, t_gpt=t_gpt, t_adapter=t_ad,
+         batch=tcfg.global_batch_size, remat=tcfg.remat_policy,
+         opt_state_dtype=tcfg.opt_state_dtype, dropout=tcfg.dropout_p,
+         warm_steps=warm, warm_s=warm_s, timed_steps=timed, step_seconds=seconds,
+         ms_per_step=ms, images_per_s=tcfg.global_batch_size / (ms / 1e3),
+         model_tflop_per_step=flops / 1e12,
+         mfu=flops / (ms / 1e3) / BF16_FLOPS, mfu_peak="989 TFLOP/s dense bf16 (H100 SXM)",
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+         loss_first=losses[0], loss_last=losses[-1], losses=losses,
+         launches_per_step=per_step, launches={k: v for k, v in launches.items() if v})
+    return launches
+
+
 def _expected_per_call(name: str, cfg) -> dict:
     """Launches of each kernel in one generate call of the cell: attention
     at every decode step of every layer; on the W4 path two W4 products
@@ -1253,7 +1622,10 @@ def phase_serve(name: str, overlap: bool) -> dict:
 
 CELL_RUNS = (("c2i", 2), ("t2i", 2), ("c2i_w8kv8", 2), ("c2i_3b_w4kv4", 2))
 SERVE_RUNS = (("serve_c2i", True), ("serve_c2i_w8kv8", False))  # cell, overlap run too
-SPEC_RUNS = (("spec_c2i_3b", 2), ("spec_c2i_3b_w8kv8", 2), ("spec_c2i_3b_w4kv4", 2))
+# one timed speculative call each (a minute per call): the training cells
+# took the time of the second
+SPEC_RUNS = (("spec_c2i_3b", 1), ("spec_c2i_3b_w8kv8", 1), ("spec_c2i_3b_w4kv4", 1))
+TRAIN_RUNS = ("train_t2i_b256", "train_t2i_xl512")
 
 
 def main() -> int:
@@ -1287,9 +1659,15 @@ def main() -> int:
         "cache_append_block": (*phase_kernel_append_block(),
                                "spec_c2i_3b verify: 16 x 4 GPT-3B bf16 rows of 12800 B, S 768"),
     }
+    train_rows = phase_kernel_train()
+    where = {"flash_train_fwd": "train_t2i_xl512 layer: B=8 T=1143 H=20 D=64, caption bias",
+             "flash_train_dq": "train_t2i_xl512 layer: B=8 T=1143 H=20 D=64, caption bias",
+             "flash_train_dkv": "train_t2i_xl512 layer: B=8 T=1143 H=20 D=64, caption bias"}
+    timed.update({k: (*v, where[k]) for k, v in train_rows.items()})
     phase_reference()
     phase_serve_reference()
     phase_spec_reference()
+    phase_train_reference()
     launches = collections.Counter()
     for name, runs in CELL_RUNS:
         launches.update(phase_cell(name, runs))
@@ -1299,6 +1677,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     for name, runs in SPEC_RUNS:
         launches.update(phase_spec_cell(name, runs))
+        torch.cuda.empty_cache()
+    for name in TRAIN_RUNS:
+        launches.update(phase_train_cell(name))
         torch.cuda.empty_cache()
     emit("total", seconds=time.perf_counter() - t_start)
     entries = []

@@ -39,6 +39,14 @@ heads, dim 768), bf16, from another seed, on the target's cache dtype:
   spec_c2i_3b          target GPT-3B bf16, bf16 cache
   spec_c2i_3b_w8kv8    target GPT-3B W8A16 (head included), int8 cache
   spec_c2i_3b_w4kv4    target the c2i_3b_w4kv4 model, int4 cache
+
+The training cells run `train.trainer.Trainer` on one fixed synthetic
+batch (`train_batch`, as the JAX package's `scripts/bench_train.py` makes
+it, with left-padded captions):
+
+  train_t2i_xl512   the TrainerConfig defaults: GPT-XL t2i 512 px, DINOv2-small
+                    adapter trained, Canny, batch 8, remat full
+  train_t2i_b256    bench_train.py's default: GPT-B t2i 256 px, batch 16
 """
 from __future__ import annotations
 
@@ -188,3 +196,63 @@ def build_spec_cell(name: str, seed: int = 0, device="cuda"):
     pipe, kw = build_cell(name, seed, device=device, cells=SPEC_CELLS, draft_gpt_cfg=dcfg,
                           draft_gpt=draft)
     return pipe, dict(kw, spec_draft="model")
+
+
+# Training cells: `Trainer` (train/trainer.py) on one fixed synthetic batch.
+TRAIN_CELLS = {
+    # the TrainerConfig defaults: GPT-XL t2i 512 px (1024 tokens, T = 1143),
+    # DINOv2-small adapter, Canny from raw images, remat full, fp32 moments,
+    # dropout 0.1, class dropout 0.1; batch 8
+    "train_t2i_xl512": dict(global_batch_size=8),
+    # the JAX package's scripts/bench_train.py default: GPT-B t2i 256 px
+    # (T = 375), batch 16, remat full
+    "train_t2i_b256": dict(gpt_model="GPT-B", image_size=256, global_batch_size=16),
+}
+
+
+def train_caption_lens(n: int, seed: int) -> np.ndarray:
+    """Valid caption lengths of a training batch, drawn in [16, 120]."""
+    return np.random.default_rng(seed + 11).integers(16, 121, n)
+
+
+def train_batch(cfg, batch: int, image_px: int, seed: int) -> dict:
+    """One synthetic host batch as `scripts/bench_train.py` makes it (random
+    tokens, captions and raw RGB images, valid ones), with the captions
+    left-padded to lengths drawn in [16, 120] so that the caption bias runs."""
+    rng = np.random.default_rng(seed)
+    lens = train_caption_lens(batch, seed)
+    return {
+        "tokens": rng.integers(0, cfg.vocab_size, (batch, cfg.block_size)).astype(np.int32),
+        "caption_emb": rng.standard_normal((batch, cfg.cls_token_num, cfg.caption_dim)
+                                           ).astype(np.float32),
+        "emb_mask": (np.arange(cfg.cls_token_num)[None, :]
+                     >= (cfg.cls_token_num - lens)[:, None]).astype(np.int32),
+        "control_image": rng.integers(0, 255, (batch, image_px, image_px, 3)).astype(np.uint8),
+        "valid": np.ones((batch,), np.float32),
+    }
+
+
+class FixedBatchLoader:
+    """A loader (set_epoch, iteration) that yields one host batch `steps`
+    times an epoch."""
+
+    def __init__(self, batch: dict, steps: int = 1):
+        self.batch, self.steps = batch, steps
+
+    def set_epoch(self, epoch: int) -> None:
+        pass
+
+    def __iter__(self):
+        return iter([self.batch] * self.steps)
+
+
+def build_train_cell(name: str, seed: int = 0, device="cuda", results_dir=None, **overrides):
+    """-> (Trainer of the cell, its fixed host batch). overrides go to the
+    TrainerConfig (e.g. log_every, profile_dir)."""
+    from controlar_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(**TRAIN_CELLS[name], seed=seed,
+                         results_dir=results_dir or f"results/{name}", **overrides)
+    trainer = Trainer(tcfg, device=device)
+    return trainer, train_batch(trainer.gpt_cfg, tcfg.global_batch_size, tcfg.image_size,
+                                seed + 7)

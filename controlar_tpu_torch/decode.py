@@ -38,6 +38,7 @@ from controlar_tpu_torch.config import GPTConfig
 from controlar_tpu_torch.models.gpt import (
     GPT,
     _fusion_gates,
+    _logits,
     _qkv,
     attend_masked,
     make_rope_table,
@@ -208,10 +209,6 @@ def ffn(lp, x: torch.Tensor) -> torch.Tensor:
             return out.reshape(*x.shape[:-1], out.shape[-1])
     h1, h3 = torch.chunk(lp.w13(x), 2, dim=-1)
     return lp.w2(F.silu(h1) * h3)
-
-
-def _logits(model: GPT, cfg: GPTConfig, h: torch.Tensor) -> torch.Tensor:
-    return model.output(rms_norm(h, model.norm, cfg.norm_eps)).float()
 
 
 def _fuse(fused3_l: torch.Tensor, control_strength, dtype: torch.dtype) -> torch.Tensor:

@@ -3,6 +3,9 @@
 `vit_forward(x)` returns the last hidden state without the CLS token, as the
 ControlAR adapter uses it. The position table is interpolated bicubically
 (align_corners=False, fp32) when the patch grid differs from the native one.
+The adapter is trained with the GPT, so `vit_forward` keeps gradients (the
+inference callers run it under `torch.inference_mode()`) and takes a remat
+policy for its layers.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from torch import nn
 from controlar_tpu_torch.ops.conv import conv2d
 from controlar_tpu_torch.ops.norms import Affine
 from controlar_tpu_torch.ops.resize import resize2d
+from controlar_tpu_torch.remat import checkpointed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +59,27 @@ class ViTLayer(nn.Module):
         if cfg.layerscale:
             self.ls1 = nn.Parameter(torch.empty(c))
             self.ls2 = nn.Parameter(torch.empty(c))
+
+    def forward(self, cfg: ViTConfig, hs: torch.Tensor) -> torch.Tensor:
+        """One pre-norm encoder layer."""
+        b, t, c = hs.shape
+        nh, dh, eps = cfg.n_head, cfg.head_dim, cfg.layer_norm_eps
+        y = layer_norm(hs, self.norm1.scale, self.norm1.bias, eps)
+        q = self.q(y).reshape(b, t, nh, dh)
+        k = self.k(y).reshape(b, t, nh, dh)
+        v = self.v(y).reshape(b, t, nh, dh)
+        scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * (dh ** -0.5)
+        probs = torch.softmax(scores, dim=-1).to(y.dtype)
+        attn = torch.einsum("bhts,bshd->bthd", probs.float(), v.float())
+        attn = self.out(attn.to(y.dtype).reshape(b, t, c))
+        if cfg.layerscale:
+            attn = attn * self.ls1
+        hs = hs + attn
+        y = layer_norm(hs, self.norm2.scale, self.norm2.bias, eps)
+        y = self.fc2(F.gelu(self.fc1(y)))
+        if cfg.layerscale:
+            y = y * self.ls2
+        return hs + y
 
 
 class PatchProj(nn.Module):
@@ -117,35 +142,23 @@ def _interp_pos_embed(model: ViT, cfg: ViTConfig, grid_h: int, grid_w: int) -> t
     return torch.cat([pos[:1], patch.reshape(grid_h * grid_w, -1).to(pos.dtype)])
 
 
-@torch.inference_mode()
-def vit_forward(model: ViT, cfg: ViTConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, H, W, 3) -> patch tokens (B, (H/P)*(W/P), C), CLS dropped."""
+def vit_forward(model: ViT, cfg: ViTConfig, x: torch.Tensor, remat: "str | bool" = False
+                ) -> torch.Tensor:
+    """x: (B, H, W, 3) -> patch tokens (B, (H/P)*(W/P), C), CLS dropped.
+
+    remat: recompute each layer in the backward, "dots" saving its matmul
+    outputs and any other policy name recomputing the whole layer (the JAX
+    package's rule); False or "none" saves everything."""
     b, h, w, _ = x.shape
-    p, c, nh, dh = cfg.patch_size, cfg.hidden_size, cfg.n_head, cfg.head_dim
+    p, c = cfg.patch_size, cfg.hidden_size
     gh, gw = h // p, w // p
     patches = conv2d(x, model.patch_proj.weight, model.patch_proj.bias,
                      stride=p, padding="VALID")
     cls = model.cls_token[None, None, :].expand(b, 1, c)
     hs = torch.cat([cls, patches.reshape(b, gh * gw, c)], dim=1)
     hs = hs + _interp_pos_embed(model, cfg, gh, gw)[None].to(hs.dtype)
-    eps = cfg.layer_norm_eps
+    policy = "none" if remat in (False, None, "none") else ("dots" if remat == "dots" else "full")
     for lp in model.layers:
-        y = layer_norm(hs, lp.norm1.scale, lp.norm1.bias, eps)
-        t = y.shape[1]
-        q = lp.q(y).reshape(b, t, nh, dh)
-        k = lp.k(y).reshape(b, t, nh, dh)
-        v = lp.v(y).reshape(b, t, nh, dh)
-        scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * (dh ** -0.5)
-        probs = torch.softmax(scores, dim=-1).to(y.dtype)
-        attn = torch.einsum("bhts,bshd->bthd", probs.float(), v.float())
-        attn = lp.out(attn.to(y.dtype).reshape(b, t, c))
-        if cfg.layerscale:
-            attn = attn * lp.ls1
-        hs = hs + attn
-        y = layer_norm(hs, lp.norm2.scale, lp.norm2.bias, eps)
-        y = lp.fc2(F.gelu(lp.fc1(y)))
-        if cfg.layerscale:
-            y = y * lp.ls2
-        hs = hs + y
-    hs = layer_norm(hs, model.final_norm.scale, model.final_norm.bias, eps)
+        hs = checkpointed(lp, policy, cfg, hs)
+    hs = layer_norm(hs, model.final_norm.scale, model.final_norm.bias, cfg.layer_norm_eps)
     return hs[:, 1:]

@@ -72,6 +72,7 @@ class ControlARPipeline:
             raise NotImplementedError(f"condition type {ct!r} is not ported")
         return normalize_condition(cond[..., None].expand(*cond.shape, 3))
 
+    @torch.inference_mode()
     def control_features(self, condition: torch.Tensor) -> torch.Tensor:
         """Normalised condition (B, H, W, 3) -> adapter tokens (B, hw/256, C)."""
         x = to_patch14(condition, self.condition_type)

@@ -75,7 +75,7 @@ def stages(pipe, kw: dict) -> dict:
     return timings
 
 
-def _device_summary(raw: bytes, steps: int) -> dict:
+def _device_summary(raw: bytes, steps: int, kernels=PORT_KERNELS) -> dict:
     events = json.loads(raw)["traceEvents"]
     dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
@@ -88,7 +88,7 @@ def _device_summary(raw: bytes, steps: int) -> dict:
     by_name = collections.Counter()
     for e in dev:
         by_name[e["name"][:80]] += e["dur"]
-    port = {k: sum(e["dur"] for e in dev if k in e["name"]) for k in PORT_KERNELS}
+    port = {k: sum(e["dur"] for e in dev if k in e["name"]) for k in kernels}
     return {
         "device_busy_ms_per_step": busy / steps / 1e3,
         "device_busy_share_profiled": busy / (last - first),

@@ -475,3 +475,97 @@ def test_spec_greedy_equals_plain_greedy_on_the_card(dev):
     assert torch.equal(spec, plain)
     with pytest.raises(ValueError, match="use_flash=False"):
         tspec.generate_spec(model, cfg, draft, use_flash=False, **kw)
+
+
+# ---- training: the flash attention kernels and one control train step ----
+
+# as chip_smoke's TRAIN_ATOL / TRAIN_RTOL: p rounded to bf16 against the
+# running max (kernel) or the row max (plain), bf16 outputs; dq, dk, dv sum
+# bf16-rounded terms in another order
+_TRAIN_TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("d", [64, 100, 128])
+@pytest.mark.parametrize("t", [1, 63, 200])
+@pytest.mark.parametrize("bias", [False, True])
+def test_flash_train_kernels_match_plain_versions(dev, d, t, bias):
+    from controlar_tpu_torch.ops import flash_train as ft
+
+    g = torch.Generator(device=dev).manual_seed(t + d)
+    b, h = 2, 3
+    q, k, v, do = (torch.randn(b, t, h, d, generator=g, device=dev).bfloat16() for _ in range(4))
+    valid = torch.ones(b, t, dtype=torch.bool, device=dev)
+    if bias:
+        valid[0, : t // 3] = False  # left-padded caption columns
+    do = do * valid[:, :, None, None]  # the fully masked rows' cotangent is zero
+    kb = ft.key_bias(valid) if bias else None
+    out_ref, lse_ref = ft.flash_train_fwd_ref(q, k, v, kb)
+    delta = (do.float() * out_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    out, lse = ft.flash_train_fwd(q, k, v, kb)
+    dq = ft.flash_train_dq(q, k, v, kb, do, lse_ref, delta)
+    dk, dv = ft.flash_train_dkv(q, k, v, kb, do, lse_ref, delta)
+    torch.cuda.synchronize()
+    rows = valid[:, :, None, None]
+    torch.testing.assert_close((out * rows).float(), (out_ref * rows).float(), **_TRAIN_TOL)
+    lrows = valid[:, None, :].expand_as(lse)
+    torch.testing.assert_close(lse[lrows], lse_ref[lrows], atol=1e-3, rtol=1e-4)
+    for got, want in zip((dq, dk, dv), ft.flash_train_bwd_ref(q, k, v, kb, do, lse_ref, delta)):
+        torch.testing.assert_close(got.float(), want.float(), **_TRAIN_TOL)
+
+
+def test_flash_train_kernels_are_deterministic_and_take_f32(dev):
+    from controlar_tpu_torch.ops import flash_train as ft
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, do = (torch.randn(2, 150, 3, 64, generator=g, device=dev) for _ in range(4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    runs = []
+    for _ in range(2):
+        out = ft.flash_attention_train(q, k, v)
+        runs.append((out, *torch.autograd.grad(out, (q, k, v), do)))
+    assert all(x.dtype == torch.float32 for x in runs[0])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))  # no atomics: bit for bit
+    with pytest.raises(ValueError):
+        ft.flash_train_fwd(q.detach().half(), k.detach().half(), v.detach().half())
+
+
+def test_control_train_step_card_matches_cpu(dev):
+    import copy
+
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.models import vit as tvit
+    from controlar_tpu_torch.ops import flash_train as ft
+    from controlar_tpu_torch.train import optimizer as topt
+    from controlar_tpu_torch.train import step as tstep
+    from controlar_tpu_torch.train.control_step import ControlModel, make_control_train_step
+
+    cfg = GPTConfig(model_type="t2i", dim=128, n_layer=3, n_head=2, vocab_size=64,
+                    caption_dim=32, block_size=16, cls_token_num=8, token_dropout_p=0.0,
+                    resid_dropout_p=0.0, ffn_dropout_p=0.0, class_dropout_prob=0.0)
+    acfg = tvit.ViTConfig(hidden_size=384, n_layer=1, n_head=6, pos_grid=4)
+    model = ControlModel(tgpt.init_gpt(cfg, seed=1), tvit.init_vit(acfg, seed=2))
+    with torch.no_grad():  # the t2i head is zero at init
+        model.gpt.output.weight.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(3))
+    for n, p in model.named_parameters():
+        p.requires_grad_(not n.endswith("uncond_embedding"))
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, 64, (2, 16)), "valid": np.ones(2, np.float32),
+             "control_image": rng.integers(0, 255, (2, 64, 64, 3)).astype(np.uint8),
+             "caption_emb": rng.standard_normal((2, 8, 32)).astype(np.float32),
+             "emb_mask": (np.arange(8)[None] >= np.array([[5], [0]])).astype(np.int32)}
+    lr, out = 1e-4, {}
+    ft.flash_train_fwd.launches = 0
+    for device, m in (("cpu", model), ("cuda", copy.deepcopy(model).to(dev))):
+        tx = topt.make_optimizer(lr=lr)
+        fn = make_control_train_step(cfg, acfg, tx, compute_dtype=torch.float32)
+        state, metrics = fn(m, tstep.init_train_state(m, tx),
+                            {k: torch.as_tensor(v, device=device) for k, v in batch.items()}, 0)
+        out[device] = (metrics["loss"].item(), {n: p.detach().cpu()
+                                                for n, p in m.named_parameters()})
+    assert ft.flash_train_fwd.launches == 2 * cfg.n_layer  # remat full: the recompute
+    # fp32 compute: the loss to 1e-4 relative; one Adam step moves a parameter
+    # by at most ~lr, 2 lr where a small gradient's sign flipped
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for n, p in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][n], p, atol=2 * lr, rtol=0, msg=n)

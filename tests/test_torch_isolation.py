@@ -18,6 +18,7 @@ from controlar_tpu_torch.models import vit as tvit
 from controlar_tpu_torch.models import vq as tvq
 from controlar_tpu_torch.pipeline import ControlARPipeline
 from controlar_tpu_torch.serve import Request, ServeConfig, ServeEngine
+from controlar_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "controlar_tpu_torch"
@@ -111,3 +112,20 @@ def test_model_on_another_device_is_refused():
     with pytest.raises(ValueError):
         tgen.generate(model, cfg, labels=torch.tensor([1]), max_new_tokens=2,
                       device="meta")
+
+
+def test_trainer_raises_without_a_card_unless_cpu_is_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    tcfg = TrainerConfig(gpt_model="GPT-B", image_size=64, cls_token_num=8,
+                         results_dir=str(tmp_path),
+                         model_overrides=dict(dim=64, n_layer=3, n_head=2, vocab_size=64,
+                                              caption_dim=32),
+                         adapter_override=tvit.ViTConfig(hidden_size=384, n_layer=1, n_head=2,
+                                                         pos_grid=4))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(tcfg)
+    state = Trainer(tcfg, device="cpu").init_state()
+    assert state.step == 0 and all(p.device.type == "cpu" for p in state.params.values())
+    with pytest.raises(NotImplementedError, match="mesh"):  # one card until parallel/ is ported
+        Trainer(TrainerConfig(**{**tcfg.__dict__, "fsdp_axis": 2}), device="cpu")
