@@ -22,6 +22,16 @@ ending the run with a non-zero exit when it fails:
                 SDPA over the live rows and the bound;
   kernel_append_block  the K-row block append, bit for bit, on every stream
                 a verify writes;
+  kernel_stacked     decode attention over one layer of the stacked cache
+  kernel_stacked_q8  plus the in-flight row, bf16, int8 and int4 (split at
+  kernel_stacked_q4  GPT-3B, interleaved at GPT-B), against its plain version
+                at the stacked cells' last steps, the t2i caption bias and
+                per-slot positions, first and last layer; timed with the
+                plain version, SDPA over the layer's slab with the row
+                written and the bound;
+  kernel_append_stacked  the stacked append (every layer's row at a
+                position per slot), bit for bit, on every stream of the
+                stacked cache at the serve_c2i shape;
   kernel_train_fwd  the training attention's forward, dq and dk/dv kernels
   kernel_train_dq   against their plain versions at the training cells'
   kernel_train_dkv  shapes (caption bias), c2i without bias and D = 100;
@@ -29,10 +39,12 @@ ending the run with a non-zero exit when it fails:
                 and the autograd backward) and the bound;
   reference     small models on the card against the same models on the CPU
                 (the CPU path is the one the tests hold to the JAX package):
-                bf16, W8 + int8 cache, W4 split-rope + int4 cache;
+                bf16, W8 + int8 cache, W4 split-rope + int4 cache, each with
+                the per-layer and with the stacked cache;
   serve_reference  the same three small models through per-slot decode steps
-                (decode_step_multi), card against CPU, and a small serving
-                engine's slot isolation on the card;
+                (decode_step_multi), card against CPU, with either cache, and
+                a small serving engine's slot isolation on the card, with
+                either cache;
   spec_reference  the three small models through verify chunks
                 (forward_chunk), card against CPU, and greedy speculative
                 decode against greedy decode on the card;
@@ -44,11 +56,19 @@ ending the run with a non-zero exit when it fails:
   t2i           GPT-XL text-to-image at 512 px with left-padded captions;
   c2i_w8kv8     c2i with W8A16 weights and the int8 KV cache;
   c2i_3b_w4kv4  GPT-3B c2i with W4A16 split-rope weights and the int4 cache;
+  c2i_stacked   generate.generate on the c2i, c2i_w8kv8 and c2i_3b_w4kv4
+  c2i_w8kv8_stacked  models with the per-layer and with the stacked cache
+  c2i_3b_w4kv4_stacked  (kv_stacked=True): kernels per step of each, their
+                first decode steps from one prefill, then timed calls in the
+                order flat, stacked, stacked, flat (the 3B cell flat,
+                stacked);
   serve_c2i     continuous-batching serving (ServeEngine) of the c2i model,
                 16 requests with adapter features on 8 slots, quantum 72,
                 timed sync, overlapped, overlapped, sync (identical
                 tokens and statistics required), then VQ-16 decoded;
   serve_c2i_w8kv8  the same traffic on the c2i_w8kv8 model and int8 cache;
+  serve_c2i_stacked  the serve_c2i traffic with ServeConfig(kv_stacked=True),
+                timed sync then overlapped (identical tokens required);
   spec_c2i_3b   speculative decode through ControlARPipeline.generate(
                 spec_draft="model"): GPT-3B c2i at 384 px drafted by GPT-B,
                 k = 4, batch 8, CFG 4.0, top_k 2000, Leviathan sampling;
@@ -59,9 +79,10 @@ ending the run with a non-zero exit when it fails:
   train_t2i_xl512  the TrainerConfig defaults: GPT-XL t2i 512 px, batch 8;
 then the `kernels` line and, last, the `ok` line. The cells are built by
 `controlar_tpu_torch.cells`; weights are random, made from fixed seeds. The
-generation cells run a warm call and two timed calls, the speculative cells
-a 16-token warm call and one timed call, the training cells two warm and
-five timed steps on one fixed batch. Each cell phase sets every
+generation cells run a warm call and one timed call (t2i two), the
+stacked cells two timed calls with each cache (the 3B cell one), the
+speculative cells a 16-token warm call and one timed call, the training
+cells two warm and five timed steps on one fixed batch. Each cell phase sets every
 kernel's launch count to 0 before its timed calls (a speculative cell before
 each call) and checks each count after them. TF32 is off throughout, so
 fp32 matmuls and convolutions run in full fp32 and the reference
@@ -77,6 +98,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -130,6 +152,7 @@ def _kernels():
     from controlar_tpu_torch.ops import cache_append as ca
     from controlar_tpu_torch.ops import flash_chunk as fc
     from controlar_tpu_torch.ops import flash_decode as fd
+    from controlar_tpu_torch.ops import flash_decode_stacked as fds
     from controlar_tpu_torch.ops import flash_train as ft
     from controlar_tpu_torch.ops import w4_matmul as w4
 
@@ -158,6 +181,14 @@ def _kernels():
                            "controlar_tpu/ops/flash_train_pallas.py:123"),
         "flash_train_dkv": (ft.flash_train_dkv, "flash_train.cu",
                             "controlar_tpu/ops/flash_train_pallas.py:155"),
+        "flash_stacked": (fds.flash_stacked, "flash_decode.cu",
+                          "controlar_tpu/ops/flash_decode_stacked.py:84"),
+        "flash_stacked_q8": (fds.flash_stacked_q8, "flash_decode_q8.cu",
+                             "controlar_tpu/ops/flash_decode_stacked.py:225"),
+        "flash_stacked_q4": (fds.flash_stacked_q4, "flash_decode_q4.cu",
+                             "controlar_tpu/ops/flash_decode_stacked.py:391"),
+        "cache_append_rows_stacked": (ca.cache_append_rows_stacked, "cache_append.cu",
+                                      "controlar_tpu/ops/cache_append.py:159"),
     }
 
 
@@ -704,6 +735,157 @@ def phase_kernel_append_block():
     return row, 0.0
 
 
+def _stacked_cases(kind):
+    """(name, layers, heads, head_dim, cache rows, split, positions, with the
+    caption bias, timed) of the stacked kernels' checks: the cells' last
+    decode steps (pos 575 of 768 rows at GPT-B and GPT-3B, 1143 of 1280 at
+    t2i GPT-XL with the caption bias), per-slot positions that include 1,
+    S - 1 and both sides of the 256-row boundary."""
+    def slots(*p):
+        return torch.tensor(p, dtype=torch.int32, device="cuda")
+
+    per_slot = slots(1, 2, 100, 255, 256, 300, 400, 500, 575, 575, 10, 20, 30, 40, 50, 767)
+    t2i_slots = slots(120, 121, 200, 400, 631, 700, 800, 900, 1000, 1100, 1142, 1143, 1143,
+                      130, 1279, 500)
+    c2i = (1, 255, 256, 575, per_slot)
+    if kind == "bf16":
+        return [("c2i", 12, 12, 64, 768, None, c2i, False, True),
+                ("t2i", 36, 20, 64, 1280, None, (120, 1143, t2i_slots), True, False)]
+    if kind == "q8":
+        return [("c2i_w8kv8", 12, 12, 64, 768, None, c2i, True, True)]
+    return [("3b_split", 24, 32, 100, 768, True, c2i, False, True),
+            ("b_interleaved", 12, 12, 64, 768, False, c2i, True, False)]
+
+
+def _phase_stacked(phase, kind):
+    """One stacked attention kernel against its plain version over
+    `_stacked_cases`, at the first and last layer of the stack, each
+    position with and without the bias where the case has one; timed at the
+    cell's last decode step (16 rows, the last layer, pos 575, no bias) with
+    the plain version, SDPA over the layer's (dequantized) slab with the
+    in-flight row written (rows 0..575) and the bound: q and out, the 575
+    live rows and the in-flight row (values and f32 scales). kind: bf16, q8
+    or q4 (split at GPT-3B, interleaved at GPT-B)."""
+    from controlar_tpu_torch.ops import flash_decode_stacked as fds
+    from controlar_tpu_torch.quant import (
+        dequantize_kv4_slab, dequantize_kv_slab, quantize_kv_rows, quantize_kv_rows_4)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    b, max_err, timed = 16, 0.0, None
+    for name, n_layer, h, d, s, split, positions, with_bias, is_timed in _stacked_cases(kind):
+        q = (torch.randn(b, h * d, generator=gen, device="cuda") * 0.5).bfloat16()
+        stack = (torch.randn(n_layer, b, s, 2 * h * d, generator=gen, device="cuda")
+                 * 0.5).bfloat16()
+        new = (torch.randn(b, 2 * h * d, generator=gen, device="cuda") * 0.5).bfloat16()
+        if kind == "bf16":
+            args, kw = (new, stack), {}
+            kern, plain, row_bytes = fds.flash_stacked, fds.flash_stacked_ref, 2 * h * d * 2
+        elif kind == "q8":
+            rows, sc = quantize_kv_rows(stack, h)
+            args, kw = (*quantize_kv_rows(new, h), rows, sc), {}
+            kern, plain = fds.flash_stacked_q8, fds.flash_stacked_q8_ref
+            row_bytes = 2 * h * d + 2 * h * 4
+        else:
+            rows, sc = quantize_kv_rows_4(stack, h, split=split)
+            args = (*quantize_kv_rows_4(new, h, split=split), rows, sc)
+            kw = dict(head_dim=d, split=split)
+            kern, plain = fds.flash_stacked_q4, fds.flash_stacked_q4_ref
+            row_bytes = h * d + 2 * h * 4
+        del stack  # the bf16 stack a quantized case no longer needs
+        biases = (None, _left_pad_bias(s, 120)) if with_bias else (None,)
+        for layer in (0, n_layer - 1):
+            for pos in positions:
+                for col_bias in biases:
+                    out = kern(q, *args, layer, pos, col_bias, n_head=h, **kw)
+                    torch.cuda.synchronize()
+                    err, ok = _kernel_error(out, plain(q, *args, layer, pos, col_bias, n_head=h,
+                                                       **kw))
+                    where = pos if isinstance(pos, int) else "per_slot"
+                    check(ok, phase, f"{name} layer={layer} pos={where} bias="
+                          f"{col_bias is not None}: max_abs_err {err} over the limit")
+                    max_err = max(max_err, err)
+        if not is_timed:
+            continue
+        layer, pos = n_layer - 1, 575
+        # the library yardstick: SDPA over the layer's slab with the row written
+        if kind == "bf16":
+            slab = fds.layer_with_row(args[1], args[0], layer, pos)
+        else:
+            written = (fds.layer_with_row(args[2], args[0], layer, pos),
+                       fds.layer_with_row(args[3], args[1], layer, pos))
+            slab = (dequantize_kv_slab(*written, h, torch.bfloat16) if kind == "q8" else
+                    dequantize_kv4_slab(*written, h, d, torch.bfloat16, split=split))
+        n = pos + 1  # 575 rows of the stack and the in-flight row
+        bound, by = _roofline(2 * b * h * d * 2 + b * n * row_bytes, 4 * b * n * h * d,
+                              FP32_FLOPS)
+        timed = dict(case=name, layers=n_layer, h=h, d=d, s=s, layer=layer, pos=pos,
+                     ms=time_ms(lambda: kern(q, *args, layer, pos, None, n_head=h, **kw),
+                                flush=flush),
+                     plain_ms=time_ms(lambda: plain(q, *args, layer, pos, None, n_head=h, **kw),
+                                      flush=flush),
+                     library_ms=time_ms(_sdpa(q, slab, n, h, d, None), flush=flush),
+                     bound_ms=bound, bound_by=by)
+    emit(phase, ok=True, name=kern.__name__, max_abs_err=max_err, atol=KERNEL_ATOL,
+         rtol=KERNEL_RTOL, timings=[timed])
+    return timed, max_err
+
+
+# stream, cache dtype, row width (elements): what the stacked serving step
+# writes at GPT-B, 12 layers x 16 rows (8 slots with CFG), 768 cache rows
+STACKED_APPEND_STREAMS = (
+    ("gpt_b_bf16", torch.bfloat16, 1536),   # [k|v] rows, 3072 B
+    ("gpt_b_int8", torch.int8, 1536),       # int8 rows
+    ("gpt_b_int4", torch.int8, 768),        # nibble carriers
+    ("gpt_b_scales", torch.float32, 24),    # 12-head [k|v] scales, 96 B
+)
+
+
+def phase_kernel_append_stacked():
+    """cache_append_rows_stacked against its plain version, bit for bit, on
+    every stream of the stacked cache at the serve_c2i shape (12 layers, 16
+    rows, 768 cache rows), positions 0 and S - 1 among per-slot ones; timed
+    at the bf16 stream. The plain version, one indexed assignment, is also
+    the one-call library yardstick."""
+    from controlar_tpu_torch.ops.cache_append import (
+        cache_append_rows_stacked as kern,
+        cache_append_rows_stacked_ref as plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    n_layer, b, s, timed = 12, 16, 768, None
+    for name, dt, w in STACKED_APPEND_STREAMS:
+        if dt == torch.int8:
+            cache = torch.randint(-128, 128, (n_layer, b, s, w), generator=gen, device="cuda",
+                                  dtype=dt)
+            rows = torch.randint(-128, 128, (n_layer, b, w), generator=gen, device="cuda",
+                                 dtype=dt)
+        else:
+            cache = torch.randn(n_layer, b, s, w, generator=gen, device="cuda").to(dt)
+            rows = torch.randn(n_layer, b, w, generator=gen, device="cuda").to(dt)
+        pos = torch.tensor([0, s - 1] + [(37 * i) % s for i in range(1, b - 1)],
+                           dtype=torch.int32, device="cuda")
+        want = plain(cache.clone(), rows, pos)
+        kern(cache, rows, pos)
+        torch.cuda.synchronize()
+        check(torch.equal(cache.view(torch.uint8), want.view(torch.uint8)),
+              "kernel_append_stacked", f"{name}: the cache differs from the plain version's")
+        if timed is None:
+            timed = (cache, rows, pos)
+    cache, rows, pos = timed
+    nbytes = 2 * rows.numel() * rows.element_size() + pos.numel() * 4  # rows in and out
+    bound, by = _roofline(nbytes, 0, FP32_FLOPS)
+    plain_ms = time_ms(lambda: plain(cache, rows, pos), flush=flush)
+    row = dict(case="gpt_b_bf16", layers=n_layer, rows=b,
+               row_bytes=rows.shape[2] * rows.element_size(), s=s,
+               ms=time_ms(lambda: kern(cache, rows, pos), flush=flush),
+               plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound, bound_by=by)
+    emit("kernel_append_stacked", ok=True, name="cache_append_rows_stacked", bit_exact=True,
+         streams=[st[0] for st in STACKED_APPEND_STREAMS], timings=[row])
+    return row, 0.0
+
+
 # Training attention kernels vs their plain versions: |out - ref| <= TRAIN_ATOL +
 # TRAIN_RTOL * |ref|. The forward's p is rounded to bf16 against the running
 # max in the kernel and against the row max in the plain version (2**-9
@@ -838,7 +1020,8 @@ def phase_kernel_train():
 def phase_reference():
     """A small fp32 model on the card (kernel path) against the same weights
     on the CPU (plain path): Canny bit for bit, the adapter, prefill and
-    three decode steps, and the VQ decoder."""
+    three decode steps with the per-layer and with the stacked cache, and
+    the VQ decoder; then the quantized models likewise."""
     from controlar_tpu_torch import decode as tdec
     from controlar_tpu_torch.cells import condition_images
     from controlar_tpu_torch.config import GPTConfig, VQConfig
@@ -874,27 +1057,33 @@ def phase_reference():
     fused3 = torch.randn(3, 3, 16, 128, generator=gen) * 0.5
     col_mask = torch.arange(5)[None, :] >= torch.tensor([0, 2, 4])[:, None]
     toks = torch.randint(0, 64, (3, 3), generator=gen)
-    logits = {}
-    for dev in ("cuda", "cpu"):
-        gpt = gpt.to(dev)
-        caches = tdec.init_flat_caches(cfg, 3, 256, torch.bfloat16, dev)
-        lg, caches = tdec.prefill_flat(gpt, cfg, caches, prefix.to(dev), fused3.to(dev),
-                                       col_mask.to(dev))
-        out = [lg.cpu()]
-        full = torch.cat([col_mask, torch.ones(3, 251, dtype=torch.bool)], 1).to(dev)
-        for i in range(3):
-            lg, caches = tdec.decode_step_flat(gpt, cfg, caches, toks[:, i].to(dev), 5 + i,
-                                               fused3.to(dev), full, use_flash=True)
-            out.append(lg.cpu())
-        logits[dev] = torch.stack(out)
-    errs["logits"] = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    for stacked in (False, True):
+        init = tdec.init_stacked_caches if stacked else tdec.init_flat_caches
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            gpt = gpt.to(dev)
+            caches = init(cfg, 3, 256, torch.bfloat16, dev)
+            lg, caches = tdec.prefill_flat(gpt, cfg, caches, prefix.to(dev), fused3.to(dev),
+                                           col_mask.to(dev))
+            out = [lg.cpu()]
+            full = torch.cat([col_mask, torch.ones(3, 251, dtype=torch.bool)], 1).to(dev)
+            for i in range(3):
+                lg, caches = tdec.decode_step_flat(gpt, cfg, caches, toks[:, i].to(dev), 5 + i,
+                                                   fused3.to(dev), full, use_flash=True)
+                out.append(lg.cpu())
+            logits[dev] = torch.stack(out)
+        errs["logits_stacked" if stacked else "logits"] = (
+            logits["cuda"] - logits["cpu"]).abs().max().item()
     for k, v in errs.items():
         check(v <= REF_TOL, "reference", f"{k}: card vs CPU max_abs_err {v} > {REF_TOL}")
-    quant_errs = {name: _quantized_reference(mode, cache) for name, mode, cache in
-                  (("w8_kv8", "int8", torch.int8), ("w4split_kv4", "w4", "int4"))}
+    quant_errs = {name + "_stacked" * stacked: _quantized_reference(mode, cache, stacked)
+                  for name, mode, cache in (("w8_kv8", "int8", torch.int8),
+                                            ("w4split_kv4", "w4", "int4"))
+                  for stacked in (False, True)}
     for name, (err, scale) in quant_errs.items():
-        check(err <= QUANT_REF_TOL[name] * scale, "reference",
-              f"{name}: card vs CPU max_abs_err {err} > {QUANT_REF_TOL[name]} * {scale}")
+        tol = QUANT_REF_TOL[name.removesuffix("_stacked")]
+        check(err <= tol * scale, "reference",
+              f"{name}: card vs CPU max_abs_err {err} > {tol} * {scale}")
     emit("reference", ok=True, canny_bit_exact=True, max_abs_err=errs, tol=REF_TOL,
          quantized_max_abs_err={k: v[0] for k, v in quant_errs.items()},
          quantized_logit_scale={k: v[1] for k, v in quant_errs.items()},
@@ -913,10 +1102,11 @@ def phase_reference():
 QUANT_REF_TOL = {"w8_kv8": 2e-3, "w4split_kv4": 2e-2}
 
 
-def _quantized_reference(mode: str, cache_dtype):
+def _quantized_reference(mode: str, cache_dtype, stacked: bool = False):
     """Prefill and three decode steps of a small quantized t2i model (head
     dim 64, W4-compatible widths, a column mask) on the card, kernels on,
-    and on the CPU; -> (max abs logit difference, max |logit| on the CPU)."""
+    and on the CPU, with the per-layer or the stacked cache; -> (max abs
+    logit difference, max |logit| on the CPU)."""
     from controlar_tpu_torch import decode as tdec
     from controlar_tpu_torch.config import GPTConfig
     from controlar_tpu_torch.models import gpt as tgpt
@@ -933,9 +1123,10 @@ def _quantized_reference(mode: str, cache_dtype):
     col_mask = torch.arange(5)[None, :] >= torch.tensor([0, 2, 4])[:, None]
     toks = torch.randint(0, 64, (3, 3), generator=gen)
     logits = {}
+    init = tdec.init_stacked_caches if stacked else tdec.init_flat_caches
     for dev in ("cuda", "cpu"):
         gpt = gpt.to(dev)
-        caches = tdec.init_flat_caches(cfg, 3, 256, cache_dtype, dev)
+        caches = init(cfg, 3, 256, cache_dtype, dev)
         lg, caches = tdec.prefill_flat(gpt, cfg, caches, prefix.to(dev), fused3.to(dev),
                                        col_mask.to(dev))
         out = [lg.cpu()]
@@ -949,12 +1140,14 @@ def _quantized_reference(mode: str, cache_dtype):
             logits["cpu"].abs().max().item())
 
 
-def _multi_reference(mode, cache_dtype):
+def _multi_reference(mode, cache_dtype, stacked: bool = False):
     """Prefill and three per-slot decode steps (`decode_step_multi`) of a
     small t2i model with a column mask and per-row control strengths, on the
-    card (kernels on) and on the CPU (their plain versions). Rows start at
-    positions 5, 8, 6 and 0 and advance by 1, 1, 0 and 0: a frozen slot and
-    a never-admitted one. mode None keeps fp32 weights (bf16 cache).
+    card (kernels on) and on the CPU (their plain versions), with the
+    per-layer or the stacked cache (which moves the never-admitted row to
+    position 1). Rows start at positions 5, 8, 6 and 0 and advance by 1, 1,
+    0 and 0: a frozen slot and a never-admitted one. mode None keeps fp32
+    weights (bf16 cache).
     -> (max abs logit difference over the first three rows, max |logit| on
     the CPU, max abs logit difference of the never-admitted row). That row
     attends to one cache row with weight 1, so a flipped int4 rounding of it
@@ -982,9 +1175,10 @@ def _multi_reference(mode, cache_dtype):
     strength = torch.tensor([0.8, 1.0, 1.2, 0.5])[:, None, None]
     pos0, advance = torch.tensor([5, 8, 6, 0], dtype=torch.int32), torch.tensor([1, 1, 0, 0])
     logits = {}
+    init = tdec.init_stacked_caches if stacked else tdec.init_flat_caches
     for dev in ("cuda", "cpu"):
         gpt = gpt.to(dev)
-        caches = tdec.init_flat_caches(cfg, 4, 256, cache_dtype or torch.bfloat16, dev)
+        caches = init(cfg, 4, 256, cache_dtype or torch.bfloat16, dev)
         lg, caches = tdec.prefill_flat(gpt, cfg, caches, prefix.to(dev), fused3.to(dev),
                                        col_mask.to(dev))
         out, pos = [lg.cpu()], pos0
@@ -1004,37 +1198,45 @@ def _multi_reference(mode, cache_dtype):
 
 def phase_serve_reference():
     """Per-slot decode steps, card against CPU, for the bf16 (fp32 weights),
-    W8 + int8-cache and W4 split-rope + int4-cache models; then request 0 of
-    a small bf16 serving engine alone and with a neighbour admitted one
-    step() later: identical sampled tokens on the card."""
+    W8 + int8-cache and W4 split-rope + int4-cache models, with the
+    per-layer and with the stacked cache; then request 0 of a small bf16
+    serving engine alone and with a neighbour admitted one step() later:
+    identical sampled tokens on the card, with either cache."""
     from controlar_tpu_torch.cells import serve_requests, serve_staggered
     from controlar_tpu_torch.config import GPTConfig
     from controlar_tpu_torch.models import gpt as tgpt
     from controlar_tpu_torch.serve import ServeConfig, ServeEngine
 
-    errs = {"bf16": _multi_reference(None, None)}
-    check(errs["bf16"][0] <= REF_TOL, "serve_reference",
-          f"bf16: card vs CPU max_abs_err {errs['bf16'][0]} > {REF_TOL}")
-    for name, mode, cache in (("w8_kv8", "int8", torch.int8), ("w4split_kv4", "w4", "int4")):
-        err, scale, _ = errs[name] = _multi_reference(mode, cache)
-        check(err <= QUANT_REF_TOL[name] * scale, "serve_reference",
-              f"{name}: card vs CPU max_abs_err {err} > {QUANT_REF_TOL[name]} * {scale}")
+    errs = {}
+    for stacked in (False, True):
+        sfx = "_stacked" * stacked
+        err = errs["bf16" + sfx] = _multi_reference(None, None, stacked)
+        check(err[0] <= REF_TOL, "serve_reference",
+              f"bf16{sfx}: card vs CPU max_abs_err {err[0]} > {REF_TOL}")
+        for name, mode, cache in (("w8_kv8", "int8", torch.int8),
+                                  ("w4split_kv4", "w4", "int4")):
+            err, scale, _ = errs[name + sfx] = _multi_reference(mode, cache, stacked)
+            tol = QUANT_REF_TOL[name]
+            check(err <= tol * scale, "serve_reference",
+                  f"{name}{sfx}: card vs CPU max_abs_err {err} > {tol} * {scale}")
 
     cfg = GPTConfig(model_type="c2i", dim=128, n_layer=3, n_head=2, vocab_size=64,
                     num_classes=10, block_size=16)
     model = tgpt.init_gpt(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
 
-    def run(n):
-        eng = ServeEngine(model, cfg, ServeConfig(max_slots=2, quantum=6, top_k=8),
-                          device="cuda")
+    def run(n, stacked):
+        eng = ServeEngine(model, cfg, ServeConfig(max_slots=2, quantum=6, top_k=8,
+                                                  kv_stacked=stacked), device="cuda")
         return serve_staggered(eng, serve_requests(n, num_classes=10), upfront=1,
                                add_after_step=1)
 
-    solo, duo = run(1), run(2)
-    check(np.array_equal(solo[0].tokens, duo[0].tokens), "serve_reference",
-          "request 0's tokens depend on its neighbour")
-    check(not np.array_equal(duo[0].tokens, duo[1].tokens), "serve_reference",
-          "the two requests gave the same tokens")
+    for stacked in (False, True):
+        # request 0 alone: slot 1 is never admitted (the stacked step's clamp)
+        solo, duo = run(1, stacked), run(2, stacked)
+        check(np.array_equal(solo[0].tokens, duo[0].tokens), "serve_reference",
+              f"stacked={stacked}: request 0's tokens depend on its neighbour")
+        check(not np.array_equal(duo[0].tokens, duo[1].tokens), "serve_reference",
+              f"stacked={stacked}: the two requests gave the same tokens")
     emit("serve_reference", ok=True, max_abs_err={k: v[0] for k, v in errs.items()},
          logit_scale={k: v[1] for k, v in errs.items()},
          never_admitted_row_max_abs_err={k: v[2] for k, v in errs.items()},
@@ -1429,6 +1631,137 @@ def phase_cell(name: str, runs: int) -> dict:
     return launches
 
 
+def _stacked_expected(base: str, cfg) -> dict:
+    """Launches of each kernel in one generate(kv_stacked=True) call on the
+    model of pipeline cell `base`: the stacked attention at every decode step
+    of every layer, the W4 kernels as in the flat call; no per-layer append
+    and no flat attention."""
+    flat = _expected_per_call(base, cfg)
+    attn = next(k for k in flat if k.startswith("flash_decode_attention"))
+    suffix = attn.removeprefix("flash_decode_attention")
+    return {f"flash_stacked{suffix}" if k == attn else k: v for k, v in flat.items()}
+
+
+def _device_kernels(fn) -> int:
+    """Kernels, copies and sets that fn() puts on the card, counted in a
+    torch.profiler trace as trace_decode counts them."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = Path("traces") / "chip_smoke_count.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    return sum(1 for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+# card vs CPU (and stacked vs per-layer step) limits, relative to max |logit|
+STEP_TOL = {torch.bfloat16: REF_TOL, torch.int8: QUANT_REF_TOL["w8_kv8"],
+            "int4": QUANT_REF_TOL["w4split_kv4"]}
+
+
+def _stacked_step_error(model, cfg, kw) -> tuple:
+    """The cell's prefill into a per-layer and into a stacked cache, then one
+    decode step through each (kernels on) from those same contents ->
+    (max abs logit difference, max |logit| of the per-layer step)."""
+    from controlar_tpu_torch import decode as tdec
+    from controlar_tpu_torch.config import find_multiple
+    from controlar_tpu_torch.generate import prepare_inputs
+
+    dev = torch.device("cuda")
+    with torch.inference_mode():
+        prefix, col_mask, fused3 = prepare_inputs(
+            model, cfg, dev, True, labels=kw["labels"], adapter_features=kw["adapter_features"])
+        bc, t_cls = prefix.shape[:2]
+        s_max = find_multiple(t_cls + cfg.block_size, 256)
+        rope = tdec.rope_tables(model, cfg, dev)
+        tok = torch.randint(0, cfg.vocab_size, (bc,), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+        out = []
+        for init in (tdec.init_flat_caches, tdec.init_stacked_caches):
+            caches = init(cfg, bc, s_max, kw["cache_dtype"], dev)
+            _, caches = tdec.prefill_flat(model, cfg, caches, prefix, fused3, col_mask,
+                                          rope_table=rope)
+            lg, _ = tdec.decode_step_flat(model, cfg, caches, tok, t_cls, fused3, None,
+                                          use_flash=True, rope_table=rope)
+            out.append(lg.float())
+            del caches
+    return (out[0] - out[1]).abs().max().item(), out[0].abs().max().item()
+
+
+def phase_stacked_cell(name: str, runs: int) -> dict:
+    """`generate.generate` on a pipeline cell's model, with the per-layer
+    cache and with the stacked cache (kv_stacked=True), in one process:
+    kernels per decode step of each from the profiler (a 17-token call less
+    a 9-token call, over 8 steps; these calls also warm both paths), the
+    first decode step of each from the same prefill within the cell's
+    reference limit, then `runs` timed calls of each in the order flat,
+    stacked, stacked, flat (runs = 1: flat, stacked), the two calls of a
+    pair with the same seed. Every launch count is set to 0 just before a
+    call and must equal its expected launches. Returns the launches."""
+    from controlar_tpu_torch import generate as tgen
+    from controlar_tpu_torch.cells import BATCH, CELLS, STACKED_CELLS, build_stacked_cell
+
+    t0 = time.perf_counter()
+    pipe, kw = build_stacked_cell(name)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    base, cfg = STACKED_CELLS[name], pipe.gpt_cfg
+
+    def call(stacked, seed, n=cfg.block_size):
+        return tgen.generate(pipe.gpt, cfg, kv_stacked=stacked, seed=seed,
+                             **dict(kw, max_new_tokens=n))
+
+    modes = {"flat": False, "stacked": True}
+    kernels_per_step = {m: (_device_kernels(lambda: call(st, 0, 17))
+                            - _device_kernels(lambda: call(st, 0, 9))) / 8
+                        for m, st in modes.items()}
+    err, scale = _stacked_step_error(pipe.gpt, cfg, kw)
+    tol = STEP_TOL[kw["cache_dtype"]]
+    check(err <= tol * scale, name, f"first step, stacked vs per-layer: max_abs_err {err} > "
+          f"{tol} * {scale}")
+    expected = {"flat": _expected_per_call(base, cfg), "stacked": _stacked_expected(base, cfg)}
+    order = ("flat", "stacked", "stacked", "flat") if runs == 2 else ("flat", "stacked")
+    wrappers = {k: v[0] for k, v in _kernels().items()}
+    seconds, tokens, total = collections.defaultdict(list), {}, collections.Counter()
+    torch.cuda.reset_peak_memory_stats()
+    for i, mode in enumerate(order):
+        seed = 1 + i // 2
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        toks = call(modes[mode], seed)
+        torch.cuda.synchronize()
+        seconds[mode].append(time.perf_counter() - t0)
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        total.update(launches)
+        for k, got in launches.items():
+            check(got == expected[mode].get(k, 0), name,
+                  f"{mode} run {i}: {k} launches {got} != {expected[mode].get(k, 0)}")
+        check(toks.shape == (BATCH, cfg.block_size) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.vocab_size, name,
+              f"{mode}: tokens {tuple(toks.shape)} out of shape or range")
+        tokens[mode, seed] = toks
+    agree = statistics.mean((tokens["flat", sd] == tokens["stacked", sd]).float().mean().item()
+                            for sd in {sd for _, sd in tokens})
+    steps = cfg.block_size - 1
+    emit(name, ok=True, model=CELLS[base]["size"], cell=base, quant=CELLS[base].get("quant"),
+         cache_dtype=str(kw["cache_dtype"]), tokens=cfg.block_size, batch=BATCH,
+         cfg_scale=kw["cfg_scale"], top_k=kw["top_k"], runs=runs, build_s=build_s,
+         seconds=dict(seconds),
+         median_s={m: statistics.median(v) for m, v in seconds.items()},
+         images_per_s={m: BATCH / statistics.median(v) for m, v in seconds.items()},
+         kernels_per_step=kernels_per_step,
+         port_launches_per_step={m: {k: v / steps for k, v in expected[m].items()}
+                                 for m in modes},
+         first_step_max_abs_err=err, logit_scale=scale, tol_relative=tol,
+         same_seed_token_agreement=agree,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return total
+
+
 def _spec_expected(name: str, cfg, dcfg, cycles: int) -> dict:
     """Launches of one speculative generate call of `cycles` cycles: each
     cycle runs k draft decode steps (attention and a row append per layer,
@@ -1519,12 +1852,17 @@ def phase_spec_cell(name: str, runs: int) -> dict:
 def _serve_expected(cfg, scfg, slot_steps: int) -> dict:
     """Launches of one serving run: at every decode step of every layer one
     attention call and one row append per cache stream (rows, and scales for
-    the int8 cache); steps = slot_steps / max_slots. Admission prefills
-    launch no kernel."""
-    steps = cfg.n_layer * slot_steps // scfg.max_slots
-    if scfg.cache_dtype == torch.int8:
-        return {"flash_decode_attention_q8": steps, "cache_append_rows": 2 * steps}
-    return {"flash_decode_attention": steps, "cache_append_rows": steps}
+    the int8 cache), or with the stacked cache one stacked append per stream
+    and step; steps = slot_steps / max_slots. Admission prefills launch no
+    kernel."""
+    steps = slot_steps // scfg.max_slots
+    streams = 2 if scfg.cache_dtype == torch.int8 else 1
+    attn = "_q8" if scfg.cache_dtype == torch.int8 else ""
+    if scfg.kv_stacked:
+        return {f"flash_stacked{attn}": cfg.n_layer * steps,
+                "cache_append_rows_stacked": streams * steps}
+    return {f"flash_decode_attention{attn}": cfg.n_layer * steps,
+            "cache_append_rows": streams * cfg.n_layer * steps}
 
 
 def _serve_run(engine, feats, wrappers):
@@ -1554,14 +1892,17 @@ def _serve_run(engine, feats, wrappers):
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30), launches
 
 
-def phase_serve(name: str, overlap: bool) -> dict:
+SERVE_TIMES = {}  # serving cell -> its timed runs, for the stacked cell's side by side
+
+
+def phase_serve(name: str, order) -> dict:
     """A warm serving run of 8 requests, then timed runs of the cell's 16
-    requests: one sync run, or with `overlap` four in the order sync,
-    overlapped admission, overlapped admission, sync (so neither mode always
-    runs second). Every run's tokens and statistics must equal the first's
-    and its launch counts must be exact; the tokens are decoded by the VQ-16
-    decoder into finite, non-constant images. Returns the launches of the
-    timed runs."""
+    requests in `order` (sync, or overlapped admission: sync, overlap,
+    overlap, sync runs neither mode always second). Every run's tokens and
+    statistics must equal the first's and its launch counts must be exact;
+    the tokens are decoded by the VQ-16 decoder into finite, non-constant
+    images. A stacked cell also reports the runs of its per-layer
+    counterpart. Returns the launches of the timed runs."""
     import dataclasses
 
     from controlar_tpu_torch.cells import CELLS, SERVE_CELLS, SERVE_REQUESTS, build_serve_cell
@@ -1578,11 +1919,9 @@ def phase_serve(name: str, overlap: bool) -> dict:
                      adapter_features=feats[i]) for i in range(8)])  # warm
     wrappers = {k: v[0] for k, v in _kernels().items()}
     engines = {"sync": eng}
-    order = ("sync",)
-    if overlap:
+    if "overlap" in order:
         engines["overlap"] = ServeEngine(
             pipe.gpt, cfg, dataclasses.replace(scfg, overlap_admission=True), device="cuda")
-        order = ("sync", "overlap", "overlap", "sync")
     runs, total, tokens = collections.defaultdict(list), collections.Counter(), None
     for mode in order:
         done, run, launches = _serve_run(engines[mode], feats, wrappers)
@@ -1611,17 +1950,26 @@ def phase_serve(name: str, overlap: bool) -> dict:
     check(imgs.shape == (SERVE_REQUESTS, px, px, 3) and float(imgs.std()) > 0, name,
           f"images {imgs.shape}, std {float(imgs.std())}")
     # finite: to_uint8_image raises on a non-finite decoded image
+    SERVE_TIMES[name] = runs
+    flat = SERVE_TIMES.get(name.removesuffix("_stacked")) if scfg.kv_stacked else None
     emit(name, ok=True, model=CELLS[SERVE_CELLS[name]]["size"], cell=SERVE_CELLS[name],
-         cache_dtype=str(scfg.cache_dtype), max_slots=scfg.max_slots, quantum=scfg.quantum,
+         cache_dtype=str(scfg.cache_dtype), kv_stacked=scfg.kv_stacked,
+         max_slots=scfg.max_slots, quantum=scfg.quantum,
          top_k=scfg.top_k, requests=SERVE_REQUESTS, tokens=cfg.block_size, build_s=build_s,
          runs=runs, images=list(imgs.shape), finite=True,
          launches_per_step={k: v / (runs["sync"][0]["stats"]["slot_steps"] // scfg.max_slots)
-                            for k, v in runs["sync"][0]["launches"].items()})
+                            for k, v in runs["sync"][0]["launches"].items()},
+         **({} if flat is None else {"per_layer_cache_runs": flat}))
     return total
 
 
-CELL_RUNS = (("c2i", 2), ("t2i", 2), ("c2i_w8kv8", 2), ("c2i_3b_w4kv4", 2))
-SERVE_RUNS = (("serve_c2i", True), ("serve_c2i_w8kv8", False))  # cell, overlap run too
+# one timed call where a stacked cell times the same flat call again (twice,
+# the 3B cell once)
+CELL_RUNS = (("c2i", 1), ("t2i", 2), ("c2i_w8kv8", 1), ("c2i_3b_w4kv4", 1))
+# timed calls of each cache per stacked cell (the 3B cell one, to keep the run short)
+STACKED_RUNS = (("c2i_stacked", 2), ("c2i_w8kv8_stacked", 2), ("c2i_3b_w4kv4_stacked", 1))
+SERVE_RUNS = (("serve_c2i", ("sync", "overlap", "overlap", "sync")),  # cell, timed runs
+              ("serve_c2i_w8kv8", ("sync",)), ("serve_c2i_stacked", ("sync", "overlap")))
 # one timed speculative call each (a minute per call): the training cells
 # took the time of the second
 SPEC_RUNS = (("spec_c2i_3b", 1), ("spec_c2i_3b_w8kv8", 1), ("spec_c2i_3b_w4kv4", 1))
@@ -1658,6 +2006,17 @@ def main() -> int:
                                      "D=100 S=768 pos=572"),
         "cache_append_block": (*phase_kernel_append_block(),
                                "spec_c2i_3b verify: 16 x 4 GPT-3B bf16 rows of 12800 B, S 768"),
+        "flash_stacked": (*_phase_stacked("kernel_stacked", "bf16"),
+                          "c2i_stacked last step: L=12 B=16 H=12 D=64 S=768 layer 11 pos=575"),
+        "flash_stacked_q8": (*_phase_stacked("kernel_stacked_q8", "q8"),
+                             "c2i_w8kv8_stacked last step: L=12 B=16 H=12 D=64 S=768 "
+                             "layer 11 pos=575"),
+        "flash_stacked_q4": (*_phase_stacked("kernel_stacked_q4", "q4"),
+                             "c2i_3b_w4kv4_stacked last step, split: L=24 B=16 H=32 D=100 "
+                             "S=768 layer 23 pos=575"),
+        "cache_append_rows_stacked": (*phase_kernel_append_stacked(),
+                                      "serve_c2i_stacked step: 12 x 16 GPT-B bf16 rows of "
+                                      "3072 B, S 768"),
     }
     train_rows = phase_kernel_train()
     where = {"flash_train_fwd": "train_t2i_xl512 layer: B=8 T=1143 H=20 D=64, caption bias",
@@ -1672,8 +2031,11 @@ def main() -> int:
     for name, runs in CELL_RUNS:
         launches.update(phase_cell(name, runs))
         torch.cuda.empty_cache()
-    for name, overlap in SERVE_RUNS:
-        launches.update(phase_serve(name, overlap))
+    for name, runs in STACKED_RUNS:
+        launches.update(phase_stacked_cell(name, runs))
+        torch.cuda.empty_cache()
+    for name, order in SERVE_RUNS:
+        launches.update(phase_serve(name, order))
         torch.cuda.empty_cache()
     for name, runs in SPEC_RUNS:
         launches.update(phase_spec_cell(name, runs))

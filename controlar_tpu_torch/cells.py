@@ -24,10 +24,24 @@ with the traffic of the JAX package's `bench.py` extra_serve:
   serve_c2i_w8kv8   the c2i_w8kv8 model: W8A16 weights and the int8 cache
                     (the JAX CLI's `serve --quant`)
 
+  serve_c2i_stacked the serve_c2i traffic with the stacked KV cache
+                    (`ServeConfig(kv_stacked=True)`, the JAX package's
+                    `scripts/bench_serve.py --stacked`)
+
 max_slots 8 (16 rows with CFG), quantum 72, top_k 2000, CFG 4.0; 16
 requests (`serve_requests`), 8 submitted up front and 8 after the second
 `step()` (`serve_staggered`). Unlike extra_serve, each request carries the
 adapter features of its own synthetic condition image.
+
+The stacked-cache cells run `generate.generate(kv_stacked=True)` on a
+pipeline cell's model, labels and adapter features (the pipeline's
+`control_features` of the cell's Canny images), as the JAX package's
+`scripts/bench_sweep.py --stacked` does, beside the same call with the
+per-layer cache (`STACKED_CELLS`):
+
+  c2i_stacked           the c2i cell
+  c2i_w8kv8_stacked     the c2i_w8kv8 cell
+  c2i_3b_w4kv4_stacked  the c2i_3b_w4kv4 cell
 
 The speculative cells run `pipeline.generate(spec_draft="model")`: the JAX
 CLI's `sample-c2i --gpt-model GPT-3B --spec-draft model --draft-gpt-model
@@ -130,7 +144,8 @@ def build_cell(name: str, seed: int = 0, device="cuda", cells=CELLS, **pipe_kw):
     return pipe, kw
 
 
-SERVE_CELLS = {"serve_c2i": "c2i", "serve_c2i_w8kv8": "c2i_w8kv8"}  # -> pipeline cell
+SERVE_CELLS = {"serve_c2i": "c2i", "serve_c2i_w8kv8": "c2i_w8kv8",  # -> pipeline cell
+               "serve_c2i_stacked": "c2i"}
 SERVE_SLOTS, SERVE_QUANTUM = 8, 72
 SERVE_REQUESTS, SERVE_UPFRONT, SERVE_ADD_AFTER_STEP = 16, 8, 2
 
@@ -167,16 +182,36 @@ def serve_staggered(engine: ServeEngine, requests: List[Request], upfront: int,
 
 def build_serve_cell(name: str, seed: int = 0, device="cuda"):
     """-> (pipeline of the cell's model, engine over its GPT (sync
-    admission), adapter features (SERVE_REQUESTS, block_size, 384) of the
-    cell's synthetic condition images, computed on the device)."""
+    admission; the stacked cache for a `*_stacked` cell), adapter features
+    (SERVE_REQUESTS, block_size, 384) of the cell's synthetic condition
+    images, computed on the device)."""
     base = SERVE_CELLS[name]
     pipe, _ = build_cell(base, seed, device)
     scfg = ServeConfig(max_slots=SERVE_SLOTS, quantum=SERVE_QUANTUM, top_k=TOP_K,
-                       cache_dtype=CELLS[base].get("cache_dtype") or torch.bfloat16)
+                       cache_dtype=CELLS[base].get("cache_dtype") or torch.bfloat16,
+                       kv_stacked=name.endswith("_stacked"))
     images = condition_images(SERVE_REQUESTS, CELLS[base]["image_px"], seed + 7)
     with torch.inference_mode():
         feats = pipe.control_features(pipe.extract_condition(images))
     return pipe, ServeEngine(pipe.gpt, pipe.gpt_cfg, scfg, device=device), feats
+
+
+STACKED_CELLS = {"c2i_stacked": "c2i", "c2i_w8kv8_stacked": "c2i_w8kv8",  # -> pipeline cell
+                 "c2i_3b_w4kv4_stacked": "c2i_3b_w4kv4"}
+
+
+def build_stacked_cell(name: str, seed: int = 0, device="cuda"):
+    """-> (pipeline of the cell's model, keyword arguments of one
+    `generate.generate` call on it but `kv_stacked` and `seed`: labels,
+    adapter features of the cell's condition images computed on the
+    device, max_new_tokens, cfg_scale, top_k, cache_dtype, device)."""
+    pipe, kw = build_cell(STACKED_CELLS[name], seed, device)
+    with torch.inference_mode():
+        feats = pipe.control_features(pipe.extract_condition(kw["condition_images"]))
+    return pipe, dict(labels=kw["labels"], adapter_features=feats,
+                      max_new_tokens=pipe.gpt_cfg.block_size, cfg_scale=kw["cfg_scale"],
+                      top_k=kw["top_k"], cache_dtype=kw["cache_dtype"] or torch.bfloat16,
+                      device=device)
 
 
 SPEC_CELLS = {

@@ -20,6 +20,15 @@
 // q is read as bf16 (the JAX kernel casts q to bf16 as well); p and alpha
 // stay in fp32 here, where the TPU kernel rounds them to bf16.
 //
+// The entry `flash_stacked` runs the same kernel over layer `layer` of a
+// stacked (L, B, S, 2*H*D) cache; it replaces `_kernel_bf16s` of
+// controlar_tpu/ops/flash_decode_stacked.py (flash_stacked). The layer is an
+// offset on the slab pointer. Rows r < pos[b] come from the slab and row
+// pos[b], the in-flight row of this step, from the operand new_kv (B, 2*H*D),
+// without the bias (the caller's bias is 0 at decode positions). The TPU
+// kernel's block-diagonal products, row selects and chained cross-slot DMA
+// are artefacts of its layout and have no counterpart here.
+//
 // Plain C interface, loaded with ctypes. The launch goes on the caller's
 // stream; the function returns cudaGetLastError() after the launch.
 #include <cuda_bf16.h>
@@ -57,10 +66,12 @@ __device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-template <int D, typename OutT>
+// STACKED: rows [0, pos) from kv, then the in-flight row from new_kv
+template <int D, bool STACKED, typename OutT>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H*D)
                     const __nv_bfloat16* __restrict__ kv,  // (B, S, 2*H*D)
+                    const __nv_bfloat16* __restrict__ new_kv,  // (B, 2*H*D) or null
                     const int* __restrict__ pos_ptr,       // (B,) or scalar, or null
                     int pos_stride, int pos_scalar,
                     const float* __restrict__ bias,        // (B, S) or null
@@ -87,7 +98,9 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H*D)
   const bool active = d0 < D;  // D = 100 leaves the last lanes of a group idle
 
   const int pos = pos_ptr ? pos_ptr[(size_t)b * pos_stride] : pos_scalar;
-  const int n_rows = min(pos + 1, S);
+  // slab rows [0, n_live); a stacked call adds the in-flight row as row n_live
+  const int n_live = STACKED ? max(0, min(pos, S)) : min(pos + 1, S);
+  const int n_rows = n_live + (STACKED ? 1 : 0);
 
   float qf[VEC], acc[VEC];
 #pragma unroll
@@ -98,6 +111,8 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H*D)
 
   const size_t row_stride = 2 * (size_t)hd;
   const __nv_bfloat16* kbase = kv + (size_t)b * S * row_stride + (size_t)h * D + d0;
+  const __nv_bfloat16* nbase =
+      STACKED ? new_kv + (size_t)b * row_stride + (size_t)h * D + d0 : nullptr;
   const float* brow = bias ? bias + (size_t)b * S : nullptr;
 
   // every lane of a warp runs the same trip count, so the full-mask shuffles
@@ -106,9 +121,10 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H*D)
   for (int base = warp * GPW; base < n_rows; base += G) {
     const int r = base + sub;
     const bool valid = r < n_rows;
+    const bool inflight = STACKED && r == n_live;
     float kf[VEC], vf[VEC];
     if (valid && active) {
-      const __nv_bfloat16* rp = kbase + (size_t)r * row_stride;
+      const __nv_bfloat16* rp = inflight ? nbase : kbase + (size_t)r * row_stride;
       load_bf16<VEC>(rp, kf);
       load_bf16<VEC>(rp + hd, vf);
     } else {
@@ -122,7 +138,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H*D)
     for (int off = LPR / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (valid) {
       s *= scale;
-      if (brow) s += brow[r];
+      if (brow && !inflight) s += brow[r];
       const float m_new = fmaxf(m, s);
       const float alpha = expf(m - m_new);  // exp(-inf) = 0 on the first row
       const float p = expf(s - m_new);
@@ -159,25 +175,49 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H*D)
   }
 }
 
-template <int D>
-void launch(const void* q, const void* kv, const void* pos_ptr, int pos_stride,
-            int pos_scalar, const void* bias, void* out, int out_f32, int B, int S,
-            int H, cudaStream_t stream) {
+template <int D, bool STACKED>
+void launch(const void* q, const void* kv, const void* new_kv, const void* pos_ptr,
+            int pos_stride, int pos_scalar, const void* bias, void* out, int out_f32, int B,
+            int S, int H, cudaStream_t stream) {
   const dim3 grid(B * H);
   const dim3 block(kWarps * 32);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kvp = static_cast<const __nv_bfloat16*>(kv);
+  const auto* np_ = static_cast<const __nv_bfloat16*>(new_kv);
   const auto* pp = static_cast<const int*>(pos_ptr);
   const auto* bp = static_cast<const float*>(bias);
   if (out_f32) {
-    flash_decode_kernel<D, float><<<grid, block, 0, stream>>>(
-        qp, kvp, pp, pos_stride, pos_scalar, bp, static_cast<float*>(out), S, H, scale);
+    flash_decode_kernel<D, STACKED, float><<<grid, block, 0, stream>>>(
+        qp, kvp, np_, pp, pos_stride, pos_scalar, bp, static_cast<float*>(out), S, H, scale);
   } else {
-    flash_decode_kernel<D, __nv_bfloat16><<<grid, block, 0, stream>>>(
-        qp, kvp, pp, pos_stride, pos_scalar, bp, static_cast<__nv_bfloat16*>(out), S, H,
+    flash_decode_kernel<D, STACKED, __nv_bfloat16><<<grid, block, 0, stream>>>(
+        qp, kvp, np_, pp, pos_stride, pos_scalar, bp, static_cast<__nv_bfloat16*>(out), S, H,
         scale);
   }
+}
+
+template <bool STACKED>
+int dispatch(const void* q, const void* kv, const void* new_kv, const void* pos_ptr,
+             int pos_stride, int pos_scalar, const void* bias, void* out, int out_f32, int B,
+             int S, int H, int D, cudaStream_t st) {
+  switch (D) {
+    case 64:
+      launch<64, STACKED>(q, kv, new_kv, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32,
+                          B, S, H, st);
+      break;
+    case 100:
+      launch<100, STACKED>(q, kv, new_kv, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32,
+                           B, S, H, st);
+      break;
+    case 128:
+      launch<128, STACKED>(q, kv, new_kv, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32,
+                           B, S, H, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -189,19 +229,20 @@ extern "C" int flash_decode_attention(const void* q, const void* kv, const void*
                                       int pos_stride, int pos_scalar, const void* bias,
                                       void* out, int out_f32, int B, int S, int H, int D,
                                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      launch<64>(q, kv, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32, B, S, H, st);
-      break;
-    case 100:
-      launch<100>(q, kv, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32, B, S, H, st);
-      break;
-    case 128:
-      launch<128>(q, kv, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32, B, S, H, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(q, kv, nullptr, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32,
+                         B, S, H, D, static_cast<cudaStream_t>(stream));
+}
+
+// q (B, H*D) bf16; new_kv (B, 2*H*D) bf16, the rows at position pos[b];
+// stack (L, B, S, 2*H*D) bf16, of which layer `layer` is read (rows
+// [0, pos[b])); pos, bias, out and out_f32 as for flash_decode_attention.
+// Returns a cudaError_t.
+extern "C" int flash_stacked(const void* q, const void* new_kv, const void* stack, int layer,
+                             const void* pos_ptr, int pos_stride, int pos_scalar,
+                             const void* bias, void* out, int out_f32, int B, int S, int H,
+                             int D, void* stream) {
+  const auto* slab = static_cast<const __nv_bfloat16*>(stack)
+                     + (size_t)layer * B * S * 2 * (size_t)H * D;
+  return dispatch<true>(q, slab, new_kv, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32,
+                        B, S, H, D, static_cast<cudaStream_t>(stream));
 }

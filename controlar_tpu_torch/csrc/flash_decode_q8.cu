@@ -24,6 +24,14 @@
 // q is read as bf16 (the JAX kernel casts it too); p * vs and alpha stay fp32
 // here, where the TPU kernel rounds them to bf16.
 //
+// The entry `flash_stacked_q8` runs the same kernel over layer `layer` of a
+// stacked (L, B, S, 2*H*D) int8 cache and its (L, B, S, 2*H) scales; it
+// replaces `_kernel_q8s` of controlar_tpu/ops/flash_decode_stacked.py
+// (flash_stacked_q8). The layer is an offset on both slab pointers; rows
+// r < pos[b] come from the slabs and row pos[b], this step's in-flight row,
+// from the operands new_kv (B, 2*H*D) int8 and new_sc (B, 2*H), without the
+// bias (0 at decode positions by the caller's contract).
+//
 // Plain C interface, loaded with ctypes. The launch goes on the caller's
 // stream; the function returns cudaGetLastError() after the launch.
 #include <cuda_bf16.h>
@@ -78,11 +86,15 @@ __device__ __forceinline__ void load_i8(const int8_t* p, float* out) {
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-template <int D, typename OutT>
+// STACKED: rows [0, pos) from kv and sc, then the in-flight row from new_kv
+// and new_sc
+template <int D, bool STACKED, typename OutT>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_decode_q8_kernel(const __nv_bfloat16* __restrict__ q,  // (B, H*D)
                        const int8_t* __restrict__ kv,        // (B, S, 2*H*D)
                        const float* __restrict__ sc,         // (B, S, 2*H) [ks | vs]
+                       const int8_t* __restrict__ new_kv,    // (B, 2*H*D) or null
+                       const float* __restrict__ new_sc,     // (B, 2*H) or null
                        const int* __restrict__ pos_ptr,      // (B,) or scalar, or null
                        int pos_stride, int pos_scalar,
                        const float* __restrict__ bias,       // (B, S) or null
@@ -109,7 +121,9 @@ flash_decode_q8_kernel(const __nv_bfloat16* __restrict__ q,  // (B, H*D)
   const bool active = d0 < D;  // D = 100 leaves the last lanes of a group idle
 
   const int pos = pos_ptr ? pos_ptr[(size_t)b * pos_stride] : pos_scalar;
-  const int n_rows = min(pos + 1, S);
+  // slab rows [0, n_live); a stacked call adds the in-flight row as row n_live
+  const int n_live = STACKED ? max(0, min(pos, S)) : min(pos + 1, S);
+  const int n_rows = n_live + (STACKED ? 1 : 0);
 
   float qf[VEC], acc[VEC];
 #pragma unroll
@@ -121,6 +135,9 @@ flash_decode_q8_kernel(const __nv_bfloat16* __restrict__ q,  // (B, H*D)
   const size_t row_stride = 2 * (size_t)hd;
   const int8_t* kbase = kv + (size_t)b * S * row_stride + (size_t)h * D + d0;
   const float* sbase = sc + (size_t)b * S * 2 * H + h;
+  const int8_t* nbase =
+      STACKED ? new_kv + (size_t)b * row_stride + (size_t)h * D + d0 : nullptr;
+  const float* nsrow = STACKED ? new_sc + (size_t)b * 2 * H + h : nullptr;
   const float* brow = bias ? bias + (size_t)b * S : nullptr;
 
   // every lane of a warp runs the same trip count, so the full-mask shuffles
@@ -129,9 +146,10 @@ flash_decode_q8_kernel(const __nv_bfloat16* __restrict__ q,  // (B, H*D)
   for (int base = warp * GPW; base < n_rows; base += G) {
     const int r = base + sub;
     const bool valid = r < n_rows;
+    const bool inflight = STACKED && r == n_live;
     float kf[VEC], vf[VEC];
     if (valid && active) {
-      const int8_t* rp = kbase + (size_t)r * row_stride;
+      const int8_t* rp = inflight ? nbase : kbase + (size_t)r * row_stride;
       load_i8<VEC>(rp, kf);
       load_i8<VEC>(rp + hd, vf);
     } else {
@@ -144,9 +162,9 @@ flash_decode_q8_kernel(const __nv_bfloat16* __restrict__ q,  // (B, H*D)
 #pragma unroll
     for (int off = LPR / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (valid) {
-      const float* srow = sbase + (size_t)r * 2 * H;
+      const float* srow = inflight ? nsrow : sbase + (size_t)r * 2 * H;
       s = s * srow[0] * scale;
-      if (brow) s += brow[r];
+      if (brow && !inflight) s += brow[r];
       const float m_new = fmaxf(m, s);
       const float alpha = expf(m - m_new);  // exp(-inf) = 0 on the first row
       const float p = expf(s - m_new);
@@ -184,26 +202,54 @@ flash_decode_q8_kernel(const __nv_bfloat16* __restrict__ q,  // (B, H*D)
   }
 }
 
-template <int D>
-void launch(const void* q, const void* kv, const void* sc, const void* pos_ptr,
-            int pos_stride, int pos_scalar, const void* bias, void* out, int out_f32,
-            int B, int S, int H, cudaStream_t stream) {
+template <int D, bool STACKED>
+void launch(const void* q, const void* kv, const void* sc, const void* new_kv,
+            const void* new_sc, const void* pos_ptr, int pos_stride, int pos_scalar,
+            const void* bias, void* out, int out_f32, int B, int S, int H,
+            cudaStream_t stream) {
   const dim3 grid(B * H);
   const dim3 block(kWarps * 32);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kvp = static_cast<const int8_t*>(kv);
   const auto* sp = static_cast<const float*>(sc);
+  const auto* nkp = static_cast<const int8_t*>(new_kv);
+  const auto* nsp = static_cast<const float*>(new_sc);
   const auto* pp = static_cast<const int*>(pos_ptr);
   const auto* bp = static_cast<const float*>(bias);
   if (out_f32) {
-    flash_decode_q8_kernel<D, float><<<grid, block, 0, stream>>>(
-        qp, kvp, sp, pp, pos_stride, pos_scalar, bp, static_cast<float*>(out), S, H, scale);
-  } else {
-    flash_decode_q8_kernel<D, __nv_bfloat16><<<grid, block, 0, stream>>>(
-        qp, kvp, sp, pp, pos_stride, pos_scalar, bp, static_cast<__nv_bfloat16*>(out), S, H,
+    flash_decode_q8_kernel<D, STACKED, float><<<grid, block, 0, stream>>>(
+        qp, kvp, sp, nkp, nsp, pp, pos_stride, pos_scalar, bp, static_cast<float*>(out), S, H,
         scale);
+  } else {
+    flash_decode_q8_kernel<D, STACKED, __nv_bfloat16><<<grid, block, 0, stream>>>(
+        qp, kvp, sp, nkp, nsp, pp, pos_stride, pos_scalar, bp,
+        static_cast<__nv_bfloat16*>(out), S, H, scale);
   }
+}
+
+template <bool STACKED>
+int dispatch(const void* q, const void* kv, const void* sc, const void* new_kv,
+             const void* new_sc, const void* pos_ptr, int pos_stride, int pos_scalar,
+             const void* bias, void* out, int out_f32, int B, int S, int H, int D,
+             cudaStream_t st) {
+  switch (D) {
+    case 64:
+      launch<64, STACKED>(q, kv, sc, new_kv, new_sc, pos_ptr, pos_stride, pos_scalar, bias,
+                          out, out_f32, B, S, H, st);
+      break;
+    case 100:
+      launch<100, STACKED>(q, kv, sc, new_kv, new_sc, pos_ptr, pos_stride, pos_scalar, bias,
+                           out, out_f32, B, S, H, st);
+      break;
+    case 128:
+      launch<128, STACKED>(q, kv, sc, new_kv, new_sc, pos_ptr, pos_stride, pos_scalar, bias,
+                           out, out_f32, B, S, H, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -216,19 +262,22 @@ extern "C" int flash_decode_q8(const void* q, const void* kv, const void* sc,
                                const void* pos_ptr, int pos_stride, int pos_scalar,
                                const void* bias, void* out, int out_f32, int B, int S, int H,
                                int D, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      launch<64>(q, kv, sc, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32, B, S, H, st);
-      break;
-    case 100:
-      launch<100>(q, kv, sc, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32, B, S, H, st);
-      break;
-    case 128:
-      launch<128>(q, kv, sc, pos_ptr, pos_stride, pos_scalar, bias, out, out_f32, B, S, H, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(q, kv, sc, nullptr, nullptr, pos_ptr, pos_stride, pos_scalar, bias,
+                         out, out_f32, B, S, H, D, static_cast<cudaStream_t>(stream));
+}
+
+// q (B, H*D) bf16; new_kv (B, 2*H*D) int8 and new_sc (B, 2*H) f32, the rows
+// at position pos[b]; kv_stack (L, B, S, 2*H*D) int8 and sc_stack
+// (L, B, S, 2*H) f32, of which layer `layer` is read (rows [0, pos[b]));
+// pos, bias, out and out_f32 as for flash_decode_q8. Returns a cudaError_t.
+extern "C" int flash_stacked_q8(const void* q, const void* new_kv, const void* new_sc,
+                                const void* kv_stack, const void* sc_stack, int layer,
+                                const void* pos_ptr, int pos_stride, int pos_scalar,
+                                const void* bias, void* out, int out_f32, int B, int S, int H,
+                                int D, void* stream) {
+  const size_t rows = (size_t)layer * B * S;
+  const auto* kv = static_cast<const int8_t*>(kv_stack) + rows * 2 * H * D;
+  const auto* sc = static_cast<const float*>(sc_stack) + rows * 2 * H;
+  return dispatch<true>(q, kv, sc, new_kv, new_sc, pos_ptr, pos_stride, pos_scalar, bias,
+                        out, out_f32, B, S, H, D, static_cast<cudaStream_t>(stream));
 }

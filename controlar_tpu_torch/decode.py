@@ -16,6 +16,15 @@ for the TPU). Unlike the JAX package, which returns new cache arrays, the
 port writes the new rows into the cache tensors in place and returns the
 same list.
 
+The stacked cache (`init_stacked_caches`, the JAX package's `kv_stacked`)
+holds every layer in one tensor per stream: a (L, B, S, 2*KV*D) tensor, or
+the int8 / int4 dict of (L, B, S, ...) tensors. A decode step over it
+scores each layer's new row, the in-flight row, from an operand of the
+stacked attention kernels (`ops/flash_decode_stacked.py`) and writes all L
+layers' rows at the end of the step, one write per stream: an indexed
+assignment at a uniform position, `cache_append_rows_stacked` at a position
+per row. The prefill writes each layer's rows through a view of the stack.
+
 Decode attention runs the kernels when `use_flash` (on the card: CUDA,
 reading only rows <= pos), else a masked einsum over the whole (dequantized)
 slab. `decode_step_flat` decodes every row at one position (the generation
@@ -43,7 +52,11 @@ from controlar_tpu_torch.models.gpt import (
     attend_masked,
     make_rope_table,
 )
-from controlar_tpu_torch.ops.cache_append import cache_append_block, cache_append_rows
+from controlar_tpu_torch.ops.cache_append import (
+    cache_append_block,
+    cache_append_rows,
+    cache_append_rows_stacked,
+)
 from controlar_tpu_torch.ops.flash_chunk import (
     flash_chunk_attention,
     flash_chunk_attention_q4,
@@ -53,6 +66,12 @@ from controlar_tpu_torch.ops.flash_decode import (
     flash_decode_attention,
     flash_decode_attention_q4,
     flash_decode_attention_q8,
+)
+from controlar_tpu_torch.ops.flash_decode_stacked import (
+    flash_stacked,
+    flash_stacked_q4,
+    flash_stacked_q8,
+    layer_with_row,
 )
 from controlar_tpu_torch.ops.norms import rms_norm
 from controlar_tpu_torch.ops.rope import apply_rope_split, make_split_rope_tables
@@ -67,35 +86,63 @@ from controlar_tpu_torch.quant import (
 )
 
 Cache = Union[torch.Tensor, Dict[str, torch.Tensor]]
-Caches = List[Cache]
+Caches = Union[List[Cache], Cache]  # per-layer caches, or one stacked cache
 Rope = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 INT4 = "int4"  # cache_dtype of the nibble-packed cache
+
+
+def _zeros_cache(cfg: GPTConfig, lead: Tuple[int, ...], dtype: Union[torch.dtype, str],
+                 device) -> Cache:
+    """A zeroed cache whose streams have leading dims `lead`: a (*lead,
+    2*KV*D) tensor of a floating dtype, or the int8 (`torch.int8`) or int4
+    (`"int4"`) dict."""
+    hd = cfg.kv_heads * cfg.head_dim
+
+    def zeros(width, dt):
+        return torch.zeros((*lead, width), dtype=dt, device=device)
+
+    if dtype == torch.int8:
+        return {"kv": zeros(2 * hd, torch.int8), "s": zeros(2 * cfg.kv_heads, torch.float32)}
+    if dtype == INT4:
+        return {"kv4": zeros(hd, torch.int8), "s": zeros(2 * cfg.kv_heads, torch.float32)}
+    if not (isinstance(dtype, torch.dtype) and dtype.is_floating_point):
+        raise ValueError(f"cache dtype must be floating, torch.int8 or 'int4', got {dtype!r}")
+    return zeros(2 * hd, dtype)
 
 
 def init_flat_caches(cfg: GPTConfig, batch: int, max_seq: int,
                      dtype: Union[torch.dtype, str] = torch.bfloat16, device="cpu") -> Caches:
     """One zeroed cache per layer: a (batch, max_seq, 2*KV*D) tensor of a
     floating dtype, or the int8 (`torch.int8`) or int4 (`"int4"`) dict."""
-    hd = cfg.kv_heads * cfg.head_dim
-    sshape = (batch, max_seq, 2 * cfg.kv_heads)
+    return [_zeros_cache(cfg, (batch, max_seq), dtype, device) for _ in range(cfg.n_layer)]
 
-    def zeros(shape, dt):
-        return torch.zeros(shape, dtype=dt, device=device)
 
-    if dtype == torch.int8:
-        return [{"kv": zeros((batch, max_seq, 2 * hd), torch.int8),
-                 "s": zeros(sshape, torch.float32)} for _ in range(cfg.n_layer)]
-    if dtype == INT4:
-        return [{"kv4": zeros((batch, max_seq, hd), torch.int8),
-                 "s": zeros(sshape, torch.float32)} for _ in range(cfg.n_layer)]
-    if not (isinstance(dtype, torch.dtype) and dtype.is_floating_point):
-        raise ValueError(f"cache dtype must be floating, torch.int8 or 'int4', got {dtype!r}")
-    return [zeros((batch, max_seq, 2 * hd), dtype) for _ in range(cfg.n_layer)]
+def init_stacked_caches(cfg: GPTConfig, batch: int, max_seq: int,
+                        dtype: Union[torch.dtype, str] = torch.bfloat16, device="cpu") -> Cache:
+    """The zeroed stacked cache: a (n_layer, batch, max_seq, 2*KV*D) tensor,
+    or the int8 or int4 dict of (n_layer, batch, max_seq, ...) tensors."""
+    return _zeros_cache(cfg, (cfg.n_layer, batch, max_seq), dtype, device)
+
+
+def is_stacked_caches(caches: Caches) -> bool:
+    return not isinstance(caches, (list, tuple))
+
+
+def _first_stream(cache: Cache) -> torch.Tensor:
+    return cache["s"] if isinstance(cache, dict) else cache
 
 
 def cache_seq_len(caches: Caches) -> int:
-    c0 = caches[0]
-    return (c0["s"] if isinstance(c0, dict) else c0).shape[1]
+    if is_stacked_caches(caches):
+        return _first_stream(caches).shape[2]
+    return _first_stream(caches[0]).shape[1]
+
+
+def _layer_view(caches: Caches, l: int) -> Cache:
+    """Layer l's cache: a view into a stacked cache."""
+    if isinstance(caches, dict):
+        return {k: v[l] for k, v in caches.items()}
+    return caches[l]
 
 
 def rope_tables(model: GPT, cfg: GPTConfig, device) -> Rope:
@@ -167,6 +214,17 @@ def _append_rows(cache: Cache, kv_rows: torch.Tensor, pos: torch.Tensor, kv_head
             cache_append_rows(dst, src[:, 0], pos)
 
 
+def _layer_with_rows(caches: Cache, l: int, rows: List[torch.Tensor], pos) -> Cache:
+    """A copy of layer l of a stacked cache with the in-flight rows (B, W),
+    one per stream, written at pos (an int, or a (B,) tensor): the slab the
+    plain route attends over, as the JAX package's fallback builds it."""
+    if isinstance(caches, dict):
+        key = "kv4" if "kv4" in caches else "kv"
+        return {key: layer_with_row(caches[key], rows[0], l, pos),
+                "s": layer_with_row(caches["s"], rows[1], l, pos)}
+    return layer_with_row(caches, rows[0], l, pos)
+
+
 def _dequant_slab(cache: Dict[str, torch.Tensor], cfg: GPTConfig, dtype, split: bool = False):
     if "kv4" in cache:
         return dequantize_kv4_slab(cache["kv4"], cache["s"], cfg.kv_heads, cfg.head_dim,
@@ -194,6 +252,24 @@ def _flash_attn(q: torch.Tensor, cache: Cache, pos, col_bias, cfg: GPTConfig, sp
         fn = flash_chunk_attention_q8 if chunk else flash_decode_attention_q8
         args = (cache["kv"], cache["s"])
     return fn(q, *args, pos, col_bias, **kw).reshape(b, t, hd)
+
+
+def _flash_stacked_attn(q: torch.Tensor, caches: Cache, rows: List[torch.Tensor], l: int,
+                        pos, col_bias, cfg: GPTConfig, split: bool) -> torch.Tensor:
+    """Attention of q (B, 1, H, D) over layer l of a stacked cache and the
+    in-flight rows (one per stream) through the stacked kernels -> (B, 1, H*D)."""
+    b = q.shape[0]
+    hd = cfg.n_head * cfg.head_dim
+    q = q.reshape(b, hd).contiguous()
+    if not isinstance(caches, dict):
+        out = flash_stacked(q, rows[0], caches, l, pos, col_bias, n_head=cfg.n_head)
+    elif "kv4" in caches:
+        out = flash_stacked_q4(q, *rows, caches["kv4"], caches["s"], l, pos, col_bias,
+                               n_head=cfg.n_head, head_dim=cfg.head_dim, split=split)
+    else:
+        out = flash_stacked_q8(q, *rows, caches["kv"], caches["s"], l, pos, col_bias,
+                               n_head=cfg.n_head)
+    return out.reshape(b, 1, hd)
 
 
 def ffn(lp, x: torch.Tensor) -> torch.Tensor:
@@ -230,7 +306,8 @@ def prefill_flat(
     Only the last prefix position receives control token 0. With a column
     mask, a position sees the columns that are causal AND (unmasked OR its
     own), so fully masked padding rows still attend to themselves. Attention
-    here uses the unquantized k and v, as in the JAX package.
+    here uses the unquantized k and v, as in the JAX package. caches may be
+    per-layer or stacked; either gets the same rows.
     rope_table: `rope_tables(model, cfg, device)`, made here when None."""
     b, t, _ = prefix_emb.shape
     dev = prefix_emb.device
@@ -256,7 +333,8 @@ def prefill_flat(
             h = torch.cat([h[:, :-1], h[:, -1:] + add], dim=1)
         x = rms_norm(h, lp.attention_norm, cfg.norm_eps)
         q, k, v = _qkv_for(lp, cfg, x, rope)
-        _write_rows(caches[l], torch.cat([k.reshape(b, t, hd), v.reshape(b, t, hd)], dim=-1),
+        _write_rows(_layer_view(caches, l),
+                    torch.cat([k.reshape(b, t, hd), v.reshape(b, t, hd)], dim=-1),
                     0, cfg.kv_heads, split)
         h = h + lp.wo(attend_masked(q, k, v, mask))
         h = h + ffn(lp, rms_norm(h, lp.ffn_norm, cfg.norm_eps))
@@ -279,13 +357,25 @@ def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
     rows in place. Row j of a chunk attends to the cache rows <= pos[b] + j,
     and the column mask is not applied on its own row (the diagonal
     exception of the chunk kernels); a decode step applies the mask
-    everywhere, as the JAX package's decode steps do."""
+    everywhere, as the JAX package's decode steps do.
+
+    On a stacked cache (a decode step, T = 1), layer l attends to its rows
+    < pos[b] and its in-flight row: through the stacked kernels, or over a
+    copy of the layer with the row written. After the last layer,
+    write_rows(stream, rows (L, B, W)) stores every layer's rows, once per
+    stream (the rows, and a quantized cache's scales)."""
     b, t = h.shape[:2]
     dev = h.device
     kvd = cfg.kv_heads * cfg.head_dim
     split = isinstance(rope, tuple)
     gate, fidx = _fusion_gates(cfg)
     s_max = cache_seq_len(caches)
+    stacked = is_stacked_caches(caches)
+    if stacked and (t != 1 or _first_stream(caches).shape[0] != cfg.n_layer):
+        raise ValueError(f"a stacked cache takes one query row per batch row and "
+                         f"{cfg.n_layer} layers, got T = {t} and the cache "
+                         f"{tuple(_first_stream(caches).shape)}")
+    inflight = []  # stacked: each layer's new rows, one (B, W) tensor per stream
     col_bias = None
     if use_flash:
         if col_mask_full is not None:
@@ -305,9 +395,18 @@ def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
             h = h + _fuse(control(fidx[l]), control_strength, h.dtype)
         x = rms_norm(h, lp.attention_norm, cfg.norm_eps)
         q, k, v = _qkv_for(lp, cfg, x, rope)  # (B, T, H, D), (B, T, KV, D)
-        cache = caches[l]
-        write_rows(cache, torch.cat([k.reshape(b, t, kvd), v.reshape(b, t, kvd)], dim=-1))
-        if use_flash:
+        kv_rows = torch.cat([k.reshape(b, t, kvd), v.reshape(b, t, kvd)], dim=-1)
+        if stacked:
+            streams = _cache_streams(caches, kv_rows[:, 0], cfg.kv_heads, split)
+            rows = [src.to(dst.dtype).contiguous() for dst, src in streams]
+            inflight.append(rows)
+            cache = None if use_flash else _layer_with_rows(caches, l, rows, pos)
+        else:
+            cache = caches[l]
+            write_rows(cache, kv_rows)
+        if use_flash and stacked:
+            attn = _flash_stacked_attn(q, caches, rows, l, pos, col_bias, cfg, split).to(h.dtype)
+        elif use_flash:
             attn = _flash_attn(q, cache, pos, col_bias, cfg, split, chunk).to(h.dtype)
         else:
             slab = _dequant_slab(cache, cfg, h.dtype, split) if isinstance(cache, dict) else cache
@@ -316,6 +415,9 @@ def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
             attn = attend_masked(q, kl, vl, mask)
         h = h + lp.wo(attn)
         h = h + ffn(lp, rms_norm(h, lp.ffn_norm, cfg.norm_eps))
+    if stacked:
+        for i, (dst, _) in enumerate(streams):
+            write_rows(dst, torch.stack([rows[i] for rows in inflight]))
     return h
 
 
@@ -332,7 +434,9 @@ def decode_step_flat(
     rope_table: Optional[Rope] = None,
 ) -> Tuple[torch.Tensor, Caches]:
     """One decode step at position pos for token (B,); returns (logits (B, V)
-    f32, caches). Position pos receives control token pos - cls_token_num + 1."""
+    f32, caches). Position pos receives control token pos - cls_token_num + 1.
+    On a stacked cache every layer's row is written at the end of the step
+    with one indexed assignment per stream."""
     if rope_table is None:
         rope_table = rope_tables(model, cfg, token.device)
     rope = _rope_rows(rope_table, pos, pos + 1)
@@ -341,7 +445,10 @@ def decode_step_flat(
     control = None if fused3 is None else (lambda i: fused3[i][:, f:f + 1])
 
     def write_rows(cache, kv_rows):
-        _write_rows(cache, kv_rows, pos, cfg.kv_heads, split)
+        if is_stacked_caches(caches):
+            cache[:, :, pos] = kv_rows  # every layer's row: (L, B, W)
+        else:
+            _write_rows(cache, kv_rows, pos, cfg.kv_heads, split)
 
     h = _decode_layers(model, cfg, caches, model.tok_embeddings(token)[:, None, :], pos, rope,
                        control, write_rows, col_mask_full, control_strength, use_flash)
@@ -390,10 +497,16 @@ def decode_step_multi(
     [0, block_size - 1] (the rows of such slots are discarded). The rows go
     through `cache_append_rows` (its kernel on the card); attention through
     the flash kernels with the column bias of col_mask_full under use_flash,
-    else the masked einsum. Only the flat cache is ported (`kv_stacked` is
-    ROADMAP slice 5)."""
-    if not isinstance(caches, (list, tuple)):
-        raise NotImplementedError("the stacked KV cache is not ported (ROADMAP slice 5)")
+    else the masked einsum.
+
+    On a stacked cache the positions are first raised to at least 1, as the
+    JAX package does: a never-admitted slot at position 0 then takes its
+    RoPE, control row and written row at position 1 (the engine overwrites
+    the slot at admission). All layers' rows are written at the end of the
+    step, one `cache_append_rows_stacked` per stream."""
+    stacked = is_stacked_caches(caches)
+    if stacked:
+        pos = torch.clamp(pos, min=1)
     dev = token.device
     if rope_table is None:
         rope_table = rope_tables(model, cfg, dev)
@@ -407,7 +520,10 @@ def decode_step_multi(
     control = None if fused3 is None else (lambda i: fused3[i][rows_idx, f][:, None])
 
     def write_rows(cache, kv_rows):
-        _append_rows(cache, kv_rows, pos, cfg.kv_heads, split)
+        if stacked:
+            cache_append_rows_stacked(cache, kv_rows, pos)  # every layer's row: (L, B, W)
+        else:
+            _append_rows(cache, kv_rows, pos, cfg.kv_heads, split)
 
     h = _decode_layers(model, cfg, caches, model.tok_embeddings(token)[:, None, :], pos, rope,
                        control, write_rows, col_mask_full, control_strength, use_flash)

@@ -45,6 +45,7 @@ def generate_tokens(
     sample_logits: bool = True,
     cache_dtype: Union[torch.dtype, str] = torch.bfloat16,
     use_flash: bool = False,
+    kv_stacked: bool = False,
     on_step: Optional[Callable[[int], None]] = None,
 ) -> torch.Tensor:
     """Generate image tokens; the caller has done the CFG doubling
@@ -55,7 +56,9 @@ def generate_tokens(
     col_mask: (Bc, T_cls) bool or None. The cache holds
     find_multiple(T_cls + max_new_tokens, 256 if use_flash else 8) rows;
     cache_dtype is a floating dtype, torch.int8 or "int4" (see
-    `decode.init_flat_caches`). `on_step(i)`, when given, is called after
+    `decode.init_flat_caches`); kv_stacked=True selects the stacked cache
+    (`decode.init_stacked_caches`), whose decode step writes every layer's
+    new row once at its end. `on_step(i)`, when given, is called after
     decode step i (i = 0 is the first step after the prefill).
     Returns (B, max_new_tokens) int64 tokens of the conditional half.
     """
@@ -63,7 +66,8 @@ def generate_tokens(
     dev = prefix_emb.device
     use_cfg = cfg_scale > 1.0
     s_max = find_multiple(t_cls + max_new_tokens, 256 if use_flash else 8)
-    caches = decode_engine.init_flat_caches(cfg, bc, s_max, cache_dtype, dev)
+    init = decode_engine.init_stacked_caches if kv_stacked else decode_engine.init_flat_caches
+    caches = init(cfg, bc, s_max, cache_dtype, dev)
     rope = decode_engine.rope_tables(model, cfg, dev)
 
     def sample(logits):
@@ -153,6 +157,7 @@ def generate(
     seed: int = 0,
     cache_dtype: Union[torch.dtype, str] = torch.bfloat16,
     use_flash: Optional[bool] = None,
+    kv_stacked: bool = False,
     device="cuda",
     on_step: Optional[Callable[[int], None]] = None,
 ) -> torch.Tensor:
@@ -163,8 +168,11 @@ def generate(
     half gets zero control. `use_flash=None` takes the kernel on the card
     when every head has its own K/V head. cache_dtype torch.int8 or "int4"
     selects a quantized KV cache; it pairs with a model quantized by
-    `quant.quantize_gpt` (any mix is allowed, as in the JAX package). Runs on `device` ('cuda' unless
-    the caller asks for 'cpu'); the model must already be there.
+    `quant.quantize_gpt` (any mix is allowed, as in the JAX package).
+    kv_stacked=True selects the stacked (L, B, S, R) KV cache, with every
+    layer's new row written once at the end of a step. Runs on `device`
+    ('cuda' unless the caller asks for 'cpu'); the model must already be
+    there.
     """
     dev = resolve_device(device)
     check_on(model, dev)
@@ -186,5 +194,6 @@ def generate(
         sample_logits=sample_logits,
         cache_dtype=cache_dtype,
         use_flash=use_flash,
+        kv_stacked=kv_stacked,
         on_step=on_step,
     )

@@ -17,9 +17,10 @@ Scheduling (one `step()`):
 1. Group admission: every waiting request that has a free slot is
    prefilled in one batch of 2K rows [cond; uncond] into a small cache, its
    first token sampled, and its caches and slot state copied into the slot
-   rows with indexed copies. The JAX package pads a group to a power of two
-   only to bound XLA compiles; the port admits the group as it is, which
-   changes no request's tokens.
+   rows with indexed copies (on dim 1 of the stacked cache, `kv_stacked`).
+   The JAX package pads a group to a power of two only to bound XLA
+   compiles; the port admits the group as it is, which changes no
+   request's tokens.
 2. A decode quantum of q steps (`quantum`, or the bucket `_pick_quantum`
    picks): q calls of `decode_step_multi` with no host sync inside. A slot
    advances while `active & (pos < cls_token_num + block_size - 1)`; a
@@ -59,7 +60,8 @@ from controlar_tpu_torch.ops.sampling import sample_keyed
 
 
 def _streams(cache: dec.Cache) -> List[torch.Tensor]:
-    """A layer cache's tensors: the slab, or the quantized rows and scales."""
+    """A layer cache's tensors, or a stacked cache's: the slab, or the
+    quantized rows and scales."""
     return list(cache.values()) if isinstance(cache, dict) else [cache]
 
 
@@ -93,7 +95,9 @@ class ServeConfig:
     K/V head (kv_heads == n_head). On the card use_flash=False is refused
     unless kv_heads != n_head, a shape the attention kernels do not take;
     the row append runs its kernel on the card either way. kv_stacked=True
-    (the stacked cache) is not ported (ROADMAP slice 5)."""
+    keeps the stacked cache (`decode.init_stacked_caches`): a step runs the
+    stacked attention kernels and writes every layer's rows with one
+    `cache_append_rows_stacked` per stream."""
     max_slots: int = 8
     quantum: int = 64
     quantum_buckets: Optional[tuple] = None
@@ -119,8 +123,6 @@ class ServeEngine:
         check_on(model, self.device)
         # copy: never mutate a caller's (or a shared default) config
         scfg = dataclasses.replace(serve_cfg or ServeConfig())
-        if scfg.kv_stacked:
-            raise NotImplementedError("the stacked KV cache is not ported (ROADMAP slice 5)")
         kernel_heads = cfg.kv_heads == cfg.n_head  # what the attention kernels take
         if scfg.use_flash is None:
             scfg.use_flash = self.device.type == "cuda" and kernel_heads
@@ -135,7 +137,7 @@ class ServeEngine:
         with torch.inference_mode():
             dev = self.device
             self.rope = dec.rope_tables(model, cfg, dev)
-            self.caches = dec.init_flat_caches(cfg, 2 * n, self.s_max, scfg.cache_dtype, dev)
+            self.caches = self._init_caches(2 * n)
             # control rows in bf16, as the JAX engine keeps them
             self.fused = torch.zeros((cfg.n_fusion_points, 2 * n, cfg.block_size, cfg.dim),
                                      dtype=torch.bfloat16, device=dev)
@@ -158,6 +160,10 @@ class ServeEngine:
         # device computed; useful_steps those that emitted a kept token.
         # 1 - useful/slot = combined empty-slot + frozen-tail waste.
         self.stats = {"slot_steps": 0, "useful_steps": 0}
+
+    def _init_caches(self, batch: int):
+        init = dec.init_stacked_caches if self.scfg.kv_stacked else dec.init_flat_caches
+        return init(self.cfg, batch, self.s_max, self.scfg.cache_dtype, self.device)
 
     # ------------------------------------------------------------------
     def add_request(self, req: Request) -> None:
@@ -227,13 +233,17 @@ class ServeEngine:
             else torch.ones(cfg.cls_token_num, dtype=torch.bool, device=dev) for r in reqs])
         col_req = torch.cat([masks, masks])  # (2K, T_cls)
 
-        small = dec.init_flat_caches(cfg, 2 * k, self.s_max, self.scfg.cache_dtype, dev)
+        small = self._init_caches(2 * k)
         # the prefix rides in bf16, as in the JAX engine
         logits, small = dec.prefill_flat(model, cfg, small, prefix.to(torch.bfloat16),
                                          fused3_req, col_req, rope_table=self.rope)
-        for kv, skv in zip(self.caches, small):
-            for dst, src in zip(_streams(kv), _streams(skv)):
-                dst[rows] = src
+        if self.scfg.kv_stacked:  # the slots lie on dim 1
+            for dst, src in zip(_streams(self.caches), _streams(small)):
+                dst[:, rows] = src
+        else:
+            for kv, skv in zip(self.caches, small):
+                for dst, src in zip(_streams(kv), _streams(skv)):
+                    dst[rows] = src
         self.fused[:, rows] = fused3_req.to(self.fused.dtype)
         col_full = torch.ones((2 * k, self.s_max), dtype=torch.bool, device=dev)
         col_full[:, : cfg.cls_token_num] = col_req

@@ -5,12 +5,17 @@
 Builds a cell of `controlar_tpu_torch.cells` (c2i, t2i, c2i_w8kv8,
 c2i_3b_w4kv4, or a speculative cell spec_c2i_3b, spec_c2i_3b_w8kv8,
 spec_c2i_3b_w4kv4) and times `ControlARPipeline.generate` itself, after a
-warm call; or a serving cell (serve_c2i, serve_c2i_w8kv8) and times
-`ServeEngine.step` itself. Prints JSON lines:
+warm call; or a stacked-cache cell (c2i_stacked, c2i_w8kv8_stacked,
+c2i_3b_w4kv4_stacked) and times `generate.generate` with the per-layer and
+then the stacked cache; or a serving cell (serve_c2i, serve_c2i_w8kv8,
+serve_c2i_stacked) and times `ServeEngine.step` itself. Prints JSON lines:
 
   stages   host-clock seconds of each pipeline stage, from the pipeline's
            own `timings` (device synchronised at each stage's end):
            condition (Canny), adapter, tokens, vq_decode;
+  call     (stacked-cache cells) host-clock seconds of one `generate`
+           call after a warm one, with kv_stacked false and true, each
+           followed by its decode line;
   decode   --steps decode steps at the middle of the cache: ms per step
            without the profiler (CUDA events recorded from the loop's
            `on_step` hook), then a torch.profiler window over the same
@@ -49,9 +54,10 @@ from pathlib import Path
 
 import torch
 
+from controlar_tpu_torch import generate as tgen
 from controlar_tpu_torch.cells import (
-    BATCH, CELLS, SERVE_CELLS, SPEC_CELLS, SPEC_K, build_cell, build_serve_cell,
-    build_spec_cell, serve_requests)
+    BATCH, CELLS, SERVE_CELLS, SPEC_CELLS, SPEC_K, STACKED_CELLS, build_cell, build_serve_cell,
+    build_spec_cell, build_stacked_cell, serve_requests)
 
 # the port's hand-written kernels, by the names of their __global__ functions
 PORT_KERNELS = ("flash_decode_kernel", "flash_decode_q8_kernel", "flash_decode_q4_kernel",
@@ -99,14 +105,12 @@ def _device_summary(raw: bytes, steps: int, kernels=PORT_KERNELS) -> dict:
     }
 
 
-def decode_window(pipe, kw: dict, steps: int, trace: Path) -> dict:
+def decode_window(run, cfg, steps: int, trace: Path, spec: bool = False) -> dict:
     """Decode steps (or speculative cycles) start..start+steps-1 of real
-    `generate` calls, where start is half way through the tokens (the
-    cycles of a speculative call: at random weights a cycle emits about one
-    token)."""
-    cfg = pipe.gpt_cfg
+    generate calls `run(seed, on_step)`, where start is half way through
+    the tokens (the cycles of a speculative call: at random weights a cycle
+    emits about one token)."""
     start = cfg.block_size // 2
-    spec = kw.get("spec_draft") is not None
 
     # unprofiled: events at the end of step start-1 and of step start+steps-1
     marks = {}
@@ -116,7 +120,7 @@ def decode_window(pipe, kw: dict, steps: int, trace: Path) -> dict:
             marks[i] = torch.cuda.Event(enable_timing=True)
             marks[i].record()
 
-    pipe.generate(**kw, seed=2, on_step=mark)
+    run(2, mark)
     torch.cuda.synchronize()
     plain_ms = marks[start - 1].elapsed_time(marks[start + steps - 1]) / steps
 
@@ -145,7 +149,7 @@ def decode_window(pipe, kw: dict, steps: int, trace: Path) -> dict:
                         torch.profiler.ProfilerActivity.CUDA],
             schedule=torch.profiler.schedule(wait=start - 1, warmup=1, active=steps, repeat=1),
             on_trace_ready=save) as prof:
-        pipe.generate(**kw, seed=2, on_step=step)
+        run(2, step)
     trace.with_suffix(".json.gz").write_bytes(gzip.compress(raw["trace"]))
     summary = _device_summary(raw["trace"], steps)
     busy = summary["device_busy_ms_per_step"]
@@ -258,8 +262,8 @@ def serve_window(name: str, seed: int, trace: Path) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cell", choices=sorted(CELLS) + sorted(SERVE_CELLS) + sorted(SPEC_CELLS),
-                    default="c2i")
+    ap.add_argument("--cell", choices=sorted(CELLS) + sorted(SERVE_CELLS) + sorted(SPEC_CELLS)
+                    + sorted(STACKED_CELLS), default="c2i")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out", default="traces")
@@ -275,12 +279,35 @@ def main() -> int:
         print(json.dumps({"cell": args.cell, "device": device, "serve": serve_window(
             args.cell, args.seed, out / f"trace_{args.cell}.json")}), flush=True)
         return 0
+    if args.cell in STACKED_CELLS:
+        pipe, kw = build_stacked_cell(args.cell, args.seed)
+        for stacked in (False, True):
+            def run(seed, on_step, stacked=stacked):
+                return tgen.generate(pipe.gpt, pipe.gpt_cfg, kv_stacked=stacked, seed=seed,
+                                     on_step=on_step, **kw)
+
+            run(0, None)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(1, None)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            name = f"trace_{args.cell}_{'stacked' if stacked else 'flat'}.json"
+            print(json.dumps({"cell": args.cell, "device": device, "kv_stacked": stacked,
+                              "call": {"seconds": seconds, "images_per_s": BATCH / seconds},
+                              "decode": decode_window(run, pipe.gpt_cfg, args.steps,
+                                                      out / name)}), flush=True)
+        return 0
     spec = args.cell in SPEC_CELLS
     pipe, kw = (build_spec_cell if spec else build_cell)(args.cell, args.seed)
     print(json.dumps({"cell": args.cell, "device": device, "stages": stages(pipe, kw)}),
           flush=True)
+
+    def run(seed, on_step):
+        return pipe.generate(**kw, seed=seed, on_step=on_step)
+
     print(json.dumps({"cell": args.cell, "device": device, "decode": decode_window(
-        pipe, kw, args.steps, out / f"trace_{args.cell}.json")}), flush=True)
+        run, pipe.gpt_cfg, args.steps, out / f"trace_{args.cell}.json", spec)}), flush=True)
     if spec:
         print(json.dumps({"cell": args.cell, "device": device, "spec": spec_parts(pipe, kw)}),
               flush=True)

@@ -569,3 +569,208 @@ def test_control_train_step_card_matches_cpu(dev):
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
     for n, p in out["cpu"][1].items():
         torch.testing.assert_close(out["cuda"][1][n], p, atol=2 * lr, rtol=0, msg=n)
+
+
+# ---- the stacked KV cache: stacked decode attention and the stacked append ----
+
+def _stacked_inputs(dev, kind, n_layer, b, s, h, d, bias, split=False, seed=3):
+    """q, the in-flight row and its scales (None for bf16), the stack and its
+    scales (None for bf16), a left-padded column bias or None."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, h * d, generator=g, device=dev) * 0.5).bfloat16()
+    kv = (torch.randn(n_layer, b, s, 2 * h * d, generator=g, device=dev) * 0.5).bfloat16()
+    new = (torch.randn(b, 2 * h * d, generator=g, device=dev) * 0.5).bfloat16()
+    col_bias = None
+    if bias:
+        pad = torch.arange(b, device=dev)[:, None] * 7
+        col_bias = torch.where(torch.arange(s, device=dev)[None, :] < pad, -1e9, 0.0).float()
+    if kind == "bf16":
+        return q, new, None, kv, None, col_bias
+    quant = quantize_kv_rows if kind == "q8" else (
+        lambda x, n: quantize_kv_rows_4(x, n, split=split))
+    rows, scale = quant(kv, h)
+    new_rows, new_scale = quant(new, h)
+    return q, new_rows, new_scale, rows, scale, col_bias
+
+
+def _stacked_call(kind, fn, q, new, new_s, stack, sc, layer, pos, col_bias, h, d, split):
+    if kind == "bf16":
+        return fn(q, new, stack, layer, pos, col_bias, n_head=h)
+    if kind == "q8":
+        return fn(q, new, new_s, stack, sc, layer, pos, col_bias, n_head=h)
+    return fn(q, new, new_s, stack, sc, layer, pos, col_bias, n_head=h, head_dim=d, split=split)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "q8", "q4", "q4_split"])
+@pytest.mark.parametrize("d", [64, 100])
+@pytest.mark.parametrize("pos", [0, 1, 255, 256, 575, "per_slot"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_stacked_kernels_match_plain_versions(dev, kind, d, pos, bias):
+    """Every layer of a 3-layer stack, so that a wrong layer offset fails."""
+    from controlar_tpu_torch.ops import flash_decode_stacked as fds
+
+    split = kind == "q4_split"
+    kind = kind[:2] if kind.startswith("q4") else kind
+    b, s, h = 4, 768, 3
+    if pos == "per_slot":
+        pos = torch.tensor([1, 300, 511, 767], dtype=torch.int32, device=dev)
+    args = _stacked_inputs(dev, kind, 3, b, s, h, d, bias, split)
+    suffix = {"bf16": "", "q8": "_q8", "q4": "_q4"}[kind]
+    kern, plain = getattr(fds, f"flash_stacked{suffix}"), getattr(fds, f"flash_stacked{suffix}_ref")
+    for layer in range(3):
+        out = _stacked_call(kind, kern, *args[:5], layer, pos, args[5], h, d, split)
+        torch.cuda.synchronize()
+        want = _stacked_call(kind, plain, *args[:5], layer, pos, args[5], h, d, split)
+        # bf16 outputs on both sides, as in the flat kernels' tests
+        torch.testing.assert_close(out.float(), want.float(), atol=2e-3, rtol=1e-2)
+
+
+def test_stacked_kernel_equals_flat_kernel_on_the_written_slab(dev):
+    """At a bias of 0 on row pos, the stacked kernel computes the flat
+    kernel's function on the layer's slab with the row written."""
+    from controlar_tpu_torch.ops.flash_decode_stacked import flash_stacked
+
+    q, new, _, stack, _, bias = _stacked_inputs(dev, "bf16", 2, 4, 768, 3, 64, True)
+    pos = torch.tensor([40, 41, 300, 767], dtype=torch.int32, device=dev)
+    slab = stack[1].clone()
+    slab[torch.arange(4, device=dev), pos.long()] = new
+    out = flash_stacked(q, new, stack, 1, pos, bias, n_head=3)
+    want = flash_decode_attention(q, slab, pos, bias, n_head=3)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("bad", ["layer", "row_shape", "row_dtype", "scales"])
+def test_stacked_wrappers_reject(dev, bad):
+    from controlar_tpu_torch.ops.flash_decode_stacked import flash_stacked, flash_stacked_q8
+
+    q, new, new_s, stack, sc, _ = _stacked_inputs(dev, "q8", 2, 2, 256, 2, 64, False)
+    layer = 2 if bad == "layer" else 0
+    if bad == "row_shape":
+        new = new[:, :-16].contiguous()
+    elif bad == "scales":
+        new_s = new_s[:, :-1].contiguous()
+    with pytest.raises(ValueError):
+        if bad == "row_dtype":
+            qb, nb, _, sb, _, _ = _stacked_inputs(dev, "bf16", 2, 2, 256, 2, 64, False)
+            flash_stacked(qb, nb.float(), sb, 0, 10, n_head=2)
+        else:
+            flash_stacked_q8(q, new, new_s, stack, sc, layer, 10, n_head=2)
+
+
+def test_stacked_launch_counts(dev):
+    from controlar_tpu_torch.ops import flash_decode_stacked as fds
+
+    fns = (fds.flash_stacked, fds.flash_stacked_q8, fds.flash_stacked_q4)
+    for fn in fns:
+        fn.launches = 0
+    for kind, fn in zip(("bf16", "q8", "q4"), fns):
+        args = _stacked_inputs(dev, kind, 2, 2, 256, 2, 64, False)
+        for _ in range(2):
+            _stacked_call(kind, fn, *args[:5], 1, 10, None, 2, 64, False)
+    assert [fn.launches for fn in fns] == [2, 2, 2]
+
+
+@pytest.mark.parametrize("dtype,width", APPEND_STREAMS)
+def test_cache_append_stacked_matches_plain_version(dev, dtype, width):
+    from controlar_tpu_torch.ops.cache_append import (
+        cache_append_rows_stacked, cache_append_rows_stacked_ref)
+
+    n_layer, b, s = 12, 16, 768
+    g = torch.Generator(device=dev).manual_seed(width + 1)
+    if dtype == torch.int8:
+        cache = torch.randint(-128, 128, (n_layer, b, s, width), generator=g, device=dev,
+                              dtype=dtype)
+        rows = torch.randint(-128, 128, (n_layer, b, width), generator=g, device=dev,
+                             dtype=dtype)
+    else:
+        cache = torch.randn(n_layer, b, s, width, generator=g, device=dev).to(dtype)
+        rows = torch.randn(n_layer, b, width, generator=g, device=dev)  # cast by the wrapper
+    pos = torch.tensor([0, s - 1] + [7 * i + 3 for i in range(b - 2)], dtype=torch.int32,
+                       device=dev)
+    want = cache_append_rows_stacked_ref(cache.clone(), rows, pos)
+    before = cache_append_rows_stacked.launches
+    out = cache_append_rows_stacked(cache, rows, pos)
+    torch.cuda.synchronize()
+    assert out is cache and cache_append_rows_stacked.launches == before + 1
+    assert torch.equal(cache.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_cache_append_stacked_skips_out_of_range_slots(dev):
+    from controlar_tpu_torch.ops.cache_append import cache_append_rows_stacked
+
+    cache = torch.zeros(2, 3, 8, 16, dtype=torch.bfloat16, device=dev)
+    rows = torch.ones(2, 3, 16, device=dev)
+    cache_append_rows_stacked(cache, rows, torch.tensor([-1, 8, 2], dtype=torch.int32,
+                                                        device=dev))
+    torch.cuda.synchronize()
+    assert cache[:, :2].abs().sum().item() == 0 and cache[:, 2, 2].float().sum().item() == 32
+
+
+def _small_model(dev, dtype=torch.float32, quant=None):
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.quant import quantize_gpt
+
+    cfg = GPTConfig(model_type="c2i", dim=256, n_layer=3, n_head=4, vocab_size=64,
+                    num_classes=10, block_size=16)
+    model = tgpt.init_gpt(cfg, seed=0, dtype=dtype)
+    if quant is not None:
+        quantize_gpt(model, cfg, mode=quant, split_rope=quant == "w4")
+    return cfg, model
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8", "int4"])
+def test_generate_stacked_card_matches_cpu(dev, cache):
+    """Greedy generate(kv_stacked=True) through the stacked kernels on the
+    card: the first logits within the reference limits, tokens equal to the
+    CPU's plain route at a clear margin, and the exact kernel launches."""
+    from controlar_tpu_torch import generate as tgen
+    from controlar_tpu_torch.ops import cache_append as ca
+    from controlar_tpu_torch.ops import flash_decode_stacked as fds
+
+    quant, cache_dtype = {"bf16": (None, torch.bfloat16), "int8": ("int8", torch.int8),
+                          "int4": ("w4", "int4")}[cache]
+    cfg, model = _small_model("cpu", quant=quant)
+    kw = dict(labels=torch.arange(3), max_new_tokens=16, cfg_scale=2.0, sample_logits=False,
+              cache_dtype=cache_dtype, kv_stacked=True)
+    want = tgen.generate(model, cfg, device="cpu", **kw)
+    fn = {"bf16": fds.flash_stacked, "int8": fds.flash_stacked_q8,
+          "int4": fds.flash_stacked_q4}[cache]
+    fn.launches = ca.cache_append_rows.launches = flash_decode_attention.launches = 0
+    got = tgen.generate(model.to(dev), cfg, device=dev, **kw).cpu()
+    assert fn.launches == cfg.n_layer * (cfg.block_size - 1)
+    assert ca.cache_append_rows.launches == flash_decode_attention.launches == 0
+    # greedy tokens at random weights: ties flip rarely; require most to agree
+    assert (got == want).float().mean().item() >= 0.85, (got, want)
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.int8])
+def test_serve_stacked_slot_isolation_on_the_card(dev, cache):
+    """The stacked engine on the card: request 0 alone (slot 1 never
+    admitted, so the pos >= 1 clamp runs every step) and with a neighbour:
+    the same sampled tokens; one stacked append per stream and step."""
+    from controlar_tpu_torch.cells import serve_requests, serve_staggered
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.ops import cache_append as ca
+    from controlar_tpu_torch.serve import ServeConfig, ServeEngine
+
+    cfg = GPTConfig(model_type="c2i", dim=128, n_layer=3, n_head=2, vocab_size=64,
+                    num_classes=10, block_size=16)
+    model = tgpt.init_gpt(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+
+    def run(n):
+        eng = ServeEngine(model, cfg, ServeConfig(max_slots=2, quantum=6, top_k=8,
+                                                  cache_dtype=cache, kv_stacked=True),
+                          device=dev)
+        done = serve_staggered(eng, serve_requests(n, num_classes=10), upfront=1,
+                               add_after_step=1)
+        return done, eng.stats["slot_steps"] // 2
+
+    ca.cache_append_rows.launches = ca.cache_append_rows_stacked.launches = 0
+    (solo, steps), (duo, steps2) = run(1), run(2)
+    streams = 1 if cache == torch.bfloat16 else 2
+    assert ca.cache_append_rows_stacked.launches == streams * (steps + steps2)
+    assert ca.cache_append_rows.launches == 0
+    np.testing.assert_array_equal(solo[0].tokens, duo[0].tokens)
+    assert not np.array_equal(duo[0].tokens, duo[1].tokens)

@@ -275,11 +275,12 @@ def test_decode_step_multi_matches_jax(case, use_flash):
 
 
 def test_decode_step_multi_refuses_a_stacked_cache():
+    """A stacked cache whose depth is not the model's is refused."""
     _, _, model = _multi_models("float", "c2i")
     tcfg = TGPTConfig(model_type="c2i", dim=256, n_layer=3, n_head=4, vocab_size=96,
                       num_classes=10, block_size=16)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tdec.decode_step_multi(model, tcfg, torch.zeros(3, 2, 32, 512),
+    with pytest.raises(ValueError, match="3 layers"):
+        tdec.decode_step_multi(model, tcfg, torch.zeros(2, 2, 32, 512),
                                torch.zeros(2, dtype=torch.long),
                                torch.zeros(2, dtype=torch.int32))
 

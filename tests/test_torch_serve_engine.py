@@ -198,6 +198,11 @@ def test_slot_isolation():
 
 
 def test_stacked_cache_is_not_ported():
+    """kv_stacked=True keeps one stacked (L, 2 * slots, S, W) cache, not the
+    flat engine's per-layer list."""
     _, tcfg, model = _c2i_model()
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ServeEngine(model, tcfg, ServeConfig(kv_stacked=True), device="cpu")
+    eng = ServeEngine(model, tcfg, ServeConfig(max_slots=2, kv_stacked=True), device="cpu")
+    assert isinstance(eng.caches, torch.Tensor)
+    assert eng.caches.shape == (tcfg.n_layer, 4, eng.s_max, 2 * tcfg.dim)
+    flat = ServeEngine(model, tcfg, ServeConfig(max_slots=2), device="cpu")
+    assert isinstance(flat.caches, list) and len(flat.caches) == tcfg.n_layer
