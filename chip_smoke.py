@@ -10,8 +10,13 @@ ending the run with a non-zero exit when it fails:
   kernel        every CUDA kernel against its plain PyTorch version at the main
   kernel_q8     paths' shapes, with its time, the plain version's, one PyTorch
   kernel_q4     library call's and the bound: bf16, int8 and int4 decode
-  kernel_w4mm   attention, the W4 dequant-matmul and the fused W4 FFN;
-  kernel_w4ffn
+  kernel_w4mm   attention, the W4 dequant-matmul and the fused W4 FFN (timed
+  kernel_w4ffn  at 16 rows, decode, and 64, the speculative verify; a row's
+                result the same bit for bit in a 16- and a 64-row call);
+  kernel_q8_append  the int8 decode attention with the in-flight row
+                appended (a TPU kernel on no path of the JAX package: only
+                this phase launches it), slabs bit for bit, timed at the
+                c2i_w8kv8 last step;
   kernel_append the per-slot KV-cache row append, bit for bit, on every
                 stream the serving paths write;
   kernel_chunk  the speculative verify's K-query chunk attention, bf16,
@@ -147,6 +152,23 @@ def time_ms(fn, reps: int = 20, flush: torch.Tensor | None = None) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
+def host_us(fn, reps: int = 100, rounds: int = 5) -> float:
+    """Median over rounds of the host microseconds a call of fn takes to
+    return: a device-side sleep first keeps every launch queued behind it,
+    so no call waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def _kernels():
     """name -> (wrapper, CUDA source, the TPU kernel it replaces)."""
     from controlar_tpu_torch.ops import cache_append as ca
@@ -189,7 +211,20 @@ def _kernels():
                              "controlar_tpu/ops/flash_decode_stacked.py:391"),
         "cache_append_rows_stacked": (ca.cache_append_rows_stacked, "cache_append.cu",
                                       "controlar_tpu/ops/cache_append.py:159"),
+        "flash_decode_attention_q8_append": (fd.flash_decode_attention_q8_append,
+                                             "flash_decode_q8.cu",
+                                             "controlar_tpu/ops/flash_decode2.py:349"),
     }
+
+
+# kernels that no path launches, with the reason: their entries count the
+# launches of their kernel phase instead of a main path's
+OFF_PATH = {
+    "flash_decode_attention_q8_append": (
+        "no path of the JAX package runs flash_decode_attention2_q8_append (only "
+        "tests/test_kv_int8.py calls it), so the port's int8 decode step keeps the "
+        "separate row append and attention, as the JAX package's does"),
+}
 
 
 def _roofline(nbytes: float, flops: float, flop_rate: float):
@@ -448,10 +483,33 @@ def _w4_weight(gen, k, n):
     return quantize_weight_w4(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
 
 
+def _w4_row(case, rows, fn, plain, lib, nbytes, flops, flush, **shape):
+    bound, by = _roofline(nbytes, flops, BF16_FLOPS)
+    return dict(case=case, rows=rows, **shape, ms=time_ms(fn, flush=flush),
+                plain_ms=time_ms(plain, flush=flush), library_ms=time_ms(lib, flush=flush),
+                bound_ms=bound, bound_by=by, host_us=host_us(fn))
+
+
+def _batch_invariant(phase, name, fn, x):
+    """A row's result does not depend on the rows beside it: rows of a
+    64-row call equal the same rows in a 16-row call and alone, bit for bit
+    (greedy speculative decode, whose verify runs 64 rows, relies on it)."""
+    full = fn(x)
+    torch.cuda.synchronize()
+    same = torch.equal(fn(x[16:32].contiguous()), full[16:32]) and all(
+        torch.equal(fn(x[i:i + 1].contiguous()), full[i:i + 1]) for i in (0, 17, 63))
+    check(same, phase, f"{name}: a row of the 64-row call differs from the same row in a "
+          "smaller call")
+
+
+W4_TIMED_ROWS = (16, 64)  # decode with CFG, the speculative verify (16 x (k = 4))
+
+
 def phase_kernel_w4mm():
     """w4_matmul at GPT-3B wqkv (3200 -> 9600) and wo (3200 -> 3200), with
-    weights of the model's init scale (std 0.02), 1, 16, 17 and 256 rows of
-    bf16 activations; timed at 16 rows (the main path's batch with CFG)."""
+    weights of the model's init scale (std 0.02), 1, 16, 17, 64 and 256 rows
+    of bf16 activations; batch invariance at 64 rows; timed at 16 rows (the
+    main path's batch with CFG) and 64 (the speculative verify)."""
     from controlar_tpu_torch.ops.w4_matmul import (
         dequantize_weight_w4,
         w4_matmul as kern,
@@ -460,34 +518,35 @@ def phase_kernel_w4mm():
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    results, max_err, main = [], 0.0, None
+    results, max_err = [], 0.0
     for name, k, n in (("wqkv", 3200, 9600), ("wo", 3200, 3200)):
         q4, s = _w4_weight(gen, k, n)
-        for rows in (1, 16, 17, 256):
+        for rows in (1, 16, 17, 64, 256):
             x = torch.randn(rows, k, generator=gen, device="cuda").bfloat16()
             out = kern(x, q4, s)
             torch.cuda.synchronize()
             err, ok = _within(out, plain(x, q4, s), W4_ATOL, W4_RTOL)
             check(ok, "kernel_w4mm", f"{name} rows={rows}: max_abs_err {err} over the limit")
             max_err = max(max_err, err)
-        x = torch.randn(16, k, generator=gen, device="cuda").bfloat16()
+        _batch_invariant("kernel_w4mm", name, lambda x: kern(x, q4, s, torch.float32),
+                         torch.randn(64, k, generator=gen, device="cuda").bfloat16())
         wd = dequantize_weight_w4(q4, s, torch.bfloat16, k=k)
-        bound, by = _roofline(q4.numel() + s.numel() * 4 + x.numel() * 2 + 16 * n * 2,
-                              2 * 16 * k * n, BF16_FLOPS)
-        row = dict(case=name, k=k, n=n, rows=16, ms=time_ms(lambda: kern(x, q4, s), flush=flush),
-                   plain_ms=time_ms(lambda: plain(x, q4, s), flush=flush),
-                   library_ms=time_ms(lambda: torch.matmul(x, wd), flush=flush),
-                   bound_ms=bound, bound_by=by)
-        results.append(row)
-        main = main or row
+        for rows in W4_TIMED_ROWS:
+            x = torch.randn(rows, k, generator=gen, device="cuda").bfloat16()
+            results.append(_w4_row(
+                name, rows, lambda: kern(x, q4, s), lambda: plain(x, q4, s),
+                lambda: torch.matmul(x, wd),
+                q4.numel() + s.numel() * 4 + x.numel() * 2 + rows * n * 2, 2 * rows * k * n,
+                flush, k=k, n=n))
     emit("kernel_w4mm", ok=True, name="w4_matmul", max_abs_err=max_err, atol=W4_ATOL,
          rtol=W4_RTOL, timings=results)
-    return main, max_err
+    return results[0], max_err
 
 
 def phase_kernel_w4ffn():
-    """w4_ffn at GPT-3B (K 3200, F 8704, N 3200; weights of std 0.02) with 1
-    and 16 rows; timed at 16 rows."""
+    """w4_ffn at GPT-3B (K 3200, F 8704, N 3200; weights of std 0.02) with 1,
+    16, 17 and 64 rows; batch invariance at 64 rows; timed at 16 and 64
+    rows."""
     import torch.nn.functional as F
 
     from controlar_tpu_torch.ops.w4_matmul import (
@@ -502,31 +561,99 @@ def phase_kernel_w4ffn():
     q13, s13 = _w4_weight(gen, k, 2 * f)
     q2, s2 = _w4_weight(gen, f, n)
     max_err = 0.0
-    for rows in (1, 16):
+    for rows in (1, 16, 17, 64):
         x = torch.randn(rows, k, generator=gen, device="cuda").bfloat16()
         out = kern(x, q13, s13, q2, s2)
         torch.cuda.synchronize()
         err, ok = _within(out, plain(x, q13, s13, q2, s2), W4_ATOL, W4_RTOL)
         check(ok, "kernel_w4ffn", f"rows={rows}: max_abs_err {err} over the limit")
         max_err = max(max_err, err)
-    x = torch.randn(16, k, generator=gen, device="cuda").bfloat16()
+    _batch_invariant("kernel_w4ffn", "ffn", lambda x: kern(x, q13, s13, q2, s2, torch.float32),
+                     torch.randn(64, k, generator=gen, device="cuda").bfloat16())
     w13 = dequantize_weight_w4(q13, s13, torch.bfloat16, k=k)
     w2 = dequantize_weight_w4(q2, s2, torch.bfloat16, k=f)
+    results = []
+    for rows in W4_TIMED_ROWS:
+        x = torch.randn(rows, k, generator=gen, device="cuda").bfloat16()
 
-    def unfused():  # the library yardstick: bf16 SwiGLU with torch.matmul
-        h1, h3 = torch.matmul(x, w13).chunk(2, dim=-1)
-        return torch.matmul(F.silu(h1) * h3, w2)
+        def unfused():  # the library yardstick: bf16 SwiGLU with torch.matmul
+            h1, h3 = torch.matmul(x, w13).chunk(2, dim=-1)
+            return torch.matmul(F.silu(h1) * h3, w2)
 
-    nbytes = (q13.numel() + q2.numel() + (s13.numel() + s2.numel()) * 4
-              + x.numel() * 2 + 16 * n * 2)
-    bound, by = _roofline(nbytes, 2 * 16 * (k * 2 * f + f * n), BF16_FLOPS)
-    row = dict(case="ffn", k=k, f=f, n=n, rows=16,
-               ms=time_ms(lambda: kern(x, q13, s13, q2, s2), flush=flush),
-               plain_ms=time_ms(lambda: plain(x, q13, s13, q2, s2), flush=flush),
-               library_ms=time_ms(unfused, flush=flush), bound_ms=bound, bound_by=by)
+        nbytes = (q13.numel() + q2.numel() + (s13.numel() + s2.numel()) * 4
+                  + x.numel() * 2 + rows * n * 2)
+        results.append(_w4_row("ffn", rows, lambda: kern(x, q13, s13, q2, s2),
+                               lambda: plain(x, q13, s13, q2, s2), unfused, nbytes,
+                               2 * rows * (k * 2 * f + f * n), flush, k=k, f=f, n=n))
     emit("kernel_w4ffn", ok=True, name="w4_ffn", max_abs_err=max_err, atol=W4_ATOL,
-         rtol=W4_RTOL, timings=[row])
-    return row, max_err
+         rtol=W4_RTOL, timings=results)
+    return results[0], max_err
+
+
+def phase_kernel_q8_append():
+    """flash_decode_attention_q8_append at the c2i_w8kv8 shapes (16 rows,
+    12 x 64 heads, 768 cache rows): positions 1, 255, 256, 575, 767 and per
+    slot, with and without the caption bias (0 at the decode positions, the
+    kernel's contract); the output within the attention kernels' limit and
+    the written slabs bit for bit against the plain version. Timed at the
+    last step (pos 575, no bias) with the plain version, SDPA over the
+    dequantized slab with the row written, and the bound: q and out, the 575
+    live rows and the in-flight row (values and f32 scales) read, the row
+    written. Returns (the timed row, max abs error, launches of the checks)."""
+    from controlar_tpu_torch.ops.flash_decode import (
+        flash_decode_attention_q8_append as kern,
+        flash_decode_attention_q8_append_ref as plain,
+    )
+    from controlar_tpu_torch.quant import dequantize_kv_slab, quantize_kv_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    b, h, d, s = 16, 12, 64, 768
+    q, kv = _slab(gen, b, s, h, d)
+    rows, scale = quantize_kv_rows(kv, h)
+    new_kv, new_s = quantize_kv_rows(torch.randn(b, 2 * h * d, generator=gen, device="cuda"), h)
+    bias = _left_pad_bias(s, 120)
+    per_slot = torch.tensor([1, 2, 100, 255, 256, 300, 400, 500, 575, 575, 130, 140, 150, 160,
+                             170, 767], dtype=torch.int32, device="cuda")
+    max_err = 0.0
+    kern.launches = 0
+    for pos in (1, 255, 256, 575, 767, per_slot):
+        for with_bias in (False, True):
+            cb = None
+            if with_bias:
+                cb = bias.clone()
+                p = torch.as_tensor(pos, device="cuda").long().reshape(-1).expand(b)
+                cb[torch.arange(b, device="cuda"), p] = 0.0
+            kv_k, s_k, kv_p, s_p = rows.clone(), scale.clone(), rows.clone(), scale.clone()
+            out, _, _ = kern(q, new_kv, new_s, kv_k, s_k, pos, cb, n_head=h)
+            torch.cuda.synchronize()
+            want, _, _ = plain(q, new_kv, new_s, kv_p, s_p, pos, cb, n_head=h)
+            err, ok = _kernel_error(out, want)
+            where = pos if isinstance(pos, int) else "per_slot"
+            check(ok, "kernel_q8_append", f"pos={where} bias={with_bias}: max_abs_err {err} "
+                  "over the limit")
+            check(torch.equal(kv_k, kv_p) and torch.equal(s_k, s_p), "kernel_q8_append",
+                  f"pos={where} bias={with_bias}: the written slabs differ")
+            max_err = max(max_err, err)
+    launches = kern.launches
+    pos = 575
+    kv_k, s_k = rows.clone(), scale.clone()
+    kern(q, new_kv, new_s, kv_k, s_k, pos, None, n_head=h)  # the slabs with the row written
+    slab = dequantize_kv_slab(kv_k, s_k, h, torch.bfloat16)
+    n, row_bytes = pos + 1, 2 * h * d + 2 * h * 4
+    bound, by = _roofline(2 * b * h * d * 2 + b * n * row_bytes + b * row_bytes,
+                          4 * b * n * h * d, FP32_FLOPS)
+    timed = dict(case="c2i_w8kv8", h=h, d=d, s=s, pos=pos,
+                 ms=time_ms(lambda: kern(q, new_kv, new_s, kv_k, s_k, pos, None, n_head=h),
+                            flush=flush),
+                 plain_ms=time_ms(lambda: plain(q, new_kv, new_s, kv_k, s_k, pos, None,
+                                                n_head=h), flush=flush),
+                 library_ms=time_ms(_sdpa(q, slab, n, h, d, None), flush=flush),
+                 bound_ms=bound, bound_by=by)
+    emit("kernel_q8_append", ok=True, name="flash_decode_attention_q8_append",
+         max_abs_err=max_err, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, launches=launches,
+         timings=[timed])
+    return timed, max_err, launches
 
 
 # stream, cache dtype, cache rows, row width (elements): what the serving
@@ -2018,6 +2145,9 @@ def main() -> int:
                                       "serve_c2i_stacked step: 12 x 16 GPT-B bf16 rows of "
                                       "3072 B, S 768"),
     }
+    row, err, off_path_launches = phase_kernel_q8_append()
+    timed["flash_decode_attention_q8_append"] = (
+        row, err, "c2i_w8kv8 last step: B=16 H=12 D=64 S=768 pos=575")
     train_rows = phase_kernel_train()
     where = {"flash_train_fwd": "train_t2i_xl512 layer: B=8 T=1143 H=20 D=64, caption bias",
              "flash_train_dq": "train_t2i_xl512 layer: B=8 T=1143 H=20 D=64, caption bias",
@@ -2047,11 +2177,18 @@ def main() -> int:
     entries = []
     for name, (fn, source, replaces) in _kernels().items():
         row, err, where = timed[name]
-        check(launches[name] > 0, "kernels", f"{name} was not launched on the main path")
+        on_path = name not in OFF_PATH
+        if on_path:
+            check(launches[name] > 0, "kernels", f"{name} was not launched on the main path")
+        else:
+            check(launches[name] == 0, "kernels", f"{name} was launched on a path, which "
+                  f"OFF_PATH says has none")
         entries.append({
             "name": name, "route": "cuda", "source": f"controlar_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": launches[name],  # the timed runs of the cells
+            # the timed runs of the cells, or for a kernel on no path its phase's checks
+            "launches": launches[name] if on_path else off_path_launches,
+            "on_path": on_path, **({} if on_path else {"why_no_path": OFF_PATH[name]}),
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "timed_at": where,

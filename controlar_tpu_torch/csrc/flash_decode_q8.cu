@@ -32,6 +32,17 @@
 // from the operands new_kv (B, 2*H*D) int8 and new_sc (B, 2*H), without the
 // bias (0 at decode positions by the caller's contract).
 //
+// The entry `flash_decode_q8_append` replaces `_kernel_q8a` of
+// controlar_tpu/ops/flash_decode2.py (flash_decode_attention2_q8_append):
+// the stacked path at layer 0 of a flat (B, S, 2*H*D) slab (rows [0, pos[b])
+// from the slab, row pos[b] scored from new_kv and new_sc), plus an epilogue
+// in which block (b, h) writes its head's D key bytes, D value bytes and two
+// scales into row pos[b] of the slabs. One block per (b, h), so the writes
+// do not overlap, and no block reads row pos[b] from the slab. Bound: bytes,
+// as above, plus the written row (2*H*D + 8*H bytes per batch row); the
+// epilogue adds no pass over the slab, where the TPU kernel read and wrote
+// back a 32-row window around the row.
+//
 // Plain C interface, loaded with ctypes. The launch goes on the caller's
 // stream; the function returns cudaGetLastError() after the launch.
 #include <cuda_bf16.h>
@@ -87,8 +98,9 @@ __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // STACKED: rows [0, pos) from kv and sc, then the in-flight row from new_kv
-// and new_sc
-template <int D, bool STACKED, typename OutT>
+// and new_sc; APPEND (with STACKED): then write that row into kv_out and
+// sc_out (the slabs kv and sc point into) at row pos
+template <int D, bool STACKED, bool APPEND, typename OutT>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_decode_q8_kernel(const __nv_bfloat16* __restrict__ q,  // (B, H*D)
                        const int8_t* __restrict__ kv,        // (B, S, 2*H*D)
@@ -99,7 +111,9 @@ flash_decode_q8_kernel(const __nv_bfloat16* __restrict__ q,  // (B, H*D)
                        int pos_stride, int pos_scalar,
                        const float* __restrict__ bias,       // (B, S) or null
                        OutT* __restrict__ out,               // (B, H*D)
+                       int8_t* kv_out, float* sc_out,        // kv, sc or null
                        int S, int H, float scale) {
+  static_assert(STACKED || !APPEND, "the append reads its row from the operands");
   constexpr int VEC = HeadCfg<D>::VEC;
   constexpr int LPR = HeadCfg<D>::LPR;
   constexpr int GPW = 32 / LPR;      // row groups per warp
@@ -200,13 +214,31 @@ flash_decode_q8_kernel(const __nv_bfloat16* __restrict__ q,  // (B, H*D)
     }
     store_out(out + (size_t)b * hd + (size_t)h * D + d, num / den);
   }
+
+  if constexpr (APPEND) {
+    if (pos >= 0 && pos < S) {  // the wrapper checks a scalar pos; a per-slot one is trusted
+      int8_t* dst = kv_out + ((size_t)b * S + pos) * row_stride + (size_t)h * D;
+      const int8_t* src = new_kv + (size_t)b * row_stride + (size_t)h * D;
+      for (int i = threadIdx.x; i < D; i += blockDim.x) {
+        dst[i] = src[i];
+        dst[hd + i] = src[hd + i];
+      }
+      if (threadIdx.x == 0) {
+        float* srow = sc_out + ((size_t)b * S + pos) * 2 * H;
+        srow[h] = nsrow[0];
+        srow[H + h] = nsrow[H];
+      }
+    }
+  }
 }
 
-template <int D, bool STACKED>
+template <int D, bool STACKED, bool APPEND>
 void launch(const void* q, const void* kv, const void* sc, const void* new_kv,
             const void* new_sc, const void* pos_ptr, int pos_stride, int pos_scalar,
             const void* bias, void* out, int out_f32, int B, int S, int H,
             cudaStream_t stream) {
+  auto* kv_out = APPEND ? static_cast<int8_t*>(const_cast<void*>(kv)) : nullptr;
+  auto* sc_out = APPEND ? static_cast<float*>(const_cast<void*>(sc)) : nullptr;
   const dim3 grid(B * H);
   const dim3 block(kWarps * 32);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
@@ -218,33 +250,33 @@ void launch(const void* q, const void* kv, const void* sc, const void* new_kv,
   const auto* pp = static_cast<const int*>(pos_ptr);
   const auto* bp = static_cast<const float*>(bias);
   if (out_f32) {
-    flash_decode_q8_kernel<D, STACKED, float><<<grid, block, 0, stream>>>(
-        qp, kvp, sp, nkp, nsp, pp, pos_stride, pos_scalar, bp, static_cast<float*>(out), S, H,
-        scale);
+    flash_decode_q8_kernel<D, STACKED, APPEND, float><<<grid, block, 0, stream>>>(
+        qp, kvp, sp, nkp, nsp, pp, pos_stride, pos_scalar, bp, static_cast<float*>(out), kv_out,
+        sc_out, S, H, scale);
   } else {
-    flash_decode_q8_kernel<D, STACKED, __nv_bfloat16><<<grid, block, 0, stream>>>(
+    flash_decode_q8_kernel<D, STACKED, APPEND, __nv_bfloat16><<<grid, block, 0, stream>>>(
         qp, kvp, sp, nkp, nsp, pp, pos_stride, pos_scalar, bp,
-        static_cast<__nv_bfloat16*>(out), S, H, scale);
+        static_cast<__nv_bfloat16*>(out), kv_out, sc_out, S, H, scale);
   }
 }
 
-template <bool STACKED>
+template <bool STACKED, bool APPEND = false>
 int dispatch(const void* q, const void* kv, const void* sc, const void* new_kv,
              const void* new_sc, const void* pos_ptr, int pos_stride, int pos_scalar,
              const void* bias, void* out, int out_f32, int B, int S, int H, int D,
              cudaStream_t st) {
   switch (D) {
     case 64:
-      launch<64, STACKED>(q, kv, sc, new_kv, new_sc, pos_ptr, pos_stride, pos_scalar, bias,
-                          out, out_f32, B, S, H, st);
+      launch<64, STACKED, APPEND>(q, kv, sc, new_kv, new_sc, pos_ptr, pos_stride,
+                                  pos_scalar, bias, out, out_f32, B, S, H, st);
       break;
     case 100:
-      launch<100, STACKED>(q, kv, sc, new_kv, new_sc, pos_ptr, pos_stride, pos_scalar, bias,
-                           out, out_f32, B, S, H, st);
+      launch<100, STACKED, APPEND>(q, kv, sc, new_kv, new_sc, pos_ptr, pos_stride,
+                                   pos_scalar, bias, out, out_f32, B, S, H, st);
       break;
     case 128:
-      launch<128, STACKED>(q, kv, sc, new_kv, new_sc, pos_ptr, pos_stride, pos_scalar, bias,
-                           out, out_f32, B, S, H, st);
+      launch<128, STACKED, APPEND>(q, kv, sc, new_kv, new_sc, pos_ptr, pos_stride,
+                                   pos_scalar, bias, out, out_f32, B, S, H, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -280,4 +312,17 @@ extern "C" int flash_stacked_q8(const void* q, const void* new_kv, const void* n
   const auto* sc = static_cast<const float*>(sc_stack) + rows * 2 * H;
   return dispatch<true>(q, kv, sc, new_kv, new_sc, pos_ptr, pos_stride, pos_scalar, bias,
                         out, out_f32, B, S, H, D, static_cast<cudaStream_t>(stream));
+}
+
+// q (B, H*D) bf16; new_kv (B, 2*H*D) int8 and new_sc (B, 2*H) f32, the row
+// at position pos[b]; kv (B, S, 2*H*D) int8 and sc (B, S, 2*H) f32, whose
+// rows [0, pos[b]) are read and whose row pos[b] is written with new_kv and
+// new_sc; pos, bias, out and out_f32 as for flash_decode_q8 (the bias is not
+// added to row pos[b]). Returns a cudaError_t.
+extern "C" int flash_decode_q8_append(const void* q, const void* new_kv, const void* new_sc,
+                                      void* kv, void* sc, const void* pos_ptr, int pos_stride,
+                                      int pos_scalar, const void* bias, void* out, int out_f32,
+                                      int B, int S, int H, int D, void* stream) {
+  return dispatch<true, true>(q, kv, sc, new_kv, new_sc, pos_ptr, pos_stride, pos_scalar, bias,
+                              out, out_f32, B, S, H, D, static_cast<cudaStream_t>(stream));
 }

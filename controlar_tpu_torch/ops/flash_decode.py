@@ -13,6 +13,10 @@ the per-row, per-head f32 scales `scale` (B, S, 2*H) = [k scales | v scales]
 (unpadded: the JAX package pads this stream to 128 lanes for the TPU's DMA):
 
 - `flash_decode_attention_q8` (`csrc/flash_decode_q8.cu`): int8 rows;
+- `flash_decode_attention_q8_append` (`csrc/flash_decode_q8.cu`, entry
+  `flash_decode_q8_append`): the same over rows [0, pos[b]), plus row
+  pos[b] scored from the operands new_kv (B, 2*H*D) int8 and new_s (B, 2*H)
+  f32, which it also writes into the slabs at row pos[b];
 - `flash_decode_attention_q4` (`csrc/flash_decode_q4.cu`): nibble-packed
   rows of 2 * H*D/2 carriers (unpadded: the JAX package pads each half to a
   multiple of 128 bytes), carrier j of a head holding the pair (2j, 2j+1)
@@ -273,6 +277,112 @@ def flash_decode_attention_q8(
 
 
 flash_decode_attention_q8.launches = 0
+
+
+def _write_row(slab: torch.Tensor, row: torch.Tensor, pos: Pos) -> None:
+    """Writes row (B, W) into slab (B, S, W) at row pos[b], in place."""
+    if isinstance(pos, torch.Tensor):
+        b = slab.shape[0]
+        p = pos.to(slab.device).long().reshape(-1).expand(b)
+        slab[torch.arange(b, device=slab.device), p] = row.to(slab.dtype)
+    else:
+        slab[:, pos] = row.to(slab.dtype)
+
+
+def flash_decode_attention_q8_append_ref(
+    q: torch.Tensor,
+    new_kv: torch.Tensor,
+    new_s: torch.Tensor,
+    kv_cache: torch.Tensor,
+    kv_scale: torch.Tensor,
+    pos: Pos,
+    col_bias: Optional[torch.Tensor] = None,
+    *,
+    n_head: int,
+):
+    """Plain version of `flash_decode_attention_q8_append`: writes the row
+    and its scales at row pos[b] of the slabs (in place), then runs
+    `flash_decode_attention_q8_ref` over rows [0, pos[b]]. Returns
+    (out, kv_cache, kv_scale)."""
+    _write_row(kv_cache, new_kv, pos)
+    _write_row(kv_scale, new_s, pos)
+    out = flash_decode_attention_q8_ref(q, kv_cache, kv_scale, pos, col_bias, n_head=n_head)
+    return out, kv_cache, kv_scale
+
+
+def _check_new_row(new_kv, new_s, kv, n_head, d):
+    b, _, width = kv.shape
+    if new_kv.shape != (b, width) or new_kv.dtype != torch.int8:
+        raise ValueError(f"new_kv must be ({b}, {width}) int8, got {tuple(new_kv.shape)} "
+                         f"{new_kv.dtype}")
+    if new_s.shape != (b, 2 * n_head) or new_s.dtype != torch.float32:
+        raise ValueError(f"new_s must be ({b}, {2 * n_head}) float32, got "
+                         f"{tuple(new_s.shape)} {new_s.dtype}")
+    for t in (new_kv, new_s):
+        if t.device != kv.device or not t.is_contiguous():
+            raise ValueError(f"new_kv and new_s must be contiguous on {kv.device}")
+    if new_kv.data_ptr() % (16 if d % 8 == 0 else 8):
+        raise ValueError("new_kv is not aligned")
+
+
+def flash_decode_attention_q8_append(
+    q: torch.Tensor,
+    new_kv: torch.Tensor,
+    new_s: torch.Tensor,
+    kv_cache: torch.Tensor,
+    kv_scale: torch.Tensor,
+    pos: Pos,
+    col_bias: Optional[torch.Tensor] = None,
+    *,
+    n_head: int,
+):
+    """Decode attention over the int8 cache with this step's row in flight.
+
+    Attends over rows [0, pos[b]) of kv_cache (B, S, 2*H*D) int8 and
+    kv_scale (B, S, 2*H) f32, and over row pos[b] taken from the operands
+    new_kv (B, 2*H*D) int8 and new_s (B, 2*H) f32; writes that row and its
+    scales into kv_cache and kv_scale at row pos[b], in place (the JAX
+    kernel donates and aliases the slabs for the same effect). Returns
+    (out (B, H*D) in q's dtype, kv_cache, kv_scale).
+
+    pos is an int or a (B,) int32 tensor and must be >= 1, as in decode,
+    where a prefill precedes the step: an int below 1 or past the cache
+    raises. A tensor is not read back: on the card a slot whose pos[b] lies
+    outside [0, S) leaves the slabs unwritten and still returns an output
+    (rows [0, min(pos[b], S)) and the operand row), where the plain version
+    raises; callers keep per-slot positions in [1, S). col_bias (B, S) f32,
+    when given, must be 0 at column pos[b] (prefix masks only): the kernel
+    adds no bias to the in-flight row and does not check it.
+    """
+    if isinstance(pos, int) and not 1 <= pos < kv_cache.shape[1]:
+        raise ValueError(f"pos must lie in [1, {kv_cache.shape[1]}), got {pos}")
+    if kv_cache.device.type == "cpu":
+        return flash_decode_attention_q8_append_ref(q, new_kv, new_s, kv_cache, kv_scale, pos,
+                                                    col_bias, n_head=n_head)
+    if kv_cache.device.type != "cuda":
+        raise ValueError(f"unsupported device {kv_cache.device}")
+    b, s, d = _check(q, kv_cache, pos, col_bias, n_head, kv_dtype=torch.int8)
+    _check_scale(kv_scale, kv_cache, n_head)
+    _check_new_row(new_kv, new_s, kv_cache, n_head, d)
+    f = getattr(_build.load("flash_decode_q8"), "flash_decode_q8_append")
+    if f.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        f.argtypes = [p] * 5 + [p, i, i, p, p, i, i, i, i, i, p]
+        f.restype = ctypes.c_int
+    qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
+    out = torch.empty((b, n_head * d), dtype=q.dtype, device=q.device)
+    err = f(qb.data_ptr(), new_kv.data_ptr(), new_s.data_ptr(), kv_cache.data_ptr(),
+            kv_scale.data_ptr(), *_pos_args(pos, b),
+            None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
+            int(out.dtype == torch.float32), b, s, n_head, d,
+            torch.cuda.current_stream(kv_cache.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode_attention_q8_append launch failed: cudaError {err}")
+    flash_decode_attention_q8_append.launches += 1
+    return out, kv_cache, kv_scale
+
+
+flash_decode_attention_q8_append.launches = 0
 
 
 def flash_decode_attention_q4(

@@ -13,12 +13,17 @@ column) f32, (Kp/GROUP, N). q lies in [-7, 7]; padded planes quantize to 0.
 `w4_matmul` and `w4_ffn` launch the hand-written kernels of
 `csrc/w4_matmul.cu` and `csrc/w4_ffn.cu` on CUDA tensors and compute the
 same function with their plain versions (`*_ref`) on CPU tensors. The TPU
-kernel's VMEM budgeting (slot depth, N-split) has no counterpart here.
+kernel's VMEM budgeting (slot depth, N-split) has no counterpart here. The
+kernels split K for the narrow products (`_splits`); their fp32 workspace
+and per-tile arrival counters are kept per device and stream (`_scratch`),
+grown when a call needs more, and the counters are zeroed once and left
+zero by every launch.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -26,6 +31,8 @@ from controlar_tpu_torch import _build
 
 GROUP = 128  # rows per scale along K; the kernels take this group only
 MAX_ROWS = 256  # the decode path sends at most this many rows to a kernel
+TILE_N = 128  # columns of a kernel work item
+SPLIT_ITEMS_PER_SM = 2  # the split of K aims at this many work items per SM
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -121,7 +128,7 @@ def w4_ffn_fits(q13: torch.Tensor, s13: torch.Tensor, q2: torch.Tensor, s2: torc
     f = q13.shape[1] // 2
     return (q13.shape[1] % 2 == 0 and k % group == 0 and f % group == 0
             and 2 * q13.shape[0] == _pad_to(k, 2 * group)
-            and 2 * q2.shape[0] == _pad_to(f, 2 * group) and q2.shape[1] % 2 == 0)
+            and 2 * q2.shape[0] == _pad_to(f, 2 * group) and q2.shape[1] % 16 == 0)
 
 
 def w4_ffn_ref(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor, q2: torch.Tensor,
@@ -144,8 +151,9 @@ def _check_weight(q4, s, name):
     if s.shape[1] != n or s.shape[0] == 0 or (2 * kp2) % s.shape[0] or group_of(q4, s) != GROUP:
         raise ValueError(f"{name}: the kernels take group {GROUP}; carriers {tuple(q4.shape)} "
                          f"and scales {tuple(s.shape)} do not match it")
-    if s.shape[0] % 2 or n % 2:
-        raise ValueError(f"{name}: scale rows ({s.shape[0]}) and columns ({n}) must be even")
+    if s.shape[0] % 2 or n % 16:
+        raise ValueError(f"{name}: scale rows ({s.shape[0]}) must be even and columns ({n}) "
+                         "a multiple of 16")
 
 
 def _check_cuda(tensors, x):
@@ -180,6 +188,40 @@ def _out_f32(dtype: torch.dtype) -> int:
     return int(dtype == torch.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _splits(nchunk: int, col_tiles: int, sms: int) -> int:
+    """Slices of K (in chunks of two planes) for a product of col_tiles
+    column tiles: enough work items for SPLIT_ITEMS_PER_SM on every SM, in
+    balanced slices. It depends on (K, N) and the card only, never on the
+    rows, so that a row's result does not depend on the rows beside it."""
+    want = max(1, min(nchunk, SPLIT_ITEMS_PER_SM * sms // col_tiles))
+    per = -(-nchunk // want)
+    return -(-nchunk // per)
+
+
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch_for(device: torch.device, stream: int, n_counters: int,
+                 n_floats: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int32 arrival counters, fp32 workspace) of at least these sizes for
+    launches on `stream` of device. Launches on one stream run in order, so
+    its calls share them; the counters are zero when made and every launch
+    leaves them zero, and a launch writes every workspace word it reads."""
+    key = (device.index, stream)
+    c, w = _scratch.get(key, (None, None))
+    if c is None or c.numel() < n_counters:
+        c = torch.zeros(max(n_counters, 4096), dtype=torch.int32, device=device)
+    if w is None or w.numel() < n_floats:
+        w = torch.empty(max(n_floats, 1), dtype=torch.float32, device=device)
+    _scratch[key] = (c, w)
+    return c, w
+
+
 def _fn(lib: str, name: str, n_ptr: int, n_int: int):
     fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
@@ -206,10 +248,15 @@ def w4_matmul(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor,
     f32 = _out_f32(out_dtype)
     xb, nfull = _x_operand(x, 2 * kp2)
     _check_cuda((xb, q4, s), x)
+    tiles = -(-n // TILE_N)
+    splits = _splits((nfull + 1) // 2, tiles, _sm_count(x.device.index))
     out = torch.empty((b, n), dtype=out_dtype, device=x.device)
-    err = _fn("w4_matmul", "w4_matmul", 4, 4)(
-        xb.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(),
-        f32, b, nfull, n, torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    counters, ws = _scratch_for(x.device, stream, tiles * -(-b // 16),
+                                splits * b * n if splits > 1 else 0)
+    err = _fn("w4_matmul", "w4_matmul", 6, 5)(
+        xb.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        counters.data_ptr(), f32, b, nfull, n, splits, stream)
     if err != 0:
         raise RuntimeError(f"w4_matmul launch failed: cudaError {err}")
     w4_matmul.launches += 1
@@ -238,14 +285,21 @@ def w4_ffn(x: torch.Tensor, q13: torch.Tensor, s13: torch.Tensor, q2: torch.Tens
                          f"w2 {tuple(q2.shape)} (see w4_ffn_fits)")
     f32 = _out_f32(out_dtype)
     f, n = q13.shape[1] // 2, q2.shape[1]
+    sms = _sm_count(x.device.index)
+    splits1 = _splits((k // GROUP + 1) // 2, 2 * f // TILE_N, sms)
+    splits2 = _splits((f // GROUP + 1) // 2, -(-n // TILE_N), sms)
     xb = x.to(torch.bfloat16).contiguous()
     z = torch.empty((b, f), dtype=torch.bfloat16, device=x.device)  # the gate's output
     out = torch.empty((b, n), dtype=out_dtype, device=x.device)
+    n1 = splits1 * b * 2 * f  # ws1 (splits1, B, 2F), then ws2 (splits2, B, N) when split
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    counters, ws = _scratch_for(x.device, stream, (f // TILE_N + -(-n // TILE_N)) * -(-b // 16),
+                                n1 + (splits2 * b * n if splits2 > 1 else 0))
     _check_cuda((xb, q13, s13, q2, s2, z), x)
-    err = _fn("w4_ffn", "w4_ffn", 7, 5)(
+    err = _fn("w4_ffn", "w4_ffn", 10, 7)(
         xb.data_ptr(), q13.data_ptr(), s13.data_ptr(), q2.data_ptr(), s2.data_ptr(),
-        z.data_ptr(), out.data_ptr(), f32, b, k, f, n,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        z.data_ptr(), out.data_ptr(), ws.data_ptr(), ws[n1:].data_ptr() if splits2 > 1 else None,
+        counters.data_ptr(), f32, b, k, f, n, splits1, splits2, stream)
     if err != 0:
         raise RuntimeError(f"w4_ffn launch failed: cudaError {err}")
     w4_ffn.launches += 1

@@ -22,11 +22,11 @@ serve_c2i_stacked) and times `ServeEngine.step` itself. Prints JSON lines:
            steps of another call: ms per step with the profiler, device
            busy ms per step and its share of the unprofiled step, kernels
            per step, device time by kernel name, and the port's own CUDA
-           kernels' device time per step and share of the busy time. The
-           trace is written to DIR/trace_<cell>.json.gz. For a speculative
-           cell the unit is the cycle (k draft steps and one verify) in
-           place of the decode step: --steps cycles from the middle of the
-           call's cycles;
+           kernels' device time per step and share of the busy time, in
+           all and each. The trace is written to DIR/trace_<cell>.json.gz.
+           For a speculative cell the unit is the cycle (k draft steps and
+           one verify) in place of the decode step: --steps cycles from the
+           middle of the call's cycles;
   spec     (speculative cells) the cycle's parts timed alone on the cell's
            models at the middle of the block: the k draft decode steps
            (`decode_step_multi`) and the verify (`forward_chunk`), host
@@ -101,6 +101,7 @@ def _device_summary(raw: bytes, steps: int, kernels=PORT_KERNELS) -> dict:
         "kernels_per_step": len(dev) / steps,
         "port_kernels_ms_per_step": {k: v / steps / 1e3 for k, v in port.items() if v},
         "port_kernels_share_of_busy": sum(port.values()) / busy,
+        "port_kernel_share_of_busy": {k: v / busy for k, v in port.items() if v},
         "top_kernels_ms_per_step": {k: v / steps / 1e3 for k, v in by_name.most_common(12)},
     }
 

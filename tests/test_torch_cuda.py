@@ -12,6 +12,8 @@ from controlar_tpu_torch.ops.flash_decode import (
     flash_decode_attention_q4,
     flash_decode_attention_q4_ref,
     flash_decode_attention_q8,
+    flash_decode_attention_q8_append,
+    flash_decode_attention_q8_append_ref,
     flash_decode_attention_q8_ref,
     flash_decode_attention_ref,
 )
@@ -170,6 +172,56 @@ def test_quant_launch_counts(dev):
     assert (flash_decode_attention_q8.launches, flash_decode_attention_q4.launches) == (3, 1)
 
 
+# ---- int8 decode attention with the in-flight row appended (B11) --------
+
+def _append_inputs(dev, d, pos, bias, b=4, s=768, h=3):
+    q, kv, scale, pos, col_bias = _quant_inputs(dev, "q8", b, s, h, d, pos, bias, seed=3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    new_kv, new_s = quantize_kv_rows(torch.randn(b, 2 * h * d, generator=g, device=dev), h)
+    if col_bias is not None:  # the contract: 0 at every decode position
+        p = torch.as_tensor(pos, device=dev).long().reshape(-1).expand(b)
+        col_bias[torch.arange(b, device=dev), p] = 0.0
+    return q, new_kv, new_s, kv, scale, pos, col_bias
+
+
+@pytest.mark.parametrize("d", [64, 100, 128])
+@pytest.mark.parametrize("pos", [1, 255, 256, 767, "per_slot"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_q8_append_kernel_matches_plain_version(dev, d, pos, bias):
+    if pos == "per_slot":
+        pos = torch.tensor([1, 300, 511, 767], dtype=torch.int32, device=dev)
+    q, new_kv, new_s, kv, scale, pos, col_bias = _append_inputs(dev, d, pos, bias)
+    kv_want, s_want = kv.clone(), scale.clone()
+    flash_decode_attention_q8_append.launches = 0
+    out, kv_out, s_out = flash_decode_attention_q8_append(q, new_kv, new_s, kv, scale, pos,
+                                                          col_bias, n_head=3)
+    torch.cuda.synchronize()
+    assert flash_decode_attention_q8_append.launches == 1
+    assert kv_out is kv and s_out is scale  # written in place
+    want, _, _ = flash_decode_attention_q8_append_ref(q, new_kv, new_s, kv_want, s_want, pos,
+                                                      col_bias, n_head=3)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-3, rtol=1e-2)
+    assert torch.equal(kv, kv_want) and torch.equal(scale, s_want)
+
+
+@pytest.mark.parametrize("bad", ["new_kv_dtype", "new_s_shape", "kv_dtype", "pos_zero",
+                                 "pos_past_cache"])
+def test_q8_append_rejects(dev, bad):
+    q, new_kv, new_s, kv, scale, pos, _ = _append_inputs(dev, 64, 10, False, b=2, s=256, h=2)
+    if bad == "new_kv_dtype":
+        new_kv = new_kv.bfloat16()
+    elif bad == "new_s_shape":
+        new_s = new_s[:, :2].contiguous()
+    elif bad == "kv_dtype":
+        kv = kv.to(torch.int16)
+    else:
+        pos = 0 if bad == "pos_zero" else 256
+    flash_decode_attention_q8_append.launches = 0
+    with pytest.raises(ValueError):
+        flash_decode_attention_q8_append(q, new_kv, new_s, kv, scale, pos, n_head=2)
+    assert flash_decode_attention_q8_append.launches == 0
+
+
 # ---- W4 weights: the dequant-matmul and the fused FFN ---------------------
 
 def _w4(dev, k, n, seed):
@@ -183,7 +235,7 @@ def _x(dev, b, k, seed=9):
 
 
 # K = 3200: 25 planes, the odd tail; K = 200: not a group multiple (x padded)
-@pytest.mark.parametrize("rows", [1, 16, 17, 256])
+@pytest.mark.parametrize("rows", [1, 16, 17, 64, 256])
 @pytest.mark.parametrize("k", [3200, 256, 200])
 def test_w4_matmul_matches_plain_version(dev, rows, k):
     q4, s = _w4(dev, k, 384, seed=k)
@@ -198,7 +250,7 @@ def test_w4_matmul_matches_plain_version(dev, rows, k):
     torch.testing.assert_close(bf.float(), want, atol=1e-2, rtol=1e-2)
 
 
-@pytest.mark.parametrize("rows", [1, 16, 40])
+@pytest.mark.parametrize("rows", [1, 16, 17, 40, 64, 256])
 @pytest.mark.parametrize("shape", [(384, 640, 256), (3200, 8704, 3200)])
 def test_w4_ffn_matches_plain_version(dev, rows, shape):
     k, f, n = shape
@@ -246,6 +298,55 @@ def test_w4_launch_counts(dev):
     w4_ffn(x, q13, s13, q2, s2)
     w4_ffn(x, q13, s13, q2, s2)
     assert (w4_matmul.launches, w4_ffn.launches) == (1, 2)
+
+
+# GPT-3B widths: wqkv (N 9600, 75 column tiles) and wo (N 3200, split K)
+@pytest.mark.parametrize("rows", [1, 16, 17, 64, 256])
+@pytest.mark.parametrize("k,n", [(3200, 3200), (3200, 9600), (200, 3200)])
+def test_w4_matmul_matches_plain_version_at_3b_widths(dev, rows, k, n):
+    q4, s = _w4(dev, k, n, seed=n + k)
+    x = _x(dev, rows, k)
+    out = w4_matmul(x, q4, s)
+    torch.cuda.synchronize()
+    want = w4_matmul_ref(x, q4, s, torch.float32)
+    # bf16 outputs (step 2**-7 relative) over fp32 sums in another order
+    torch.testing.assert_close(out.float(), want, atol=1e-2, rtol=1e-2)
+
+
+def _w4_ffn_weights(dev, k=3200, f=8704, n=3200):
+    return (*_w4(dev, k, 2 * f, seed=1), *_w4(dev, f, n, seed=2))
+
+
+@pytest.mark.parametrize("kind", ["wo", "wqkv", "ffn"])
+def test_w4_kernels_are_deterministic(dev, kind):
+    """Two launches on the same inputs agree bit for bit (the split-K sums
+    run in a fixed order, with no float atomics)."""
+    if kind == "ffn":
+        w = _w4_ffn_weights(dev)
+        run = lambda x: w4_ffn(x, *w, out_dtype=torch.float32)  # noqa: E731
+    else:
+        q4, s = _w4(dev, 3200, 3200 if kind == "wo" else 9600, seed=5)
+        run = lambda x: w4_matmul(x, q4, s, out_dtype=torch.float32)  # noqa: E731
+    for rows in (16, 64):
+        x = _x(dev, rows, 3200)
+        assert torch.equal(run(x), run(x))
+
+
+@pytest.mark.parametrize("kind", ["wo", "wqkv", "ffn"])
+def test_w4_kernels_are_batch_invariant(dev, kind):
+    """Row i of a 64-row call (the speculative verify) equals the same row
+    run alone and within a 16-row call (decode), bit for bit."""
+    if kind == "ffn":
+        w = _w4_ffn_weights(dev)
+        run = lambda x: w4_ffn(x, *w, out_dtype=torch.float32)  # noqa: E731
+    else:
+        q4, s = _w4(dev, 3200, 3200 if kind == "wo" else 9600, seed=6)
+        run = lambda x: w4_matmul(x, q4, s, out_dtype=torch.float32)  # noqa: E731
+    x = _x(dev, 64, 3200)
+    full = run(x)
+    assert torch.equal(run(x[16:32].contiguous()), full[16:32])
+    for i in (0, 17, 63):
+        assert torch.equal(run(x[i:i + 1].contiguous()), full[i:i + 1])
 
 
 # ---- the per-slot KV-cache row append --------------------------------------

@@ -42,7 +42,7 @@ def test_importing_every_module_loads_no_jax():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py"))
-                         + ["chip_smoke.py"])
+                         + ["ab_phases.py", "chip_smoke.py"])
 def test_source_names_no_jax(path):
     text = (REPO / path).read_text()
     assert "controlar_tpu." not in text
