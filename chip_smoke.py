@@ -359,27 +359,31 @@ def phase_kernel():
 
 def _positions(h_case):
     """The decode positions each attention case is checked at, per-slot
-    vectors included (16 rows: batch 8 with CFG)."""
+    vectors included (16 rows: batch 8 with CFG). 62-64 and 126-128 put the
+    live rows (pos + 1) on each side of a boundary of the int8 kernels'
+    64-row chunks at D = 64."""
     def slots(*p):
         return torch.tensor(p, dtype=torch.int32, device="cuda")
 
-    c2i = (0, 1, 255, 256, 575,
-           slots(0, 1, 100, 255, 256, 300, 400, 500, 575, 575, 10, 20, 30, 40, 50, 767))
-    t2i = (119, 120, 631, 1142, slots(119, 120, 121, 200, 400, 631, 700, 800, 900, 1000,
-                                      1100, 1142, 1142, 130, 1279, 500))
+    c2i = (0, 1, 62, 63, 64, 255, 256, 575,
+           slots(0, 1, 62, 63, 64, 255, 256, 300, 400, 500, 575, 575, 10, 20, 50, 767))
+    t2i = (119, 120, 127, 128, 631, 1142, slots(119, 120, 126, 127, 128, 631, 700, 800, 900,
+                                                1000, 1100, 1142, 1142, 130, 1279, 500))
     return t2i if h_case == "t2i" else c2i
 
 
 def _attn_row(name, fn, plain, lib, h, d, s, pos, with_bias, slab_bytes_per_row, flush):
     """Time one attention call (kernel, plain version, library yardstick)
     and its bound: q and out bf16, the live rows' values and f32 scales,
-    the bias row; 4 fp32 flops per value pair."""
+    the bias row; 4 fp32 flops per value pair. host_us: the wrapper's host
+    time a call."""
     b, n = 16, pos + 1
     nbytes = 2 * b * h * d * 2 + b * n * (slab_bytes_per_row + 2 * h * 4 + 4 * with_bias)
     bound, by = _roofline(nbytes, 4 * b * n * h * d, FP32_FLOPS)
     return dict(case=name, h=h, d=d, s=s, pos=pos, bias=with_bias,
                 ms=time_ms(fn, flush=flush), plain_ms=time_ms(plain, flush=flush),
-                library_ms=time_ms(lib, flush=flush), bound_ms=bound, bound_by=by)
+                library_ms=time_ms(lib, flush=flush), bound_ms=bound, bound_by=by,
+                host_us=host_us(fn))
 
 
 def _sdpa(q, slab, n, h, d, bias):
@@ -399,7 +403,8 @@ def phase_kernel_q8():
     """flash_decode_attention_q8 at the int8 paths' shapes: c2i GPT-B (12 x
     64 heads, 768 rows, the c2i_w8kv8 cell) and t2i GPT-XL (20 x 64, 1280
     rows, caption bias), each position with and without the bias; the last
-    decode step of each is timed, the c2i one without bias (its main path)."""
+    decode step of each is timed, the c2i one without bias (its main path),
+    and c2i also at pos 255, mid-decode."""
     from controlar_tpu_torch.ops.flash_decode import (
         flash_decode_attention_q8 as kern,
         flash_decode_attention_q8_ref as plain,
@@ -409,8 +414,8 @@ def phase_kernel_q8():
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     results, max_err, main = [], 0.0, None
-    for name, h, d, s, timed, timed_bias in (("c2i", 12, 64, 768, 575, False),
-                                             ("t2i", 20, 64, 1280, 1142, True)):
+    for name, h, d, s, timed_at, timed_bias in (("c2i", 12, 64, 768, (575, 255), False),
+                                                ("t2i", 20, 64, 1280, (1142,), True)):
         q, kv = _slab(gen, 16, s, h, d)
         rows, scale = quantize_kv_rows(kv, h)
         bias = _left_pad_bias(s, 120)
@@ -425,12 +430,13 @@ def phase_kernel_q8():
                 max_err = max(max_err, err)
         cb = bias if timed_bias else None
         slab = dequantize_kv_slab(rows, scale, h, torch.bfloat16)
-        row = _attn_row(name, lambda: kern(q, rows, scale, timed, cb, n_head=h),
-                        lambda: plain(q, rows, scale, timed, cb, n_head=h),
-                        _sdpa(q, slab, timed + 1, h, d, cb), h, d, s, timed, timed_bias,
-                        2 * h * d, flush)
-        results.append(row)
-        main = main or row
+        for timed in timed_at:
+            row = _attn_row(name, lambda: kern(q, rows, scale, timed, cb, n_head=h),
+                            lambda: plain(q, rows, scale, timed, cb, n_head=h),
+                            _sdpa(q, slab, timed + 1, h, d, cb), h, d, s, timed, timed_bias,
+                            2 * h * d, flush)
+            results.append(row)
+            main = main or row
     emit("kernel_q8", ok=True, name="flash_decode_attention_q8", max_abs_err=max_err,
          atol=KERNEL_ATOL, rtol=KERNEL_RTOL, timings=results)
     return main, max_err
@@ -592,14 +598,16 @@ def phase_kernel_w4ffn():
 
 def phase_kernel_q8_append():
     """flash_decode_attention_q8_append at the c2i_w8kv8 shapes (16 rows,
-    12 x 64 heads, 768 cache rows): positions 1, 255, 256, 575, 767 and per
-    slot, with and without the caption bias (0 at the decode positions, the
-    kernel's contract); the output within the attention kernels' limit and
-    the written slabs bit for bit against the plain version. Timed at the
-    last step (pos 575, no bias) with the plain version, SDPA over the
-    dequantized slab with the row written, and the bound: q and out, the 575
-    live rows and the in-flight row (values and f32 scales) read, the row
-    written. Returns (the timed row, max abs error, launches of the checks)."""
+    12 x 64 heads, 768 cache rows): positions 1, 62-64 (each side of a
+    64-row chunk boundary), 255, 256, 575, 767 and per slot, with and
+    without the caption bias (0 at the decode positions, the kernel's
+    contract); the output within the attention kernels' limit and the
+    written slabs bit for bit against the plain version. Timed at the last
+    step (pos 575, no bias) and at pos 255 with the plain version, SDPA over
+    the dequantized slab with the row written, the bound (q and out, the
+    live rows and the in-flight row, values and f32 scales, read, the row
+    written) and the wrapper's host time. Returns (the last step's row, max
+    abs error, launches of the checks)."""
     from controlar_tpu_torch.ops.flash_decode import (
         flash_decode_attention_q8_append as kern,
         flash_decode_attention_q8_append_ref as plain,
@@ -613,11 +621,11 @@ def phase_kernel_q8_append():
     rows, scale = quantize_kv_rows(kv, h)
     new_kv, new_s = quantize_kv_rows(torch.randn(b, 2 * h * d, generator=gen, device="cuda"), h)
     bias = _left_pad_bias(s, 120)
-    per_slot = torch.tensor([1, 2, 100, 255, 256, 300, 400, 500, 575, 575, 130, 140, 150, 160,
-                             170, 767], dtype=torch.int32, device="cuda")
+    per_slot = torch.tensor([1, 2, 62, 63, 64, 100, 255, 256, 300, 400, 500, 575, 575, 130, 170,
+                             767], dtype=torch.int32, device="cuda")
     max_err = 0.0
     kern.launches = 0
-    for pos in (1, 255, 256, 575, 767, per_slot):
+    for pos in (1, 62, 63, 64, 255, 256, 575, 767, per_slot):
         for with_bias in (False, True):
             cb = None
             if with_bias:
@@ -636,24 +644,25 @@ def phase_kernel_q8_append():
                   f"pos={where} bias={with_bias}: the written slabs differ")
             max_err = max(max_err, err)
     launches = kern.launches
-    pos = 575
-    kv_k, s_k = rows.clone(), scale.clone()
-    kern(q, new_kv, new_s, kv_k, s_k, pos, None, n_head=h)  # the slabs with the row written
-    slab = dequantize_kv_slab(kv_k, s_k, h, torch.bfloat16)
-    n, row_bytes = pos + 1, 2 * h * d + 2 * h * 4
-    bound, by = _roofline(2 * b * h * d * 2 + b * n * row_bytes + b * row_bytes,
-                          4 * b * n * h * d, FP32_FLOPS)
-    timed = dict(case="c2i_w8kv8", h=h, d=d, s=s, pos=pos,
-                 ms=time_ms(lambda: kern(q, new_kv, new_s, kv_k, s_k, pos, None, n_head=h),
-                            flush=flush),
-                 plain_ms=time_ms(lambda: plain(q, new_kv, new_s, kv_k, s_k, pos, None,
-                                                n_head=h), flush=flush),
-                 library_ms=time_ms(_sdpa(q, slab, n, h, d, None), flush=flush),
-                 bound_ms=bound, bound_by=by)
+    timings = []
+    for pos in (575, 255):
+        kv_k, s_k = rows.clone(), scale.clone()
+        kern(q, new_kv, new_s, kv_k, s_k, pos, None, n_head=h)  # the slabs with the row written
+        slab = dequantize_kv_slab(kv_k, s_k, h, torch.bfloat16)
+        n, row_bytes = pos + 1, 2 * h * d + 2 * h * 4
+        bound, by = _roofline(2 * b * h * d * 2 + b * n * row_bytes + b * row_bytes,
+                              4 * b * n * h * d, FP32_FLOPS)
+        fn = lambda: kern(q, new_kv, new_s, kv_k, s_k, pos, None, n_head=h)  # noqa: E731
+        timings.append(dict(
+            case="c2i_w8kv8", h=h, d=d, s=s, pos=pos, ms=time_ms(fn, flush=flush),
+            plain_ms=time_ms(lambda: plain(q, new_kv, new_s, kv_k, s_k, pos, None, n_head=h),
+                             flush=flush),
+            library_ms=time_ms(_sdpa(q, slab, n, h, d, None), flush=flush),
+            bound_ms=bound, bound_by=by, host_us=host_us(fn)))
     emit("kernel_q8_append", ok=True, name="flash_decode_attention_q8_append",
          max_abs_err=max_err, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, launches=launches,
-         timings=[timed])
-    return timed, max_err, launches
+         timings=timings)
+    return timings[0], max_err, launches
 
 
 # stream, cache dtype, cache rows, row width (elements): what the serving
@@ -867,7 +876,8 @@ def _stacked_cases(kind):
     caption bias, timed) of the stacked kernels' checks: the cells' last
     decode steps (pos 575 of 768 rows at GPT-B and GPT-3B, 1143 of 1280 at
     t2i GPT-XL with the caption bias), per-slot positions that include 1,
-    S - 1 and both sides of the 256-row boundary."""
+    S - 1 and both sides of the 256-row boundary; for int8 also both sides
+    of a boundary of its kernel's 64-row chunks."""
     def slots(*p):
         return torch.tensor(p, dtype=torch.int32, device="cuda")
 
@@ -875,11 +885,14 @@ def _stacked_cases(kind):
     t2i_slots = slots(120, 121, 200, 400, 631, 700, 800, 900, 1000, 1100, 1142, 1143, 1143,
                       130, 1279, 500)
     c2i = (1, 255, 256, 575, per_slot)
+    # the int8 kernel's live rows (pos + 1) on each side of a 64-row chunk boundary
+    q8_slots = slots(1, 2, 62, 63, 64, 100, 255, 256, 300, 400, 500, 575, 575, 10, 50, 767)
+    c2i_q8 = (1, 62, 63, 64, 255, 256, 575, q8_slots)
     if kind == "bf16":
         return [("c2i", 12, 12, 64, 768, None, c2i, False, True),
                 ("t2i", 36, 20, 64, 1280, None, (120, 1143, t2i_slots), True, False)]
     if kind == "q8":
-        return [("c2i_w8kv8", 12, 12, 64, 768, None, c2i, True, True)]
+        return [("c2i_w8kv8", 12, 12, 64, 768, None, c2i_q8, True, True)]
     return [("3b_split", 24, 32, 100, 768, True, c2i, False, True),
             ("b_interleaved", 12, 12, 64, 768, False, c2i, True, False)]
 
@@ -892,14 +905,16 @@ def _phase_stacked(phase, kind):
     the plain version, SDPA over the layer's (dequantized) slab with the
     in-flight row written (rows 0..575) and the bound: q and out, the 575
     live rows and the in-flight row (values and f32 scales). kind: bf16, q8
-    or q4 (split at GPT-3B, interleaved at GPT-B)."""
+    or q4 (split at GPT-3B, interleaved at GPT-B); q8 is also timed at pos
+    255, mid-decode, with the wrapper's host time. Returns the last step's
+    row and the max abs error."""
     from controlar_tpu_torch.ops import flash_decode_stacked as fds
     from controlar_tpu_torch.quant import (
         dequantize_kv4_slab, dequantize_kv_slab, quantize_kv_rows, quantize_kv_rows_4)
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    b, max_err, timed = 16, 0.0, None
+    b, max_err, timings = 16, 0.0, []
     for name, n_layer, h, d, s, split, positions, with_bias, is_timed in _stacked_cases(kind):
         q = (torch.randn(b, h * d, generator=gen, device="cuda") * 0.5).bfloat16()
         stack = (torch.randn(n_layer, b, s, 2 * h * d, generator=gen, device="cuda")
@@ -934,28 +949,44 @@ def _phase_stacked(phase, kind):
                     max_err = max(max_err, err)
         if not is_timed:
             continue
-        layer, pos = n_layer - 1, 575
-        # the library yardstick: SDPA over the layer's slab with the row written
-        if kind == "bf16":
-            slab = fds.layer_with_row(args[1], args[0], layer, pos)
-        else:
-            written = (fds.layer_with_row(args[2], args[0], layer, pos),
-                       fds.layer_with_row(args[3], args[1], layer, pos))
-            slab = (dequantize_kv_slab(*written, h, torch.bfloat16) if kind == "q8" else
-                    dequantize_kv4_slab(*written, h, d, torch.bfloat16, split=split))
-        n = pos + 1  # 575 rows of the stack and the in-flight row
-        bound, by = _roofline(2 * b * h * d * 2 + b * n * row_bytes, 4 * b * n * h * d,
-                              FP32_FLOPS)
-        timed = dict(case=name, layers=n_layer, h=h, d=d, s=s, layer=layer, pos=pos,
-                     ms=time_ms(lambda: kern(q, *args, layer, pos, None, n_head=h, **kw),
-                                flush=flush),
-                     plain_ms=time_ms(lambda: plain(q, *args, layer, pos, None, n_head=h, **kw),
-                                      flush=flush),
-                     library_ms=time_ms(_sdpa(q, slab, n, h, d, None), flush=flush),
-                     bound_ms=bound, bound_by=by)
+        layer = n_layer - 1
+        for pos in (575, 255) if kind == "q8" else (575,):
+            # the library yardstick: SDPA over the layer's slab with the row written
+            if kind == "bf16":
+                slab = fds.layer_with_row(args[1], args[0], layer, pos)
+            else:
+                written = (fds.layer_with_row(args[2], args[0], layer, pos),
+                           fds.layer_with_row(args[3], args[1], layer, pos))
+                slab = (dequantize_kv_slab(*written, h, torch.bfloat16) if kind == "q8" else
+                        dequantize_kv4_slab(*written, h, d, torch.bfloat16, split=split))
+            n = pos + 1  # pos rows of the stack and the in-flight row
+            bound, by = _roofline(2 * b * h * d * 2 + b * n * row_bytes, 4 * b * n * h * d,
+                                  FP32_FLOPS)
+            fn = lambda: kern(q, *args, layer, pos, None, n_head=h, **kw)  # noqa: E731
+            row = dict(case=name, layers=n_layer, h=h, d=d, s=s, layer=layer, pos=pos,
+                       ms=time_ms(fn, flush=flush),
+                       plain_ms=time_ms(lambda: plain(q, *args, layer, pos, None, n_head=h,
+                                                      **kw), flush=flush),
+                       library_ms=time_ms(_sdpa(q, slab, n, h, d, None), flush=flush),
+                       bound_ms=bound, bound_by=by)
+            if kind == "q8":
+                row["host_us"] = host_us(fn)
+            timings.append(row)
     emit(phase, ok=True, name=kern.__name__, max_abs_err=max_err, atol=KERNEL_ATOL,
-         rtol=KERNEL_RTOL, timings=[timed])
-    return timed, max_err
+         rtol=KERNEL_RTOL, timings=timings)
+    return timings[0], max_err
+
+
+def phase_kernel_stacked():
+    return _phase_stacked("kernel_stacked", "bf16")
+
+
+def phase_kernel_stacked_q8():
+    return _phase_stacked("kernel_stacked_q8", "q8")
+
+
+def phase_kernel_stacked_q4():
+    return _phase_stacked("kernel_stacked_q4", "q4")
 
 
 # stream, cache dtype, row width (elements): what the stacked serving step
@@ -2133,12 +2164,12 @@ def main() -> int:
                                      "D=100 S=768 pos=572"),
         "cache_append_block": (*phase_kernel_append_block(),
                                "spec_c2i_3b verify: 16 x 4 GPT-3B bf16 rows of 12800 B, S 768"),
-        "flash_stacked": (*_phase_stacked("kernel_stacked", "bf16"),
+        "flash_stacked": (*phase_kernel_stacked(),
                           "c2i_stacked last step: L=12 B=16 H=12 D=64 S=768 layer 11 pos=575"),
-        "flash_stacked_q8": (*_phase_stacked("kernel_stacked_q8", "q8"),
+        "flash_stacked_q8": (*phase_kernel_stacked_q8(),
                              "c2i_w8kv8_stacked last step: L=12 B=16 H=12 D=64 S=768 "
                              "layer 11 pos=575"),
-        "flash_stacked_q4": (*_phase_stacked("kernel_stacked_q4", "q4"),
+        "flash_stacked_q4": (*phase_kernel_stacked_q4(),
                              "c2i_3b_w4kv4_stacked last step, split: L=24 B=16 H=32 D=100 "
                              "S=768 layer 23 pos=575"),
         "cache_append_rows_stacked": (*phase_kernel_append_stacked(),

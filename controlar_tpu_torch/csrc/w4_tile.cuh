@@ -43,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "arrive.cuh"
+
 namespace w4 {
 
 constexpr int G = 128;                 // carrier rows per chunk (rows per plane)
@@ -382,26 +384,7 @@ __device__ __forceinline__ void add_splits(int B, int N, int n0, int m0, const f
   }
 }
 
-// Called by every thread of a block after it wrote its partial: true in the
-// block that arrives last of `arrivals` at *counter, whose threads then see
-// every other arrival's writes. One thread's acquire-release add after the
-// barrier publishes the block's writes and, in the last block, acquires the
-// others'. The last arrival resets the counter to 0 for the next launch.
-__device__ __forceinline__ bool arrive(int* counter, int arrivals) {
-  __shared__ int last;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int prev;
-    asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
-                 : "=r"(prev)
-                 : "l"(counter)
-                 : "memory");
-    last = prev == arrivals - 1;
-    if (last) *counter = 0;
-  }
-  __syncthreads();
-  return last;
-}
+using split::arrive;
 
 // The split-K reduction of an item: with one split, acc is the result; with
 // more, the partial goes to ws[split] and the last arrival of the tile sums

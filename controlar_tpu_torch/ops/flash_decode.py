@@ -12,7 +12,10 @@ The quantized caches have their own kernels, with the same arguments plus
 the per-row, per-head f32 scales `scale` (B, S, 2*H) = [k scales | v scales]
 (unpadded: the JAX package pads this stream to 128 lanes for the TPU's DMA):
 
-- `flash_decode_attention_q8` (`csrc/flash_decode_q8.cu`): int8 rows;
+- `flash_decode_attention_q8` (`csrc/flash_decode_q8.cu`): int8 rows, each
+  (batch row, head) split into chunks of `Q8_CHUNK_ROWS[D]` rows whose
+  partials the kernel merges in chunk order in the same launch
+  (`q8_plan`; workspace and counters from `ops/_scratch.py`);
 - `flash_decode_attention_q8_append` (`csrc/flash_decode_q8.cu`, entry
   `flash_decode_q8_append`): the same over rows [0, pos[b]), plus row
   pos[b] scored from the operands new_kv (B, 2*H*D) int8 and new_s (B, 2*H)
@@ -25,12 +28,14 @@ the per-row, per-head f32 scales `scale` (B, S, 2*H) = [k scales | v scales]
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from controlar_tpu_torch import _build
+from controlar_tpu_torch.ops._scratch import _scratch_for
 from controlar_tpu_torch.ops.w4_matmul import unpack_nibbles
 
 HEAD_DIMS = (64, 100, 128)
@@ -203,6 +208,71 @@ def _pos_args(pos: Pos, b: int):
     return None, 0, int(pos)
 
 
+# The int8 kernels (csrc/flash_decode_q8.cu) split each batch row's live
+# cache rows into chunks of this many rows, one work item per (row, head,
+# chunk): a constant of D, so that a row's partition, and its output bit for
+# bit, depend on its own pos only. The kernel checks that it was built with
+# the same value.
+Q8_CHUNK_ROWS = {64: 64, 100: 32, 128: 32}
+
+
+class Q8Plan(NamedTuple):
+    chunk: int      # cache rows per work item
+    n_chunks: int   # work items per (batch row, head)
+    ws_floats: int  # fp32 workspace: a partial (acc[D], m, l, 2 spare) per work item
+    counters: int   # int32 arrival counters, one per (batch row, head)
+
+
+def q8_plan(b: int, s: int, n_head: int, d: int, pos: Pos, stacked: bool) -> Q8Plan:
+    """The launch plan of the int8 decode kernels for B = b rows over S = s
+    cache rows. A stacked call (and the fused append) attends over rows
+    [0, pos[b]) of the slab plus the in-flight row, a flat one over rows
+    [0, pos[b]]. For an int pos the grid holds the live chunks; for a pos
+    tensor, whose values stay on the device, it covers the whole cache and
+    the work items past a row's live chunks exit. It reads no SM count: the
+    chunk length is fixed by D."""
+    if isinstance(pos, torch.Tensor):
+        rows = s + int(stacked)
+    elif stacked:
+        rows = min(max(pos, 0), s) + 1
+    else:
+        rows = min(max(pos + 1, 0), s)
+    return _q8_plan(b, n_head, d, rows)
+
+
+@functools.lru_cache(maxsize=4096)
+def _q8_plan(b: int, n_head: int, d: int, rows: int) -> Q8Plan:
+    chunk = Q8_CHUNK_ROWS[d]
+    n_chunks = max(1, -(-rows // chunk))
+    return Q8Plan(chunk, n_chunks, b * n_head * n_chunks * (d + 4), b * n_head)
+
+
+def _q8_args(kv: torch.Tensor, b: int, s: int, n_head: int, d: int, pos: Pos,
+             stacked: bool) -> tuple:
+    """-> the trailing arguments of an int8 kernel's C entry: workspace,
+    counters, chunk, n_chunks and the stream, with the workspace and
+    counters taken from the stream's scratch (no allocation once it has
+    grown to the call's size)."""
+    plan = q8_plan(b, s, n_head, d, pos, stacked)
+    stream = torch.cuda.current_stream(kv.device).cuda_stream
+    counters, ws = _scratch_for(kv.device, stream, plan.counters, plan.ws_floats)
+    return ws.data_ptr(), counters.data_ptr(), plan.chunk, plan.n_chunks, stream
+
+
+def _q8_lib(fn: str, n_ptr: int, layer: bool = False):
+    """The C entry `fn` of csrc/flash_decode_q8.cu: n_ptr pointers (q, the
+    slab or the in-flight row and the stack, scales), [layer,] pos,
+    pos_stride, pos_scalar, bias, out, out_f32, B, S, H, D, ws, counters,
+    chunk, n_chunks, stream."""
+    f = getattr(_build.load("flash_decode_q8"), fn)
+    if f.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        f.argtypes = ([p] * n_ptr + [i] * layer + [p, i, i, p, p, i, i, i, i, i]
+                      + [p, p, i, i, p])
+        f.restype = ctypes.c_int
+    return f
+
+
 def _lib(name: str, fn: str, scale: bool = False, split: bool = False):
     """The C entry of csrc/<name>.cu: q, kv, [scale,] pos, pos_stride,
     pos_scalar, bias, out, out_f32, B, S, H, D, [split,] stream."""
@@ -264,11 +334,11 @@ def flash_decode_attention_q8(
     _check_scale(scale, kv, n_head)
     qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
     out = torch.empty((b, n_head * d), dtype=q.dtype, device=q.device)
-    err = _lib("flash_decode_q8", "flash_decode_q8", scale=True)(
+    err = _q8_lib("flash_decode_q8", 3)(
         qb.data_ptr(), kv.data_ptr(), scale.data_ptr(), *_pos_args(pos, b),
         None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
         int(out.dtype == torch.float32), b, s, n_head, d,
-        torch.cuda.current_stream(kv.device).cuda_stream,
+        *_q8_args(kv, b, s, n_head, d, pos, stacked=False),
     )
     if err != 0:
         raise RuntimeError(f"flash_decode_attention_q8 launch failed: cudaError {err}")
@@ -364,18 +434,14 @@ def flash_decode_attention_q8_append(
     b, s, d = _check(q, kv_cache, pos, col_bias, n_head, kv_dtype=torch.int8)
     _check_scale(kv_scale, kv_cache, n_head)
     _check_new_row(new_kv, new_s, kv_cache, n_head, d)
-    f = getattr(_build.load("flash_decode_q8"), "flash_decode_q8_append")
-    if f.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p] * 5 + [p, i, i, p, p, i, i, i, i, i, p]
-        f.restype = ctypes.c_int
     qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
     out = torch.empty((b, n_head * d), dtype=q.dtype, device=q.device)
-    err = f(qb.data_ptr(), new_kv.data_ptr(), new_s.data_ptr(), kv_cache.data_ptr(),
-            kv_scale.data_ptr(), *_pos_args(pos, b),
-            None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
-            int(out.dtype == torch.float32), b, s, n_head, d,
-            torch.cuda.current_stream(kv_cache.device).cuda_stream)
+    err = _q8_lib("flash_decode_q8_append", 5)(
+        qb.data_ptr(), new_kv.data_ptr(), new_s.data_ptr(), kv_cache.data_ptr(),
+        kv_scale.data_ptr(), *_pos_args(pos, b),
+        None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
+        int(out.dtype == torch.float32), b, s, n_head, d,
+        *_q8_args(kv_cache, b, s, n_head, d, pos, stacked=True))
     if err != 0:
         raise RuntimeError(f"flash_decode_attention_q8_append launch failed: cudaError {err}")
     flash_decode_attention_q8_append.launches += 1

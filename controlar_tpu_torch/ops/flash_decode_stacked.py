@@ -127,7 +127,8 @@ def _check_scales(new_s, sc_stack, stack, n_head):
 def _lib(source: str, entry: str, n_ptr: int, split: bool = False):
     """C entry `entry` of csrc/<source>.cu: n_ptr pointers (q, the in-flight
     row [, its scales], the stack [, its scales]), layer, pos, pos_stride,
-    pos_scalar, bias, out, out_f32, B, S, H, D, [split,] stream."""
+    pos_scalar, bias, out, out_f32, B, S, H, D, [split,] stream. (The int8
+    entry takes the split kernel's scratch too: `flash_decode._q8_lib`.)"""
     f = getattr(_build.load(source), entry)
     if f.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -136,13 +137,17 @@ def _lib(source: str, entry: str, n_ptr: int, split: bool = False):
     return f
 
 
-def _run(f, name, q, ptrs, layer, pos, col_bias, b, s, n_head, d, *split):
+def _stream(q: torch.Tensor) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def _run(f, name, q, ptrs, layer, pos, col_bias, b, s, n_head, d, tail):
+    """Launches entry f; tail: its arguments after D (the stream last)."""
     qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
     out = torch.empty((b, n_head * d), dtype=q.dtype, device=q.device)
     err = f(qb.data_ptr(), *ptrs, layer, *fd._pos_args(pos, b),
             None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
-            int(out.dtype == torch.float32), b, s, n_head, d, *split,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            int(out.dtype == torch.float32), b, s, n_head, d, *tail)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return out
@@ -165,7 +170,8 @@ def flash_stacked(
         raise ValueError(f"unsupported device {kv_stack.device}")
     b, s, d = _check(q, new_kv, kv_stack, layer, pos, col_bias, n_head, torch.bfloat16)
     out = _run(_lib("flash_decode", "flash_stacked", 3), "flash_stacked", q,
-               (new_kv.data_ptr(), kv_stack.data_ptr()), layer, pos, col_bias, b, s, n_head, d)
+               (new_kv.data_ptr(), kv_stack.data_ptr()), layer, pos, col_bias, b, s, n_head, d,
+               (_stream(q),))
     flash_stacked.launches += 1
     return out
 
@@ -193,9 +199,10 @@ def flash_stacked_q8(
         raise ValueError(f"unsupported device {kv_stack.device}")
     b, s, d = _check(q, new_kv, kv_stack, layer, pos, col_bias, n_head, torch.int8)
     _check_scales(new_s, sc_stack, kv_stack, n_head)
-    out = _run(_lib("flash_decode_q8", "flash_stacked_q8", 5), "flash_stacked_q8", q,
+    out = _run(fd._q8_lib("flash_stacked_q8", 5, layer=True), "flash_stacked_q8", q,
                (new_kv.data_ptr(), new_s.data_ptr(), kv_stack.data_ptr(), sc_stack.data_ptr()),
-               layer, pos, col_bias, b, s, n_head, d)
+               layer, pos, col_bias, b, s, n_head, d,
+               fd._q8_args(kv_stack, b, s, n_head, d, pos, stacked=True))
     flash_stacked_q8.launches += 1
     return out
 
@@ -228,7 +235,7 @@ def flash_stacked_q4(
     _check_scales(new_s, sc_stack, kv_stack, n_head)
     out = _run(_lib("flash_decode_q4", "flash_stacked_q4", 5, split=True), "flash_stacked_q4", q,
                (new_c.data_ptr(), new_s.data_ptr(), kv_stack.data_ptr(), sc_stack.data_ptr()),
-               layer, pos, col_bias, b, s, n_head, d, int(split))
+               layer, pos, col_bias, b, s, n_head, d, (int(split), _stream(q)))
     flash_stacked_q4.launches += 1
     return out
 

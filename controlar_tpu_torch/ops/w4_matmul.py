@@ -15,19 +15,19 @@ column) f32, (Kp/GROUP, N). q lies in [-7, 7]; padded planes quantize to 0.
 same function with their plain versions (`*_ref`) on CPU tensors. The TPU
 kernel's VMEM budgeting (slot depth, N-split) has no counterpart here. The
 kernels split K for the narrow products (`_splits`); their fp32 workspace
-and per-tile arrival counters are kept per device and stream (`_scratch`),
-grown when a call needs more, and the counters are zeroed once and left
-zero by every launch.
+and per-tile arrival counters are kept per device and stream
+(`ops/_scratch.py`), grown when a call needs more, and the counters are
+zeroed once and left zero by every launch.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from controlar_tpu_torch import _build
+from controlar_tpu_torch.ops._scratch import _scratch_for, _sm_count
 
 GROUP = 128  # rows per scale along K; the kernels take this group only
 MAX_ROWS = 256  # the decode path sends at most this many rows to a kernel
@@ -188,11 +188,6 @@ def _out_f32(dtype: torch.dtype) -> int:
     return int(dtype == torch.float32)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _splits(nchunk: int, col_tiles: int, sms: int) -> int:
     """Slices of K (in chunks of two planes) for a product of col_tiles
     column tiles: enough work items for SPLIT_ITEMS_PER_SM on every SM, in
@@ -201,25 +196,6 @@ def _splits(nchunk: int, col_tiles: int, sms: int) -> int:
     want = max(1, min(nchunk, SPLIT_ITEMS_PER_SM * sms // col_tiles))
     per = -(-nchunk // want)
     return -(-nchunk // per)
-
-
-_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def _scratch_for(device: torch.device, stream: int, n_counters: int,
-                 n_floats: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(int32 arrival counters, fp32 workspace) of at least these sizes for
-    launches on `stream` of device. Launches on one stream run in order, so
-    its calls share them; the counters are zero when made and every launch
-    leaves them zero, and a launch writes every workspace word it reads."""
-    key = (device.index, stream)
-    c, w = _scratch.get(key, (None, None))
-    if c is None or c.numel() < n_counters:
-        c = torch.zeros(max(n_counters, 4096), dtype=torch.int32, device=device)
-    if w is None or w.numel() < n_floats:
-        w = torch.empty(max(n_floats, 1), dtype=torch.float32, device=device)
-    _scratch[key] = (c, w)
-    return c, w
 
 
 def _fn(lib: str, name: str, n_ptr: int, n_int: int):

@@ -222,6 +222,174 @@ def test_q8_append_rejects(dev, bad):
     assert flash_decode_attention_q8_append.launches == 0
 
 
+# ---- the split int8 kernels (B2, B12-q8, B11): chunk boundaries, batch ----
+# ---- invariance, determinism, counters, CUDA-graph replay ----------------
+
+Q8_KINDS = ("flat", "stacked", "append")
+
+
+def _q8_inputs(dev, b, s, h, d, bias, seed=5):
+    """q, a 2-layer int8 stack and its scales, the in-flight row and its
+    scales, and a left-padded caption bias (row i's first 7 i columns) or
+    None."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, h * d, generator=g, device=dev) * 0.5).bfloat16()
+    stack, sc = quantize_kv_rows(torch.randn(2, b, s, 2 * h * d, generator=g, device=dev) * 0.5, h)
+    new_kv, new_s = quantize_kv_rows(torch.randn(b, 2 * h * d, generator=g, device=dev) * 0.5, h)
+    col_bias = None
+    if bias:
+        pad = torch.arange(b, device=dev)[:, None] * 7
+        col_bias = torch.where(torch.arange(s, device=dev)[None, :] < pad, -1e9, 0.0).float()
+    return dict(q=q, stack=stack, sc=sc, new_kv=new_kv, new_s=new_s, bias=col_bias)
+
+
+def _q8_rows(x, rows):
+    """The inputs of the batch rows `rows` alone."""
+    return {k: None if v is None else (v[:, rows] if k in ("stack", "sc") else v[rows]).contiguous()
+            for k, v in x.items()}
+
+
+def _q8_run(kind, x, pos, plain=False):
+    """The kind's kernel (or plain version) on the inputs x: the flat kernel
+    on layer 0 of the stack, the stacked kernel on layer 1, the append on
+    copies of layer 0's slabs (returned with the output). The bias is set to
+    0 at the in-flight row, as the stacked kernels' callers keep it."""
+    from controlar_tpu_torch.ops import flash_decode_stacked as fds
+
+    b, s, h = x["q"].shape[0], x["stack"].shape[2], x["sc"].shape[-1] // 2
+    cb = x["bias"]
+    if cb is not None and kind != "flat":
+        cb = cb.clone()
+        p = torch.as_tensor(pos, device=cb.device).long().reshape(-1).expand(b)
+        cb[torch.arange(b, device=cb.device), p.clamp(max=s - 1)] = 0.0
+    if kind == "flat":
+        fn = flash_decode_attention_q8_ref if plain else flash_decode_attention_q8
+        return fn(x["q"], x["stack"][0], x["sc"][0], pos, cb, n_head=h)
+    if kind == "stacked":
+        fn = fds.flash_stacked_q8_ref if plain else fds.flash_stacked_q8
+        return fn(x["q"], x["new_kv"], x["new_s"], x["stack"], x["sc"], 1, pos, cb, n_head=h)
+    fn = flash_decode_attention_q8_append_ref if plain else flash_decode_attention_q8_append
+    return fn(x["q"], x["new_kv"], x["new_s"], x["stack"][0].clone(), x["sc"][0].clone(), pos,
+              cb, n_head=h)
+
+
+def _q8_positions(kind, d, s):
+    """Positions on each side of a chunk boundary (the live rows, pos + 1 in
+    all three kernels, end one before, on and one after it), 0 (1 for the
+    append, which needs a prefill before it) and S - 1."""
+    from controlar_tpu_torch.ops.flash_decode import Q8_CHUNK_ROWS
+
+    c = Q8_CHUNK_ROWS[d]
+    return {"chunk-1": c - 2, "chunk": c - 1, "chunk+1": c, "zero": int(kind == "append"),
+            "last": s - 1, "per_slot": [c - 2, c - 1, c, s - 1]}
+
+
+@pytest.mark.parametrize("kind", Q8_KINDS)
+@pytest.mark.parametrize("d", [64, 100, 128])
+@pytest.mark.parametrize("h", [3, 4])
+@pytest.mark.parametrize("pos", ["chunk-1", "chunk", "chunk+1", "zero", "last", "per_slot"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_q8_split_kernels_match_plain_versions(dev, kind, d, h, pos, bias):
+    """H = 3 at D = 100 gives 600-byte rows (8-byte copies), H = 4 800-byte
+    rows (16-byte copies)."""
+    b, s = 4, 768
+    pos = _q8_positions(kind, d, s)[pos]
+    if isinstance(pos, list):
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    x = _q8_inputs(dev, b, s, h, d, bias)
+    got = _q8_run(kind, x, pos)
+    torch.cuda.synchronize()
+    want = _q8_run(kind, x, pos, plain=True)
+    if kind == "append":
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        got, want = got[0], want[0]
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=1e-2)
+
+
+def _q8_equal(a, b):
+    if isinstance(a, tuple):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+    return torch.equal(a, b)
+
+
+def _q8_row(out, i):
+    if isinstance(out, tuple):  # the output and the written slabs' row i
+        return tuple(t[i:i + 1] for t in out)
+    return out[i:i + 1]
+
+
+@pytest.mark.parametrize("kind", Q8_KINDS)
+@pytest.mark.parametrize("d,h", [(64, 12), (100, 8), (128, 8)])
+def test_q8_split_kernels_are_batch_invariant_and_deterministic(dev, kind, d, h):
+    """A row's output is the same bit for bit in a batch of 16 (per-slot
+    positions on a grid over the whole cache), alone (an int position: a
+    grid of its live chunks; a 1-row position tensor) and over 3 launches."""
+    b, s = 16, 768
+    c = _q8_positions(kind, d, s)
+    pos_list = [c["chunk-1"], c["chunk"], c["chunk+1"], s - 1, 1, 2, 100, 255, 256, 300, 400,
+                500, 575, 600, 700, 767]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    x = _q8_inputs(dev, b, s, h, d, True)
+    full = _q8_run(kind, x, pos)
+    for _ in range(2):
+        assert _q8_equal(_q8_run(kind, x, pos), full)
+    for i in (0, 1, 2, 3, 9, 15):
+        alone = _q8_rows(x, [i])
+        assert _q8_equal(_q8_run(kind, alone, pos_list[i]), _q8_row(full, i))
+        assert _q8_equal(_q8_run(kind, alone, pos[i:i + 1].clone()), _q8_row(full, i))
+
+
+def test_q8_split_counters_are_left_zero(dev):
+    """Every launch leaves the arrival counters of its stream zero, across
+    calls of different shapes, grids and kernels."""
+    from controlar_tpu_torch.ops import _scratch
+
+    for kind in Q8_KINDS:
+        for b, h, d, pos in ((16, 12, 64, 575), (3, 3, 100, 40), (5, 4, 128, 767), (2, 12, 64, 1)):
+            x = _q8_inputs(dev, b, 768, h, d, True)
+            _q8_run(kind, x, pos)
+            _q8_run(kind, x, torch.full((b,), pos, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counters, _ = _scratch._scratch[(torch.cuda.current_device(), stream)]
+    assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("kind", Q8_KINDS)
+def test_q8_split_kernels_replay_in_a_cuda_graph(dev, kind):
+    """One call captured with a device position vector, replayed after the
+    vector changed in place, equals the eager call at the new positions."""
+    b, s, h, d = 16, 768, 12, 64
+    x = _q8_inputs(dev, b, s, h, d, False)
+    pos = torch.tensor([1, 30, 31, 32, 100, 255, 256, 575] * 2, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # the side stream's scratch, before the capture
+        _q8_run(kind, x, pos)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    if kind == "append":  # the graph writes its own copies of the slabs
+        kv, sc = x["stack"][0].clone(), x["sc"][0].clone()
+        with torch.cuda.graph(graph, stream=side):
+            out = flash_decode_attention_q8_append(x["q"], x["new_kv"], x["new_s"], kv, sc, pos,
+                                                   None, n_head=h)[0]
+    else:
+        with torch.cuda.graph(graph, stream=side):
+            out = _q8_run(kind, x, pos)
+    pos.copy_(torch.tensor([2, 31, 32, 33, 17, 511, 400, 767] * 2, dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    if kind == "append":
+        want, kv_want, sc_want = flash_decode_attention_q8_append(
+            x["q"], x["new_kv"], x["new_s"], x["stack"][0].clone(), x["sc"][0].clone(), pos,
+            None, n_head=h)
+        assert torch.equal(kv, kv_want) and torch.equal(sc, sc_want)
+    else:
+        want = _q8_run(kind, x, pos)
+    assert torch.equal(out, want)
+
+
 # ---- W4 weights: the dequant-matmul and the fused FFN ---------------------
 
 def _w4(dev, k, n, seed):
