@@ -293,8 +293,12 @@ def phase_kernel():
     with CFG); c2i GPT-B (12 x 64 heads, 768 cache rows = 577 rounded up to
     256, pos 0..575), t2i GPT-XL (20 x 64 heads, 1280 rows = 1144 rounded
     up, pos 119..1142, caption bias), and head dims 100 and 128 (GPT-3B,
-    GPT-7B). Each case with and without the left-padded bias; the last
-    decode step of each is timed."""
+    GPT-7B), at `_positions`' (the kernel's 64-row chunk boundaries at D =
+    64) and, at D = 100 and 128, both sides of the first boundary of their
+    32- and 128-row chunks, with and without the left-padded bias. Timed at
+    each case's last decode step with and
+    without the bias, and c2i also at pos 255, mid-decode; the c2i and t2i
+    rows also give the wrapper's host time."""
     import torch.nn.functional as F
 
     from controlar_tpu_torch.ops.flash_decode import (
@@ -305,21 +309,15 @@ def phase_kernel():
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     b = 16
-
-    def slots(*p):
-        return torch.tensor(p, dtype=torch.int32, device="cuda")
-
-    c2i_slots = slots(0, 1, 100, 255, 256, 300, 400, 500, 575, 575, 10, 20, 30, 40, 50, 767)
-    t2i_slots = slots(119, 120, 121, 200, 400, 631, 700, 800, 900, 1000, 1100, 1142, 1142,
-                      130, 1279, 500)
-    cases = [  # name, heads, head_dim, cache rows, caption columns, positions, timed pos
-        ("c2i", 12, 64, 768, 120, (0, 1, 255, 256, 575, c2i_slots), 575),
-        ("t2i", 20, 64, 1280, 120, (119, 120, 631, 1142, t2i_slots), 1142),
-        ("d100", 32, 100, 768, 120, (0, 1, 255, 256, 575, c2i_slots), 575),
-        ("d128", 32, 128, 768, 120, (0, 1, 255, 256, 575, c2i_slots), 575),
+    cases = [  # name, heads, head_dim, cache rows, caption columns, positions, timed positions
+        ("c2i", 12, 64, 768, 120, _positions("c2i"), (575, 255)),
+        ("t2i", 20, 64, 1280, 120, _positions("t2i"), (1142,)),
+        # the live rows (pos + 1) on each side of the 32- and 128-row chunk boundaries
+        ("d100", 32, 100, 768, 120, (30, 31, 32) + _positions("c2i"), (575,)),
+        ("d128", 32, 128, 768, 120, (126, 127, 128) + _positions("c2i"), (575,)),
     ]
     results, max_err, main = [], 0.0, {}
-    for name, h, d, s, t_cls, positions, timed in cases:
+    for name, h, d, s, t_cls, positions, timed_at in cases:
         q, kv = _slab(gen, b, s, h, d)
         bias = _left_pad_bias(s, t_cls)
         for pos in positions:
@@ -332,26 +330,30 @@ def phase_kernel():
                 check(ok, "kernel", f"{name} h={h} d={d} pos={where} "
                       f"bias={col_bias is not None}: max_abs_err {err} over the limit")
                 max_err = max(max_err, err)
-        for col_bias in (None, bias):
-            ms = time_ms(lambda: flash_decode_attention(q, kv, timed, col_bias, n_head=h),
-                         flush=flush)
-            plain = time_ms(lambda: flash_decode_attention_ref(q, kv, timed, col_bias,
-                                                               n_head=h), flush=flush)
-            # library yardstick: SDPA over the live rows (never called by the port)
-            hd, n = h * d, timed + 1
-            q4 = q.view(b, h, 1, d)
-            k4 = kv[:, :n, :hd].view(b, n, h, d).transpose(1, 2)
-            v4 = kv[:, :n, hd:].view(b, n, h, d).transpose(1, 2)
-            mask = None if col_bias is None else col_bias[:, None, None, :n].bfloat16()
-            lib = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
-                          flush=flush)
-            bound, by = _bound([n] * b, h, d, col_bias is not None)
-            row = dict(case=name, h=h, d=d, s=s, pos=timed, bias=col_bias is not None, ms=ms,
-                       plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
-            results.append(row)
-            # the rows each cell's main path runs at its last step
-            if (name, col_bias is None) in (("c2i", True), ("t2i", False)):
-                main[name] = row
+        for timed in timed_at:
+            for col_bias in (None, bias) if timed == timed_at[0] else (None,):
+                fn = lambda: flash_decode_attention(q, kv, timed, col_bias, n_head=h)  # noqa: E731
+                ms = time_ms(fn, flush=flush)
+                plain = time_ms(lambda: flash_decode_attention_ref(q, kv, timed, col_bias,
+                                                                   n_head=h), flush=flush)
+                # library yardstick: SDPA over the live rows (never called by the port)
+                hd, n = h * d, timed + 1
+                q4 = q.view(b, h, 1, d)
+                k4 = kv[:, :n, :hd].view(b, n, h, d).transpose(1, 2)
+                v4 = kv[:, :n, hd:].view(b, n, h, d).transpose(1, 2)
+                mask = None if col_bias is None else col_bias[:, None, None, :n].bfloat16()
+                lib = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
+                              flush=flush)
+                bound, by = _bound([n] * b, h, d, col_bias is not None)
+                row = dict(case=name, h=h, d=d, s=s, pos=timed, bias=col_bias is not None, ms=ms,
+                           plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
+                if name in ("c2i", "t2i"):
+                    row["host_us"] = host_us(fn)
+                results.append(row)
+                # the rows each cell's main path runs at its last step
+                if timed == timed_at[0] and (name, col_bias is None) in (("c2i", True),
+                                                                          ("t2i", False)):
+                    main[name] = row
     emit("kernel", ok=True, name="flash_decode_attention", max_abs_err=max_err,
          atol=KERNEL_ATOL, rtol=KERNEL_RTOL, timings=results)
     return main, max_err
@@ -360,8 +362,8 @@ def phase_kernel():
 def _positions(h_case):
     """The decode positions each attention case is checked at, per-slot
     vectors included (16 rows: batch 8 with CFG). 62-64 and 126-128 put the
-    live rows (pos + 1) on each side of a boundary of the int8 kernels'
-    64-row chunks at D = 64."""
+    live rows (pos + 1) on each side of a boundary of the split bf16 and
+    int8 kernels' 64-row chunks at D = 64."""
     def slots(*p):
         return torch.tensor(p, dtype=torch.int32, device="cuda")
 
@@ -876,8 +878,8 @@ def _stacked_cases(kind):
     caption bias, timed) of the stacked kernels' checks: the cells' last
     decode steps (pos 575 of 768 rows at GPT-B and GPT-3B, 1143 of 1280 at
     t2i GPT-XL with the caption bias), per-slot positions that include 1,
-    S - 1 and both sides of the 256-row boundary; for int8 also both sides
-    of a boundary of its kernel's 64-row chunks."""
+    S - 1 and both sides of the 256-row boundary; for bf16 and int8 also
+    both sides of a boundary of their split kernels' 64-row chunks."""
     def slots(*p):
         return torch.tensor(p, dtype=torch.int32, device="cuda")
 
@@ -885,14 +887,15 @@ def _stacked_cases(kind):
     t2i_slots = slots(120, 121, 200, 400, 631, 700, 800, 900, 1000, 1100, 1142, 1143, 1143,
                       130, 1279, 500)
     c2i = (1, 255, 256, 575, per_slot)
-    # the int8 kernel's live rows (pos + 1) on each side of a 64-row chunk boundary
-    q8_slots = slots(1, 2, 62, 63, 64, 100, 255, 256, 300, 400, 500, 575, 575, 10, 50, 767)
-    c2i_q8 = (1, 62, 63, 64, 255, 256, 575, q8_slots)
+    # the split kernels' live rows (pos + 1) on each side of a 64-row chunk boundary
+    split_slots = slots(1, 2, 62, 63, 64, 100, 255, 256, 300, 400, 500, 575, 575, 10, 50, 767)
+    c2i_split = (1, 62, 63, 64, 255, 256, 575, split_slots)
     if kind == "bf16":
-        return [("c2i", 12, 12, 64, 768, None, c2i, False, True),
-                ("t2i", 36, 20, 64, 1280, None, (120, 1143, t2i_slots), True, False)]
+        return [("c2i", 12, 12, 64, 768, None, c2i_split, False, True),
+                ("t2i", 36, 20, 64, 1280, None, (120, 126, 127, 128, 1143, t2i_slots), True,
+                 False)]
     if kind == "q8":
-        return [("c2i_w8kv8", 12, 12, 64, 768, None, c2i_q8, True, True)]
+        return [("c2i_w8kv8", 12, 12, 64, 768, None, c2i_split, True, True)]
     return [("3b_split", 24, 32, 100, 768, True, c2i, False, True),
             ("b_interleaved", 12, 12, 64, 768, False, c2i, True, False)]
 
@@ -905,9 +908,9 @@ def _phase_stacked(phase, kind):
     the plain version, SDPA over the layer's (dequantized) slab with the
     in-flight row written (rows 0..575) and the bound: q and out, the 575
     live rows and the in-flight row (values and f32 scales). kind: bf16, q8
-    or q4 (split at GPT-3B, interleaved at GPT-B); q8 is also timed at pos
-    255, mid-decode, with the wrapper's host time. Returns the last step's
-    row and the max abs error."""
+    or q4 (split at GPT-3B, interleaved at GPT-B); bf16 and q8 are also
+    timed at pos 255, mid-decode, both with the wrapper's host time.
+    Returns the last step's row and the max abs error."""
     from controlar_tpu_torch.ops import flash_decode_stacked as fds
     from controlar_tpu_torch.quant import (
         dequantize_kv4_slab, dequantize_kv_slab, quantize_kv_rows, quantize_kv_rows_4)
@@ -950,7 +953,7 @@ def _phase_stacked(phase, kind):
         if not is_timed:
             continue
         layer = n_layer - 1
-        for pos in (575, 255) if kind == "q8" else (575,):
+        for pos in (575, 255) if kind in ("bf16", "q8") else (575,):
             # the library yardstick: SDPA over the layer's slab with the row written
             if kind == "bf16":
                 slab = fds.layer_with_row(args[1], args[0], layer, pos)
@@ -969,7 +972,7 @@ def _phase_stacked(phase, kind):
                                                       **kw), flush=flush),
                        library_ms=time_ms(_sdpa(q, slab, n, h, d, None), flush=flush),
                        bound_ms=bound, bound_by=by)
-            if kind == "q8":
+            if kind in ("bf16", "q8"):
                 row["host_us"] = host_us(fn)
             timings.append(row)
     emit(phase, ok=True, name=kern.__name__, max_abs_err=max_err, atol=KERNEL_ATOL,

@@ -1,6 +1,6 @@
 """Per-stream scratch of the kernels that split their work across blocks.
 
-The W4 kernels (`ops/w4_matmul.py`) and the int8 decode attention
+The W4 kernels (`ops/w4_matmul.py`) and the bf16 and int8 decode attention
 (`ops/flash_decode.py`, `ops/flash_decode_stacked.py`) cut one product or one
 attention into work items whose partials meet in an fp32 workspace; the
 block that arrives last at an int32 counter merges them and resets the

@@ -5,17 +5,18 @@ package's `flash_decode_attention2`: q (B, H*D), kv (B, S, 2*H*D) bf16 with
 rows [k | v], pos a scalar or (B,) int32, an optional (B, S) f32 additive
 column bias, rows > pos[b] excluded, online softmax in fp32, output (B, H*D)
 in q's dtype. On a CUDA tensor it launches the hand-written kernel in
-`csrc/flash_decode.cu`; on a CPU tensor it computes the same function with
+`csrc/flash_decode.cu`, which splits each (batch row, head) into chunks of
+`CHUNK_ROWS[torch.bfloat16][D]` rows and merges their partials in chunk
+order in the same launch (`split_plan`; workspace and counters from
+`ops/_scratch.py`); on a CPU tensor it computes the same function with
 `flash_decode_attention_ref`.
 
 The quantized caches have their own kernels, with the same arguments plus
 the per-row, per-head f32 scales `scale` (B, S, 2*H) = [k scales | v scales]
 (unpadded: the JAX package pads this stream to 128 lanes for the TPU's DMA):
 
-- `flash_decode_attention_q8` (`csrc/flash_decode_q8.cu`): int8 rows, each
-  (batch row, head) split into chunks of `Q8_CHUNK_ROWS[D]` rows whose
-  partials the kernel merges in chunk order in the same launch
-  (`q8_plan`; workspace and counters from `ops/_scratch.py`);
+- `flash_decode_attention_q8` (`csrc/flash_decode_q8.cu`): int8 rows,
+  split as the bf16 kernel is, in chunks of `Q8_CHUNK_ROWS[D]` rows;
 - `flash_decode_attention_q8_append` (`csrc/flash_decode_q8.cu`, entry
   `flash_decode_q8_append`): the same over rows [0, pos[b]), plus row
   pos[b] scored from the operands new_kv (B, 2*H*D) int8 and new_s (B, 2*H)
@@ -208,63 +209,74 @@ def _pos_args(pos: Pos, b: int):
     return None, 0, int(pos)
 
 
-# The int8 kernels (csrc/flash_decode_q8.cu) split each batch row's live
-# cache rows into chunks of this many rows, one work item per (row, head,
-# chunk): a constant of D, so that a row's partition, and its output bit for
-# bit, depend on its own pos only. The kernel checks that it was built with
-# the same value.
-Q8_CHUNK_ROWS = {64: 64, 100: 32, 128: 32}
+# The split decode kernels (csrc/flash_decode.cu for the bf16 cache,
+# csrc/flash_decode_q8.cu for int8) cut each batch row's live cache rows into
+# chunks of this many rows, one work item per (row, head, chunk): a constant
+# of D, so that a row's partition, and its output bit for bit, depend on its
+# own pos only. Each kernel checks that it was built with the same value.
+CHUNK_ROWS = {
+    torch.bfloat16: {64: 64, 100: 32, 128: 128},
+    torch.int8: {64: 64, 100: 32, 128: 32},
+}
+Q8_CHUNK_ROWS = CHUNK_ROWS[torch.int8]
 
 
-class Q8Plan(NamedTuple):
+class SplitPlan(NamedTuple):
     chunk: int      # cache rows per work item
     n_chunks: int   # work items per (batch row, head)
     ws_floats: int  # fp32 workspace: a partial (acc[D], m, l, 2 spare) per work item
     counters: int   # int32 arrival counters, one per (batch row, head)
 
 
-def q8_plan(b: int, s: int, n_head: int, d: int, pos: Pos, stacked: bool) -> Q8Plan:
-    """The launch plan of the int8 decode kernels for B = b rows over S = s
-    cache rows. A stacked call (and the fused append) attends over rows
-    [0, pos[b]) of the slab plus the in-flight row, a flat one over rows
-    [0, pos[b]]. For an int pos the grid holds the live chunks; for a pos
-    tensor, whose values stay on the device, it covers the whole cache and
-    the work items past a row's live chunks exit. It reads no SM count: the
-    chunk length is fixed by D."""
+def split_plan(b: int, s: int, n_head: int, d: int, pos: Pos, stacked: bool,
+               kv_dtype: torch.dtype) -> SplitPlan:
+    """The launch plan of the split decode kernels over a kv_dtype cache
+    (bf16 or int8) for B = b rows over S = s cache rows. A stacked call (and
+    the fused append) attends over rows [0, pos[b]) of the slab plus the
+    in-flight row, a flat one over rows [0, pos[b]]. For an int pos the grid
+    holds the live chunks; for a pos tensor, whose values stay on the device,
+    it covers the whole cache and the work items past a row's live chunks
+    exit. It reads no SM count: the chunk length is fixed by D."""
     if isinstance(pos, torch.Tensor):
         rows = s + int(stacked)
     elif stacked:
         rows = min(max(pos, 0), s) + 1
     else:
         rows = min(max(pos + 1, 0), s)
-    return _q8_plan(b, n_head, d, rows)
+    return _split_plan(b, n_head, d, rows, kv_dtype)
+
+
+def q8_plan(b: int, s: int, n_head: int, d: int, pos: Pos, stacked: bool) -> SplitPlan:
+    """`split_plan` of the int8 kernels."""
+    return split_plan(b, s, n_head, d, pos, stacked, torch.int8)
 
 
 @functools.lru_cache(maxsize=4096)
-def _q8_plan(b: int, n_head: int, d: int, rows: int) -> Q8Plan:
-    chunk = Q8_CHUNK_ROWS[d]
+def _split_plan(b: int, n_head: int, d: int, rows: int, kv_dtype: torch.dtype) -> SplitPlan:
+    chunk = CHUNK_ROWS[kv_dtype][d]
     n_chunks = max(1, -(-rows // chunk))
-    return Q8Plan(chunk, n_chunks, b * n_head * n_chunks * (d + 4), b * n_head)
+    return SplitPlan(chunk, n_chunks, b * n_head * n_chunks * (d + 4), b * n_head)
 
 
-def _q8_args(kv: torch.Tensor, b: int, s: int, n_head: int, d: int, pos: Pos,
-             stacked: bool) -> tuple:
-    """-> the trailing arguments of an int8 kernel's C entry: workspace,
+def _split_args(kv: torch.Tensor, b: int, s: int, n_head: int, d: int, pos: Pos,
+                stacked: bool) -> tuple:
+    """-> the trailing arguments of a split kernel's C entry: workspace,
     counters, chunk, n_chunks and the stream, with the workspace and
     counters taken from the stream's scratch (no allocation once it has
-    grown to the call's size)."""
-    plan = q8_plan(b, s, n_head, d, pos, stacked)
+    grown to the call's size). kv: the slab or stack, whose dtype picks the
+    chunk length."""
+    plan = split_plan(b, s, n_head, d, pos, stacked, kv.dtype)
     stream = torch.cuda.current_stream(kv.device).cuda_stream
     counters, ws = _scratch_for(kv.device, stream, plan.counters, plan.ws_floats)
     return ws.data_ptr(), counters.data_ptr(), plan.chunk, plan.n_chunks, stream
 
 
-def _q8_lib(fn: str, n_ptr: int, layer: bool = False):
-    """The C entry `fn` of csrc/flash_decode_q8.cu: n_ptr pointers (q, the
-    slab or the in-flight row and the stack, scales), [layer,] pos,
+def _split_lib(source: str, fn: str, n_ptr: int, layer: bool = False):
+    """The C entry `fn` of a split kernel's csrc/<source>.cu: n_ptr pointers
+    (q, the slab or the in-flight row and the stack, scales), [layer,] pos,
     pos_stride, pos_scalar, bias, out, out_f32, B, S, H, D, ws, counters,
     chunk, n_chunks, stream."""
-    f = getattr(_build.load("flash_decode_q8"), fn)
+    f = getattr(_build.load(source), fn)
     if f.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         f.argtypes = ([p] * n_ptr + [i] * layer + [p, i, i, p, p, i, i, i, i, i]
@@ -273,13 +285,14 @@ def _q8_lib(fn: str, n_ptr: int, layer: bool = False):
     return f
 
 
-def _lib(name: str, fn: str, scale: bool = False, split: bool = False):
-    """The C entry of csrc/<name>.cu: q, kv, [scale,] pos, pos_stride,
-    pos_scalar, bias, out, out_f32, B, S, H, D, [split,] stream."""
-    f = getattr(_build.load(name), fn)
+def _q4_lib():
+    """The C entry flash_decode_q4 of csrc/flash_decode_q4.cu: q, kv, scale,
+    pos, pos_stride, pos_scalar, bias, out, out_f32, B, S, H, D, split,
+    stream."""
+    f = _build.load("flash_decode_q4").flash_decode_q4
     if f.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p] + [p] * scale + [p, i, i, p, p, i, i, i, i, i] + [i] * split + [p]
+        f.argtypes = [p, p, p, p, i, i, p, p, i, i, i, i, i, i, p]
         f.restype = ctypes.c_int
     return f
 
@@ -300,12 +313,11 @@ def flash_decode_attention(
     b, s, d = _check(q, kv, pos, col_bias, n_head)
     qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
     out = torch.empty((b, n_head * d), dtype=q.dtype, device=q.device)
-    pos_ptr, pos_stride, pos_scalar = _pos_args(pos, b)
-    err = _lib("flash_decode", "flash_decode_attention")(
-        qb.data_ptr(), kv.data_ptr(), pos_ptr, pos_stride, pos_scalar,
+    err = _split_lib("flash_decode", "flash_decode_attention", 2)(
+        qb.data_ptr(), kv.data_ptr(), *_pos_args(pos, b),
         None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
         int(out.dtype == torch.float32), b, s, n_head, d,
-        torch.cuda.current_stream(kv.device).cuda_stream,
+        *_split_args(kv, b, s, n_head, d, pos, stacked=False),
     )
     if err != 0:
         raise RuntimeError(f"flash_decode_attention launch failed: cudaError {err}")
@@ -334,11 +346,11 @@ def flash_decode_attention_q8(
     _check_scale(scale, kv, n_head)
     qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
     out = torch.empty((b, n_head * d), dtype=q.dtype, device=q.device)
-    err = _q8_lib("flash_decode_q8", 3)(
+    err = _split_lib("flash_decode_q8", "flash_decode_q8", 3)(
         qb.data_ptr(), kv.data_ptr(), scale.data_ptr(), *_pos_args(pos, b),
         None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
         int(out.dtype == torch.float32), b, s, n_head, d,
-        *_q8_args(kv, b, s, n_head, d, pos, stacked=False),
+        *_split_args(kv, b, s, n_head, d, pos, stacked=False),
     )
     if err != 0:
         raise RuntimeError(f"flash_decode_attention_q8 launch failed: cudaError {err}")
@@ -436,12 +448,12 @@ def flash_decode_attention_q8_append(
     _check_new_row(new_kv, new_s, kv_cache, n_head, d)
     qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
     out = torch.empty((b, n_head * d), dtype=q.dtype, device=q.device)
-    err = _q8_lib("flash_decode_q8_append", 5)(
+    err = _split_lib("flash_decode_q8", "flash_decode_q8_append", 5)(
         qb.data_ptr(), new_kv.data_ptr(), new_s.data_ptr(), kv_cache.data_ptr(),
         kv_scale.data_ptr(), *_pos_args(pos, b),
         None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
         int(out.dtype == torch.float32), b, s, n_head, d,
-        *_q8_args(kv_cache, b, s, n_head, d, pos, stacked=True))
+        *_split_args(kv_cache, b, s, n_head, d, pos, stacked=True))
     if err != 0:
         raise RuntimeError(f"flash_decode_attention_q8_append launch failed: cudaError {err}")
     flash_decode_attention_q8_append.launches += 1
@@ -473,7 +485,7 @@ def flash_decode_attention_q4(
     _check_scale(scale, kv, n_head)
     qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
     out = torch.empty((b, n_head * d), dtype=q.dtype, device=q.device)
-    err = _lib("flash_decode_q4", "flash_decode_q4", scale=True, split=True)(
+    err = _q4_lib()(
         qb.data_ptr(), kv.data_ptr(), scale.data_ptr(), *_pos_args(pos, b),
         None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
         int(out.dtype == torch.float32), b, s, n_head, d, int(split),

@@ -124,15 +124,15 @@ def _check_scales(new_s, sc_stack, stack, n_head):
                          f"{stack.device}, got {tuple(new_s.shape)} {new_s.dtype}")
 
 
-def _lib(source: str, entry: str, n_ptr: int, split: bool = False):
-    """C entry `entry` of csrc/<source>.cu: n_ptr pointers (q, the in-flight
-    row [, its scales], the stack [, its scales]), layer, pos, pos_stride,
-    pos_scalar, bias, out, out_f32, B, S, H, D, [split,] stream. (The int8
-    entry takes the split kernel's scratch too: `flash_decode._q8_lib`.)"""
-    f = getattr(_build.load(source), entry)
+def _q4_lib():
+    """C entry flash_stacked_q4 of csrc/flash_decode_q4.cu: q, the in-flight
+    row, its scales, the stack, its scales, layer, pos, pos_stride,
+    pos_scalar, bias, out, out_f32, B, S, H, D, split, stream. (The bf16 and
+    int8 entries take the split kernels' scratch: `flash_decode._split_lib`.)"""
+    f = _build.load("flash_decode_q4").flash_stacked_q4
     if f.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p] * n_ptr + [i, p, i, i, p, p, i, i, i, i, i] + [i] * split + [p]
+        f.argtypes = [p] * 5 + [i, p, i, i, p, p, i, i, i, i, i, i, p]
         f.restype = ctypes.c_int
     return f
 
@@ -169,9 +169,10 @@ def flash_stacked(
     if kv_stack.device.type != "cuda":
         raise ValueError(f"unsupported device {kv_stack.device}")
     b, s, d = _check(q, new_kv, kv_stack, layer, pos, col_bias, n_head, torch.bfloat16)
-    out = _run(_lib("flash_decode", "flash_stacked", 3), "flash_stacked", q,
+    f = fd._split_lib("flash_decode", "flash_stacked", 3, layer=True)
+    out = _run(f, "flash_stacked", q,
                (new_kv.data_ptr(), kv_stack.data_ptr()), layer, pos, col_bias, b, s, n_head, d,
-               (_stream(q),))
+               fd._split_args(kv_stack, b, s, n_head, d, pos, stacked=True))
     flash_stacked.launches += 1
     return out
 
@@ -199,10 +200,11 @@ def flash_stacked_q8(
         raise ValueError(f"unsupported device {kv_stack.device}")
     b, s, d = _check(q, new_kv, kv_stack, layer, pos, col_bias, n_head, torch.int8)
     _check_scales(new_s, sc_stack, kv_stack, n_head)
-    out = _run(fd._q8_lib("flash_stacked_q8", 5, layer=True), "flash_stacked_q8", q,
+    f = fd._split_lib("flash_decode_q8", "flash_stacked_q8", 5, layer=True)
+    out = _run(f, "flash_stacked_q8", q,
                (new_kv.data_ptr(), new_s.data_ptr(), kv_stack.data_ptr(), sc_stack.data_ptr()),
                layer, pos, col_bias, b, s, n_head, d,
-               fd._q8_args(kv_stack, b, s, n_head, d, pos, stacked=True))
+               fd._split_args(kv_stack, b, s, n_head, d, pos, stacked=True))
     flash_stacked_q8.launches += 1
     return out
 
@@ -233,7 +235,7 @@ def flash_stacked_q4(
     b, s, d = _check(q, new_c, kv_stack, layer, pos, col_bias, n_head, torch.int8,
                      int4_head_dim=head_dim)
     _check_scales(new_s, sc_stack, kv_stack, n_head)
-    out = _run(_lib("flash_decode_q4", "flash_stacked_q4", 5, split=True), "flash_stacked_q4", q,
+    out = _run(_q4_lib(), "flash_stacked_q4", q,
                (new_c.data_ptr(), new_s.data_ptr(), kv_stack.data_ptr(), sc_stack.data_ptr()),
                layer, pos, col_bias, b, s, n_head, d, (int(split), _stream(q)))
     flash_stacked_q4.launches += 1

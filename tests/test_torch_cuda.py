@@ -390,6 +390,141 @@ def test_q8_split_kernels_replay_in_a_cuda_graph(dev, kind):
     assert torch.equal(out, want)
 
 
+# ---- the split bf16 kernels (B1, B12-bf16): chunk boundaries, batch ------
+# ---- invariance, determinism, counters, CUDA-graph replay ----------------
+
+BF16_KINDS = ("flat", "stacked")
+
+
+def _bf16_inputs(dev, b, s, h, d, bias, seed=6):
+    """q, a 2-layer bf16 stack, the in-flight row and a left-padded caption
+    bias (row i's first 7 i columns, row 1's whole first chunk and 3 more)
+    or None."""
+    from controlar_tpu_torch.ops.flash_decode import CHUNK_ROWS
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, h * d, generator=g, device=dev) * 0.5).bfloat16()
+    stack = (torch.randn(2, b, s, 2 * h * d, generator=g, device=dev) * 0.5).bfloat16()
+    new_kv = (torch.randn(b, 2 * h * d, generator=g, device=dev) * 0.5).bfloat16()
+    col_bias = None
+    if bias:
+        pad = torch.arange(b, device=dev)[:, None] * 7
+        if b > 1:
+            pad[1] = CHUNK_ROWS[torch.bfloat16][d] + 3
+        col_bias = torch.where(torch.arange(s, device=dev)[None, :] < pad, -1e9, 0.0).float()
+    return dict(q=q, stack=stack, new_kv=new_kv, bias=col_bias)
+
+
+def _bf16_run(kind, x, pos, plain=False):
+    """The flat kernel (or plain version) on layer 0 of the stack, the
+    stacked one on layer 1; the stacked call's bias is 0 at the in-flight
+    row, as its callers keep it."""
+    from controlar_tpu_torch.ops import flash_decode_stacked as fds
+
+    b, s, n_head = x["q"].shape[0], x["stack"].shape[2], x["n_head"]
+    cb = x["bias"]
+    if kind == "flat":
+        fn = flash_decode_attention_ref if plain else flash_decode_attention
+        return fn(x["q"], x["stack"][0], pos, cb, n_head=n_head)
+    if cb is not None:
+        cb = cb.clone()
+        p = torch.as_tensor(pos, device=cb.device).long().reshape(-1).expand(b)
+        cb[torch.arange(b, device=cb.device), p.clamp(max=s - 1)] = 0.0
+    fn = fds.flash_stacked_ref if plain else fds.flash_stacked
+    return fn(x["q"], x["new_kv"], x["stack"], 1, pos, cb, n_head=n_head)
+
+
+def _bf16_positions(d, s):
+    """Positions on each side of a chunk boundary (the live rows, pos + 1,
+    end one before, on and one after it), 0 (1 for the stacked call, as its
+    callers clamp) and S - 1."""
+    from controlar_tpu_torch.ops.flash_decode import CHUNK_ROWS
+
+    c = CHUNK_ROWS[torch.bfloat16][d]
+    return {"chunk-1": c - 2, "chunk": c - 1, "chunk+1": c, "zero": 0, "last": s - 1,
+            "per_slot": [c - 2, c - 1, c, s - 1]}
+
+
+@pytest.mark.parametrize("kind", BF16_KINDS)
+@pytest.mark.parametrize("d", [64, 100, 128])
+@pytest.mark.parametrize("h", [3, 4])
+@pytest.mark.parametrize("pos", ["chunk-1", "chunk", "chunk+1", "zero", "last", "per_slot"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_bf16_split_kernels_match_plain_versions(dev, kind, d, h, pos, bias):
+    """H = 3 at D = 100 gives heads at 8-byte offsets (8-byte copies)."""
+    b, s = 4, 768
+    pos = _bf16_positions(d, s)[pos]
+    if kind == "stacked" and pos == 0:
+        pos = 1
+    if isinstance(pos, list):
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    x = dict(_bf16_inputs(dev, b, s, h, d, bias), n_head=h)
+    got = _bf16_run(kind, x, pos)
+    torch.cuda.synchronize()
+    want = _bf16_run(kind, x, pos, plain=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("kind", BF16_KINDS)
+@pytest.mark.parametrize("d,h", [(64, 12), (100, 8), (128, 8)])
+def test_bf16_split_kernels_are_batch_invariant_and_deterministic(dev, kind, d, h):
+    """A row's output is the same bit for bit in a batch of 16 (per-slot
+    positions on a grid over the whole cache), alone (an int position: a
+    grid of its live chunks; a 1-row position tensor) and over 3 launches."""
+    b, s = 16, 768
+    c = _bf16_positions(d, s)
+    pos_list = [c["chunk-1"], c["chunk"], c["chunk+1"], s - 1, 1, 2, 100, 255, 256, 300, 400,
+                500, 575, 600, 700, 767]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    x = dict(_bf16_inputs(dev, b, s, h, d, True), n_head=h)
+    full = _bf16_run(kind, x, pos)
+    for _ in range(2):
+        assert torch.equal(_bf16_run(kind, x, pos), full)
+    for i in (0, 1, 2, 3, 9, 15):
+        alone = {k: v if k == "n_head" or v is None else
+                 (v[:, [i]] if k == "stack" else v[[i]]).contiguous() for k, v in x.items()}
+        assert torch.equal(_bf16_run(kind, alone, pos_list[i]), full[i:i + 1])
+        assert torch.equal(_bf16_run(kind, alone, pos[i:i + 1].clone()), full[i:i + 1])
+
+
+def test_bf16_split_counters_are_left_zero(dev):
+    """Every launch leaves the arrival counters of its stream zero, across
+    calls of different shapes, grids and kernels."""
+    from controlar_tpu_torch.ops import _scratch
+
+    for kind in BF16_KINDS:
+        for b, h, d, pos in ((16, 12, 64, 575), (3, 3, 100, 40), (5, 4, 128, 767), (2, 12, 64, 1)):
+            x = dict(_bf16_inputs(dev, b, 768, h, d, True), n_head=h)
+            _bf16_run(kind, x, pos)
+            _bf16_run(kind, x, torch.full((b,), pos, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counters, _ = _scratch._scratch[(torch.cuda.current_device(), stream)]
+    assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("kind", BF16_KINDS)
+def test_bf16_split_kernels_replay_in_a_cuda_graph(dev, kind):
+    """One call captured with a device position vector, replayed after the
+    vector changed in place, equals the eager call at the new positions."""
+    b, s, h, d = 16, 768, 12, 64
+    x = dict(_bf16_inputs(dev, b, s, h, d, False), n_head=h)
+    pos = torch.tensor([1, 62, 63, 64, 100, 255, 256, 575] * 2, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # the side stream's scratch, before the capture
+        _bf16_run(kind, x, pos)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = _bf16_run(kind, x, pos)
+    pos.copy_(torch.tensor([2, 63, 64, 65, 17, 511, 400, 767] * 2, dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, _bf16_run(kind, x, pos))
+
+
 # ---- W4 weights: the dequant-matmul and the fused FFN ---------------------
 
 def _w4(dev, k, n, seed):
@@ -796,6 +931,51 @@ def test_flash_train_kernels_are_deterministic_and_take_f32(dev):
     assert all(torch.equal(a, b) for a, b in zip(*runs))  # no atomics: bit for bit
     with pytest.raises(ValueError):
         ft.flash_train_fwd(q.detach().half(), k.detach().half(), v.detach().half())
+
+
+def _train_bwd_inputs(dev, b, t, h, d, pads, seed):
+    """q, k, v, dO (B, T, H, D) bf16, the caption bias of the left pads
+    (batch row i's first pads[i] columns masked: those rows see no key) and
+    lse, delta from the plain forward; dO is zero on the masked rows."""
+    from controlar_tpu_torch.ops import flash_train as ft
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=g, device=dev).bfloat16() for _ in range(4))
+    valid = torch.arange(t, device=dev)[None, :] >= torch.tensor(pads, device=dev)[:, None]
+    do = do * valid[:, :, None, None]
+    kb = ft.key_bias(valid)
+    out, lse = ft.flash_train_fwd_ref(q, k, v, kb)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, kb, do, lse, delta
+
+
+@pytest.mark.parametrize("d", [64, 100])
+@pytest.mark.parametrize("t", [40, 64, 65, 130, 333])
+def test_flash_train_backward_matches_plain_version_at_ragged_t(dev, d, t):
+    """dq and dk/dv at T below one 64-row tile, on it, one past it and not a
+    multiple of it, with a bias that masks whole rows (3 left pads in batch
+    row 0, T // 2 in row 1)."""
+    from controlar_tpu_torch.ops import flash_train as ft
+
+    args = _train_bwd_inputs(dev, 2, t, 3, d, [3, t // 2], seed=t + d)
+    dq = ft.flash_train_dq(*args)
+    dk, dv = ft.flash_train_dkv(*args)
+    torch.cuda.synchronize()
+    for got, want in zip((dq, dk, dv), ft.flash_train_bwd_ref(*args)):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), **_TRAIN_TOL)
+
+
+@pytest.mark.parametrize("d", [64, 100])
+def test_flash_train_backward_is_bitwise_deterministic(dev, d):
+    """Two launches of dq and of dk/dv give the same bits (no atomics, a
+    fixed order of sums)."""
+    from controlar_tpu_torch.ops import flash_train as ft
+
+    args = _train_bwd_inputs(dev, 2, 333, 4, d, [5, 120], seed=d)
+    first = (ft.flash_train_dq(*args), *ft.flash_train_dkv(*args))
+    second = (ft.flash_train_dq(*args), *ft.flash_train_dkv(*args))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_control_train_step_card_matches_cpu(dev):
