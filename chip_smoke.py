@@ -152,21 +152,23 @@ def time_ms(fn, reps: int = 20, flush: torch.Tensor | None = None) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def host_us(fn, reps: int = 100, rounds: int = 5) -> float:
-    """Median over rounds of the host microseconds a call of fn takes to
+def host_us(fn, reps: int = 50, rounds: int = 20) -> float:
+    """Least over rounds of the host microseconds a call of fn takes to
     return: a device-side sleep first keeps every launch queued behind it,
-    so no call waits for the device."""
+    so no call waits for the device. The least, since what else runs on a
+    shared host only adds to a round (medians of one tree's rows spread
+    2x)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(rounds):
-        torch.cuda._sleep(100_000_000)
+        torch.cuda._sleep(30_000_000)  # ~15 ms, past the round's calls
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         times.append((time.perf_counter() - t0) / reps * 1e6)
         torch.cuda.synchronize()
-    return statistics.median(times)
+    return min(times)
 
 
 def _kernels():
@@ -724,61 +726,77 @@ def phase_kernel_append():
 
 def _chunk_cases(with_t2i: bool):
     """(name, heads, head_dim, cache rows, chunk sizes K, positions, with the
-    caption bias) of the chunk kernels' checks: the spec_c2i_3b verify at its last
-    cycles and per-row positions (one past the block), the t2i shapes with
-    the left-padded bias including chunks inside the prefix (the diagonal
-    exception), K = 1 and 8, and a 120-query prefill chunk."""
+    caption bias, timed (K, pos, bias) calls) of the chunk kernels' checks:
+    the spec_c2i_3b verify at its last cycles and per-row positions (one
+    past the block), the t2i shapes with the left-padded bias including
+    chunks inside the prefix (the diagonal exception), K = 1 and 8, and a
+    120-query prefill chunk. `_phase_chunk` adds the positions at which the
+    last query's visible rows end on each side of a split-kernel chunk
+    boundary."""
     def rows(*p):
         return torch.tensor(p, dtype=torch.int32, device="cuda")
 
     per_row = rows(1, 2, 100, 254, 255, 300, 400, 500, 572, 572, 575, 576, 579, 10, 20, 573)
-    cases = [("3b_verify", 32, 100, 768, (4,), (572, per_row), False),
-             ("3b_k1_k8", 32, 100, 768, (1, 8), (572, per_row), True)]
+    cases = [("3b_verify", 32, 100, 768, (4,), (572, per_row), False, ((4, 572, False),)),
+             ("3b_k1_k8", 32, 100, 768, (1, 8), (572, per_row), True,
+              ((1, 572, False), (8, 572, False)))]
     if with_t2i:
         t2i = rows(0, 3, 100, 117, 119, 120, 500, 1000, 1139, 0, 50, 119, 120, 130, 700, 1100)
-        cases += [("t2i_verify", 20, 64, 1280, (4,), (119, 1139, t2i), True),
-                  ("t2i_prefill", 20, 64, 1280, (120,), (0,), True)]
+        cases += [("t2i_verify", 20, 64, 1280, (4,), (119, 1139, t2i), True, ((4, 1139, True),)),
+                  ("t2i_prefill", 20, 64, 1280, (120,), (0,), True, ((120, 0, True),))]
     return cases
 
 
-def _chunk_row(name, fn, plain, slab, q, h, d, s, pos, row_bytes, flush):
+def _chunk_row(name, fn, plain, slab, q, h, d, s, pos, row_bytes, bias, flush):
     """Time one chunk-attention call (kernel, plain version, SDPA over the
     first pos + K rows of the (dequantized) bf16 slab with the equivalent
-    boolean mask) and its bound: q and out bf16, row_bytes per live row
-    (values and the f32 scales of a quantized slab); 4 fp32 flops per value
-    pair and query."""
+    mask: boolean, or the caption bias off each query's own row) and its
+    bound: q and out bf16, row_bytes per live row (values and the f32
+    scales of a quantized slab) and the bias row; per value pair and query
+    2 flops of q.k on the bf16 tensor cores and 2 of P.V in fp32, each at
+    its peak rate. host_us: the wrapper's host time a call."""
     import torch.nn.functional as F
 
     b, k, hd = q.shape
     n = pos + k
-    nbytes = 2 * b * k * hd * 2 + b * n * row_bytes
-    bound, by = _roofline(nbytes, 4 * b * k * n * h * d, FP32_FLOPS)
+    nbytes = 2 * b * k * hd * 2 + b * n * (row_bytes + 4 * (bias is not None))
+    pairs = b * k * n * h * d  # value pairs times queries
+    # q.k's bf16 tensor-core flops as the fp32 flops that take the same time
+    flops = 2 * pairs + 2 * pairs * FP32_FLOPS / BF16_FLOPS
+    bound, by = _roofline(nbytes, flops, FP32_FLOPS)
     q4 = q.view(b, k, h, d).transpose(1, 2)
     k4 = slab[:, :n, :hd].reshape(b, n, h, d).transpose(1, 2)
     v4 = slab[:, :n, hd:].reshape(b, n, h, d).transpose(1, 2)
-    mask = (torch.arange(n, device="cuda")[None, :]
-            <= pos + torch.arange(k, device="cuda")[:, None])[None, None]
+    cols = torch.arange(n, device="cuda")[None, :]
+    own = pos + torch.arange(k, device="cuda")[:, None]
+    mask = (cols <= own)[None, None]
+    if bias is not None:
+        add = torch.where(cols == own, 0.0, bias[:, None, :n])  # (B, K, n)
+        mask = torch.where(mask, add[:, None], float("-inf")).bfloat16()
     lib = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), flush=flush)
-    return dict(case=name, b=b, k=k, h=h, d=d, s=s, pos=pos, ms=time_ms(fn, flush=flush),
-                plain_ms=time_ms(plain, flush=flush), library_ms=lib, bound_ms=bound, bound_by=by)
+    return dict(case=name, b=b, k=k, h=h, d=d, s=s, pos=pos, bias=bias is not None,
+                ms=time_ms(fn, flush=flush), plain_ms=time_ms(plain, flush=flush), library_ms=lib,
+                bound_ms=bound, bound_by=by, host_us=host_us(fn))
 
 
 def _phase_chunk(phase, kind):
     """One chunk kernel against its plain version over `_chunk_cases`, each
-    position with and without the bias where the case has one; timed at the
-    spec cell's last verify (16 rows, K = 4, 32 x 100 heads, S 768, pos
-    572). kind: bf16, q8 or q4 (split and interleaved)."""
+    position with and without the bias where the case has one; timed (with
+    host_us) at the spec cell's last verify (16 rows, K = 4, 32 x 100
+    heads, S 768, pos 572), the first of the rows, and at K = 1 and 8, the
+    t2i verify with the caption bias (bf16, q8) and the 120-query prefill
+    chunk. kind: bf16, q8 or q4 (split and interleaved; split timed)."""
     from controlar_tpu_torch.ops import flash_chunk as fc
     from controlar_tpu_torch.quant import (
         dequantize_kv4_slab, dequantize_kv_slab, quantize_kv_rows, quantize_kv_rows_4)
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    max_err, timed, layouts = 0.0, None, (True, False) if kind == "q4" else (None,)
-    for name, h, d, s, ks, positions, with_bias in _chunk_cases(with_t2i=kind != "q4"):
+    max_err, timings, layouts = 0.0, [], (True, False) if kind == "q4" else (None,)
+    for name, h, d, s, ks, positions, with_bias, timed_at in _chunk_cases(kind != "q4"):
         b = 16
         kv = (torch.randn(b, s, 2 * h * d, generator=gen, device="cuda") * 0.5).bfloat16()
-        biases = (None, _left_pad_bias(s, 120)) if with_bias else (None,)
+        bias = _left_pad_bias(s, 120) if with_bias else None
         for split in layouts:
             if kind == "bf16":
                 args, kw = (kv,), {}
@@ -796,10 +814,15 @@ def _phase_chunk(phase, kind):
                 ref, kern = fc.flash_chunk_attention_q4_ref, fc.flash_chunk_attention_q4
                 slab = dequantize_kv4_slab(rows, scale, h, d, torch.bfloat16, split=split)
                 row_bytes = h * d + 2 * h * 4
+            qs = {}
             for kq in ks:
-                q = (torch.randn(b, kq, h * d, generator=gen, device="cuda") * 0.5).bfloat16()
-                for pos in positions:
-                    for col_bias in biases:
+                q = qs[kq] = (torch.randn(b, kq, h * d, generator=gen, device="cuda")
+                              * 0.5).bfloat16()
+                # the last query's visible rows end one before, on and one after a chunk boundary
+                edges = (tuple(max(fc.CHUNK_ROWS + e - kq, 0) for e in (-1, 0, 1))
+                         if kq < 120 else ())
+                for pos in (*positions, *edges):
+                    for col_bias in (None, bias) if with_bias else (None,):
                         out = kern(q, *args, pos, col_bias, n_head=h, **kw)
                         torch.cuda.synchronize()
                         err, ok = _kernel_error(out, ref(q, *args, pos, col_bias, n_head=h, **kw))
@@ -807,15 +830,31 @@ def _phase_chunk(phase, kind):
                         check(ok, phase, f"{name} K={kq} split={split} pos={where} bias="
                               f"{col_bias is not None}: max_abs_err {err} over the limit")
                         max_err = max(max_err, err)
-            if name == "3b_verify" and timed is None:
-                pos_t = torch.full((b,), 572, dtype=torch.int32, device="cuda")
-                timed = _chunk_row(f"{name}{'' if split is None else '_split'}",
-                                   lambda: kern(q, *args, pos_t, None, n_head=h, **kw),
-                                   lambda: ref(q, *args, pos_t, None, n_head=h, **kw),
-                                   slab, q, h, d, s, 572, row_bytes, flush)
+            if split is False:  # q4: the split layout is the cells' and is timed
+                continue
+            for kq, at, timed_bias in timed_at:
+                q, cb = qs[kq], bias if timed_bias else None
+                pos_t = torch.full((b,), at, dtype=torch.int32, device="cuda")
+                timings.append(_chunk_row(
+                    f"{name}_k{kq}{'' if split is None else '_split'}",
+                    lambda: kern(q, *args, pos_t, cb, n_head=h, **kw),
+                    lambda: ref(q, *args, pos_t, cb, n_head=h, **kw),
+                    slab, q, h, d, s, at, row_bytes, cb, flush))
     emit(phase, ok=True, name=kern.__name__, max_abs_err=max_err, atol=KERNEL_ATOL,
-         rtol=KERNEL_RTOL, timings=[timed])
-    return timed, max_err
+         rtol=KERNEL_RTOL, timings=timings)
+    return timings[0], max_err
+
+
+def phase_kernel_chunk():
+    return _phase_chunk("kernel_chunk", "bf16")
+
+
+def phase_kernel_chunk_q8():
+    return _phase_chunk("kernel_chunk_q8", "q8")
+
+
+def phase_kernel_chunk_q4():
+    return _phase_chunk("kernel_chunk_q4", "q4")
 
 
 # stream, cache dtype, cache rows, row width (elements): what a GPT-3B verify
@@ -2157,12 +2196,12 @@ def main() -> int:
         "w4_ffn": (*phase_kernel_w4ffn(), "GPT-3B FFN: 16 x 3200, F=8704"),
         "cache_append_rows": (*phase_kernel_append(),
                               "serve_c2i step: 16 GPT-B bf16 rows of 3072 B, S 768"),
-        "flash_chunk_attention": (*_phase_chunk("kernel_chunk", "bf16"),
+        "flash_chunk_attention": (*phase_kernel_chunk(),
                                   "spec_c2i_3b last verify: B=16 K=4 H=32 D=100 S=768 pos=572"),
-        "flash_chunk_attention_q8": (*_phase_chunk("kernel_chunk_q8", "q8"),
+        "flash_chunk_attention_q8": (*phase_kernel_chunk_q8(),
                                      "spec_c2i_3b_w8kv8 last verify: B=16 K=4 H=32 D=100 "
                                      "S=768 pos=572"),
-        "flash_chunk_attention_q4": (*_phase_chunk("kernel_chunk_q4", "q4"),
+        "flash_chunk_attention_q4": (*phase_kernel_chunk_q4(),
                                      "spec_c2i_3b_w4kv4 last verify, split: B=16 K=4 H=32 "
                                      "D=100 S=768 pos=572"),
         "cache_append_block": (*phase_kernel_append_block(),

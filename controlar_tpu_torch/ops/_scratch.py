@@ -1,8 +1,9 @@
 """Per-stream scratch of the kernels that split their work across blocks.
 
-The W4 kernels (`ops/w4_matmul.py`) and the bf16 and int8 decode attention
-(`ops/flash_decode.py`, `ops/flash_decode_stacked.py`) cut one product or one
-attention into work items whose partials meet in an fp32 workspace; the
+The W4 kernels (`ops/w4_matmul.py`), the bf16 and int8 decode attention
+(`ops/flash_decode.py`, `ops/flash_decode_stacked.py`) and the chunk
+attention (`ops/flash_chunk.py`) cut one product or one attention into work
+items whose partials meet in an fp32 workspace; the
 block that arrives last at an int32 counter merges them and resets the
 counter. Both come from here, at fixed addresses per (device, stream), so a
 call allocates nothing besides its output and a CUDA graph can capture it.

@@ -20,16 +20,24 @@ On a CUDA tensor each launches its kernel; on a CPU tensor it computes the
 same function with its plain version (`*_ref`), a masked einsum over the
 (dequantized) slab with the kernels' numerics: q rounded to bf16, scores
 scaled by the k scale after the dot product, the v scale folded into p.
+
+The kernels (`csrc/flash_chunk.cuh`) split each (batch row, head, tile of
+up to 8 queries) into chunks of `CHUNK_ROWS` cache rows, one warp each,
+and merge the parts in chunk order in the same launch; `chunk_plan` gives
+the grid, and the workspace and arrival counters come from the stream's
+scratch (`ops/_scratch.py`), so a call allocates only its output.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from controlar_tpu_torch import _build
+from controlar_tpu_torch.ops._scratch import _scratch_for
 from controlar_tpu_torch.ops.flash_decode import Pos, _check, _check_scale, _pos_args
 from controlar_tpu_torch.ops.w4_matmul import unpack_nibbles
 
@@ -130,25 +138,75 @@ def flash_chunk_attention_q4_ref(
     return out.reshape(q.shape).to(q.dtype)
 
 
-def _launch(wrapper: str, src: str, fn: str, q, kv, scale, pos, col_bias, n_head, d,
-            split=None):
-    """Allocate the output and launch the C entry fn of csrc/<src>.cu (q,
-    kv, [scale,] pos, pos_stride, pos_scalar, bias, out, out_f32, B, S, H,
-    D, K, [split,] stream); raise on a launch error."""
+# The chunk kernels cut the rows a query tile sees into chunks of this many
+# rows, one work item per (batch row, head, tile, chunk): one constant for
+# every slab and D, the kernels' `chunk::kChunk` (csrc/flash_chunk.cuh), so
+# that a row's partition, and its output bit for bit, depend on its own pos
+# only.
+CHUNK_ROWS = 64
+
+
+class ChunkPlan(NamedTuple):
+    nq: int         # queries a tile (2, 4 or 8)
+    n_tiles: int    # tiles, ceil(K / nq)
+    n_chunks: int   # work items of CHUNK_ROWS rows a (batch row, head, tile)
+    ws_floats: int  # fp32 workspace: a part of nq x (acc[D], m, l, 2 spare) a work item
+    counters: int   # int32 arrival counters, one a (batch row, head, tile)
+
+
+def chunk_tile(k: int) -> int:
+    """Queries a tile: the smallest of 2, 4 and 8 that holds K, at most 8."""
+    return 2 if k <= 2 else (4 if k <= 4 else 8)
+
+
+def chunk_plan(b: int, s: int, n_head: int, d: int, k: int, pos: Pos) -> ChunkPlan:
+    """The launch plan of the chunk kernels over a slab of S = s rows for
+    B = b rows and K = k queries. The last query of a row sees rows
+    [0, pos + K): for an int pos the grid holds those rows' chunks; for a
+    pos tensor, whose values stay on the device, it covers the whole cache
+    and the work items past a tile's rows exit. It reads no SM count."""
+    rows = s if isinstance(pos, torch.Tensor) else min(max(pos + k, 0), s)
+    return _chunk_plan(b, n_head, d, k, rows)
+
+
+@functools.lru_cache(maxsize=4096)
+def _chunk_plan(b: int, n_head: int, d: int, k: int, rows: int) -> ChunkPlan:
+    nq = chunk_tile(k)
+    n_tiles = -(-k // nq)
+    n_chunks = max(1, -(-rows // CHUNK_ROWS))
+    tiles = b * n_head * n_tiles
+    return ChunkPlan(nq, n_tiles, n_chunks, tiles * n_chunks * nq * (d + 4), tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(src: str, fn: str, scaled: bool, split: bool):
+    """The C entry fn of csrc/<src>.cu: q, kv, [scale,] pos, pos_stride,
+    pos_scalar, bias, out, out_f32, B, S, H, D, K, [split,] ws, counters, nq,
+    n_chunks, stream."""
     f = getattr(_build.load(src), fn)
-    if f.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = ([p, p] + [p] * (scale is not None) + [p, i, i, p, p, i, i, i, i, i, i]
-                      + [i] * (split is not None) + [p])
-        f.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    f.argtypes = ([p, p] + [p] * scaled + [p, i, i, p, p, i, i, i, i, i, i] + [i] * split
+                  + [p, p, i, i, p])
+    f.restype = ctypes.c_int
+    return f
+
+
+def _launch(wrapper: str, f, q, kv, scale, pos, col_bias, n_head, d, split=()):
+    """Allocate the output and launch the C entry f (`_entry`) with the
+    stream's scratch; raise on a launch error."""
+    if kv.data_ptr() % 16:
+        raise ValueError(f"{wrapper}: kv must be 16-byte aligned")
     b, k = q.shape[:2]
+    s = kv.shape[1]
+    plan = chunk_plan(b, s, n_head, d, k, pos)
+    stream = torch.cuda.current_stream(kv.device).cuda_stream
+    counters, ws = _scratch_for(kv.device, stream, plan.counters, plan.ws_floats)
     qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = f(qb.data_ptr(), kv.data_ptr(), *([] if scale is None else [scale.data_ptr()]),
-            *_pos_args(pos, b), None if col_bias is None else col_bias.data_ptr(),
-            out.data_ptr(), int(out.dtype == torch.float32), b, kv.shape[1], n_head, d, k,
-            *([] if split is None else [int(split)]),
-            torch.cuda.current_stream(kv.device).cuda_stream)
+    err = f(qb.data_ptr(), kv.data_ptr(), *scale, *_pos_args(pos, b),
+            None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
+            int(out.dtype == torch.float32), b, s, n_head, d, k, *split, ws.data_ptr(),
+            counters.data_ptr(), plan.nq, plan.n_chunks, stream)
     if err != 0:
         raise RuntimeError(f"{wrapper} launch failed: cudaError {err}")
     return out
@@ -168,8 +226,8 @@ def flash_chunk_attention(
     if kv.device.type != "cuda":
         raise ValueError(f"unsupported device {kv.device}")
     _, _, d = _check(q, kv, pos, col_bias, n_head, chunk=True)
-    out = _launch("flash_chunk_attention", "flash_chunk", "flash_chunk_attention", q, kv, None,
-                  pos, col_bias, n_head, d)
+    f = _entry("flash_chunk", "flash_chunk_attention", False, False)
+    out = _launch("flash_chunk_attention", f, q, kv, (), pos, col_bias, n_head, d)
     flash_chunk_attention.launches += 1
     return out
 
@@ -193,8 +251,9 @@ def flash_chunk_attention_q8(
         raise ValueError(f"unsupported device {kv.device}")
     _, _, d = _check(q, kv, pos, col_bias, n_head, kv_dtype=torch.int8, chunk=True)
     _check_scale(scale, kv, n_head)
-    out = _launch("flash_chunk_attention_q8", "flash_chunk", "flash_chunk_q8", q, kv, scale,
-                  pos, col_bias, n_head, d)
+    f = _entry("flash_chunk", "flash_chunk_q8", True, False)
+    out = _launch("flash_chunk_attention_q8", f, q, kv, (scale.data_ptr(),), pos, col_bias,
+                  n_head, d)
     flash_chunk_attention_q8.launches += 1
     return out
 
@@ -222,8 +281,9 @@ def flash_chunk_attention_q4(
     _, _, d = _check(q, kv, pos, col_bias, n_head, kv_dtype=torch.int8, int4_head_dim=head_dim,
                      chunk=True)
     _check_scale(scale, kv, n_head)
-    out = _launch("flash_chunk_attention_q4", "flash_chunk_q4", "flash_chunk_q4", q, kv, scale,
-                  pos, col_bias, n_head, d, split)
+    f = _entry("flash_chunk_q4", "flash_chunk_q4", True, True)
+    out = _launch("flash_chunk_attention_q4", f, q, kv, (scale.data_ptr(),), pos, col_bias,
+                  n_head, d, (int(split),))
     flash_chunk_attention_q4.launches += 1
     return out
 

@@ -821,6 +821,156 @@ def test_chunk_wrapper_rejects(dev, bad):
         flash_chunk_attention(q, kv, pos, bias, n_head=h)
 
 
+# ---- the split chunk kernels (B7 bf16 / int8, B8 int4): chunk boundaries, ----
+# ---- batch invariance, determinism, counters, CUDA-graph replay ------------
+
+CHUNK_KINDS = ("bf16", "q8", "q4", "q4_split")
+
+
+def _chunk_split_inputs(dev, kind, b, s, h, d, k, bias, seed=8):
+    """q, the kind's slab and the plain version's arguments, and a
+    left-padded caption bias (row i's first 7 i + 3 columns, row 1's whole
+    first chunk and 3 rows more) or None."""
+    from controlar_tpu_torch.ops import flash_chunk as fc
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, k, h * d, generator=g, device=dev) * 0.5).bfloat16()
+    kv = (torch.randn(b, s, 2 * h * d, generator=g, device=dev) * 0.5).bfloat16()
+    if kind == "bf16":
+        args, kw = (kv,), {}
+    elif kind == "q8":
+        args, kw = quantize_kv_rows(kv, h), {}
+    else:
+        split = kind == "q4_split"
+        args, kw = quantize_kv_rows_4(kv, h, split=split), dict(head_dim=d, split=split)
+    col_bias = None
+    if bias:
+        pad = torch.arange(b, device=dev)[:, None] * 7 + 3
+        if b > 1:
+            pad[1] = fc.CHUNK_ROWS + 3
+        col_bias = torch.where(torch.arange(s, device=dev)[None, :] < pad, -1e9, 0.0).float()
+    return dict(q=q, args=args, kw=kw, bias=col_bias, n_head=h, chunk=fc.CHUNK_ROWS)
+
+
+def _chunk_split_run(kind, x, pos, plain=False, rows=None):
+    """The kind's kernel (or plain version) on x, or on batch rows `rows`."""
+    from controlar_tpu_torch.ops import flash_chunk as fc
+
+    kern, ref = {"bf16": (fc.flash_chunk_attention, fc.flash_chunk_attention_ref),
+                 "q8": (fc.flash_chunk_attention_q8, fc.flash_chunk_attention_q8_ref)}.get(
+        kind, (fc.flash_chunk_attention_q4, fc.flash_chunk_attention_q4_ref))
+    q, args, bias = x["q"], x["args"], x["bias"]
+    if rows is not None:
+        q, args = q[rows].contiguous(), tuple(a[rows].contiguous() for a in args)
+        bias = None if bias is None else bias[rows].contiguous()
+    return (ref if plain else kern)(q, *args, pos, bias, n_head=x["n_head"], **x["kw"])
+
+
+def _chunk_split_positions(chunk, k, s):
+    """Base positions whose last query's visible rows (pos + K) end one
+    before, on and one after a chunk boundary, 0 and the last in the cache."""
+    return {"chunk-1": max(chunk - 1 - k, 0), "chunk": max(chunk - k, 0),
+            "chunk+1": max(chunk + 1 - k, 0), "zero": 0, "last": s - k}
+
+
+@pytest.mark.parametrize("kind", CHUNK_KINDS)
+@pytest.mark.parametrize("d", [64, 100, 128])
+@pytest.mark.parametrize("h", [3, 4])
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("bias", [False, True])
+def test_chunk_split_kernels_match_plain_versions(dev, kind, d, h, k, bias):
+    """Each boundary position as an int, then all of them and rows whose
+    last query is one past the cache as a per-row tensor. H = 3 at D = 100
+    puts the head spans at 8-, 4- and 2-byte offsets (the copy windows)."""
+    b, s = 6, 320
+    x = _chunk_split_inputs(dev, kind, b, s, h, d, k, bias)
+    at = _chunk_split_positions(x["chunk"], k, s)
+    per_row = torch.tensor(list(at.values()) + [s - k + 1], dtype=torch.int32, device=dev)
+    for pos in [*at.values(), per_row]:
+        got = _chunk_split_run(kind, x, pos)
+        torch.cuda.synchronize()
+        want = _chunk_split_run(kind, x, pos, plain=True)
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("kind", CHUNK_KINDS)
+def test_chunk_split_kernels_match_plain_versions_at_the_prefill_chunk(dev, kind):
+    """The 120-query prefill chunk (15 tiles of 8) at t2i widths, at 0 and
+    past a chunk boundary, with the caption bias."""
+    b, s, h, d, k = 4, 384, 20, 64, 120
+    x = _chunk_split_inputs(dev, kind, b, s, h, d, k, True)
+    for pos in (0, 130, torch.tensor([0, 1, 64, 200], dtype=torch.int32, device=dev)):
+        got = _chunk_split_run(kind, x, pos)
+        torch.cuda.synchronize()
+        want = _chunk_split_run(kind, x, pos, plain=True)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("kind", CHUNK_KINDS)
+@pytest.mark.parametrize("d,h,k", [(64, 12, 4), (100, 8, 4), (100, 8, 8), (128, 8, 1)])
+def test_chunk_split_kernels_are_batch_invariant_and_deterministic(dev, kind, d, h, k):
+    """A row's output is the same bit for bit in a batch of 16 (per-row
+    positions on a grid over the whole cache), alone (an int position: a
+    grid of its live chunks; a 1-row position tensor) and over 3 launches."""
+    b, s = 16, 768
+    x = _chunk_split_inputs(dev, kind, b, s, h, d, k, True)
+    at = _chunk_split_positions(x["chunk"], k, s)
+    pos_list = [*at.values(), 1, 2, 100, 255, 256, 300, 400, 500, 572, 600, 700]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    full = _chunk_split_run(kind, x, pos)
+    for _ in range(2):
+        assert torch.equal(_chunk_split_run(kind, x, pos), full)
+    for i in (0, 1, 2, 3, 9, 15):
+        assert torch.equal(_chunk_split_run(kind, x, pos_list[i], rows=[i]), full[i:i + 1])
+        assert torch.equal(_chunk_split_run(kind, x, pos[i:i + 1].clone(), rows=[i]),
+                           full[i:i + 1])
+
+
+def test_chunk_split_counters_are_left_zero(dev):
+    """Every launch leaves the arrival counters of its stream zero, across
+    kinds, shapes, tiles and grids."""
+    from controlar_tpu_torch.ops import _scratch
+
+    for kind in CHUNK_KINDS:
+        for b, h, d, k, pos in ((16, 12, 64, 4, 572), (3, 3, 100, 8, 40), (5, 4, 128, 3, 700),
+                                (2, 12, 64, 120, 0), (2, 4, 100, 1, 1)):
+            x = _chunk_split_inputs(dev, kind, b, 768, h, d, k, True)
+            _chunk_split_run(kind, x, pos)
+            _chunk_split_run(kind, x, torch.full((b,), pos, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counters, _ = _scratch._scratch[(torch.cuda.current_device(), stream)]
+    assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("kind", CHUNK_KINDS)
+def test_chunk_split_kernels_replay_in_a_cuda_graph(dev, kind):
+    """One call captured with a device position vector, replayed after the
+    vector changed in place, equals the eager call at the new positions; the
+    capturing stream's counters are zero after it."""
+    from controlar_tpu_torch.ops import _scratch
+
+    b, s, h, d, k = 16, 768, 32, 100, 4
+    x = _chunk_split_inputs(dev, kind, b, s, h, d, k, False)
+    pos = torch.tensor([1, 27, 28, 29, 100, 255, 256, 572] * 2, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # the side stream's scratch, before the capture
+        _chunk_split_run(kind, x, pos)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = _chunk_split_run(kind, x, pos)
+    pos.copy_(torch.tensor([2, 28, 29, 30, 17, 511, 400, 760] * 2, dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, _chunk_split_run(kind, x, pos))
+    counters, _ = _scratch._scratch[(torch.cuda.current_device(), side.cuda_stream)]
+    assert int(counters.abs().sum()) == 0
+
+
 @pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 6400), (torch.int8, 6400),
                                          (torch.float32, 64), (torch.int8, 3200),
                                          (torch.float32, 6), (torch.int8, 7)])
