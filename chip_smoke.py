@@ -376,6 +376,19 @@ def _positions(h_case):
     return t2i if h_case == "t2i" else c2i
 
 
+def _q4_positions(d):
+    """The int4 kernels' checks at head dim d: `_positions("c2i")` and the
+    live rows (pos + 1) on each side of the first two boundaries of their
+    chunks of CHUNK_ROWS[INT4][d] rows, alone and in a per-slot vector."""
+    from controlar_tpu_torch.ops.flash_decode import CHUNK_ROWS, INT4
+
+    c = CHUNK_ROWS[INT4][d]
+    edges = (c - 2, c - 1, c, 2 * c - 2, 2 * c - 1, 2 * c)
+    slots = torch.tensor(edges + (1, 255, 256, 300, 400, 500, 575, 575, 10, 767),
+                         dtype=torch.int32, device="cuda")
+    return edges + _positions("c2i") + (slots,)
+
+
 def _attn_row(name, fn, plain, lib, h, d, s, pos, with_bias, slab_bytes_per_row, flush):
     """Time one attention call (kernel, plain version, library yardstick)
     and its bound: q and out bf16, the live rows' values and f32 scales,
@@ -448,9 +461,11 @@ def phase_kernel_q8():
 
 def phase_kernel_q4():
     """flash_decode_attention_q4 at GPT-3B (32 x 100 heads, 768 rows, the
-    c2i_3b_w4kv4 cell's split layout) and at 12 x 64, split and
-    interleaved, each position with and without a bias; the last decode
-    step of each is timed without bias."""
+    c2i_3b_w4kv4 cell's split layout) and at 12 x 64 (the w4kv4 spec
+    draft's GPT-B, interleaved), split and interleaved, at `_q4_positions`
+    (the boundaries of the kernel's chunks) with and without a bias; timed
+    without bias at the last decode step (pos 575) and at pos 255, each row
+    with the wrapper's host time."""
     from controlar_tpu_torch.ops.flash_decode import (
         flash_decode_attention_q4 as kern,
         flash_decode_attention_q4_ref as plain,
@@ -466,7 +481,7 @@ def phase_kernel_q4():
         for split in (True, False):
             rows, scale = quantize_kv_rows_4(kv, h, split=split)
             kw = dict(n_head=h, head_dim=d, split=split)
-            for pos in _positions("c2i"):
+            for pos in _q4_positions(d):
                 for col_bias in (None, bias):
                     out = kern(q, rows, scale, pos, col_bias, **kw)
                     torch.cuda.synchronize()
@@ -476,12 +491,14 @@ def phase_kernel_q4():
                           f"{col_bias is not None}: max_abs_err {err} over the limit")
                     max_err = max(max_err, err)
             slab = dequantize_kv4_slab(rows, scale, h, d, torch.bfloat16, split=split)
-            row = _attn_row(f"{name}_{'split' if split else 'interleaved'}",
-                            lambda: kern(q, rows, scale, 575, None, **kw),
-                            lambda: plain(q, rows, scale, 575, None, **kw),
-                            _sdpa(q, slab, 576, h, d, None), h, d, 768, 575, False, h * d, flush)
-            results.append(row)
-            main = main or row
+            for timed in (575, 255):
+                row = _attn_row(f"{name}_{'split' if split else 'interleaved'}",
+                                lambda: kern(q, rows, scale, timed, None, **kw),
+                                lambda: plain(q, rows, scale, timed, None, **kw),
+                                _sdpa(q, slab, timed + 1, h, d, None), h, d, 768, timed, False,
+                                h * d, flush)
+                results.append(row)
+                main = main or row
     emit("kernel_q4", ok=True, name="flash_decode_attention_q4", max_abs_err=max_err,
          atol=KERNEL_ATOL, rtol=KERNEL_RTOL, timings=results)
     return main, max_err
@@ -918,14 +935,13 @@ def _stacked_cases(kind):
     decode steps (pos 575 of 768 rows at GPT-B and GPT-3B, 1143 of 1280 at
     t2i GPT-XL with the caption bias), per-slot positions that include 1,
     S - 1 and both sides of the 256-row boundary; for bf16 and int8 also
-    both sides of a boundary of their split kernels' 64-row chunks."""
+    both sides of a boundary of their split kernels' 64-row chunks, for
+    int4 `_q4_positions` (the boundaries of its chunks at the case's D)."""
     def slots(*p):
         return torch.tensor(p, dtype=torch.int32, device="cuda")
 
-    per_slot = slots(1, 2, 100, 255, 256, 300, 400, 500, 575, 575, 10, 20, 30, 40, 50, 767)
     t2i_slots = slots(120, 121, 200, 400, 631, 700, 800, 900, 1000, 1100, 1142, 1143, 1143,
                       130, 1279, 500)
-    c2i = (1, 255, 256, 575, per_slot)
     # the split kernels' live rows (pos + 1) on each side of a 64-row chunk boundary
     split_slots = slots(1, 2, 62, 63, 64, 100, 255, 256, 300, 400, 500, 575, 575, 10, 50, 767)
     c2i_split = (1, 62, 63, 64, 255, 256, 575, split_slots)
@@ -935,8 +951,8 @@ def _stacked_cases(kind):
                  False)]
     if kind == "q8":
         return [("c2i_w8kv8", 12, 12, 64, 768, None, c2i_split, True, True)]
-    return [("3b_split", 24, 32, 100, 768, True, c2i, False, True),
-            ("b_interleaved", 12, 12, 64, 768, False, c2i, True, False)]
+    return [("3b_split", 24, 32, 100, 768, True, _q4_positions(100), False, True),
+            ("b_interleaved", 12, 12, 64, 768, False, _q4_positions(64), True, False)]
 
 
 def _phase_stacked(phase, kind):
@@ -946,10 +962,10 @@ def _phase_stacked(phase, kind):
     cell's last decode step (16 rows, the last layer, pos 575, no bias) with
     the plain version, SDPA over the layer's (dequantized) slab with the
     in-flight row written (rows 0..575) and the bound: q and out, the 575
-    live rows and the in-flight row (values and f32 scales). kind: bf16, q8
-    or q4 (split at GPT-3B, interleaved at GPT-B); bf16 and q8 are also
-    timed at pos 255, mid-decode, both with the wrapper's host time.
-    Returns the last step's row and the max abs error."""
+    live rows and the in-flight row (values and f32 scales); also at pos 255,
+    mid-decode, each row with the wrapper's host time. kind: bf16, q8 or q4
+    (split at GPT-3B, interleaved at GPT-B). Returns the last step's row and
+    the max abs error."""
     from controlar_tpu_torch.ops import flash_decode_stacked as fds
     from controlar_tpu_torch.quant import (
         dequantize_kv4_slab, dequantize_kv_slab, quantize_kv_rows, quantize_kv_rows_4)
@@ -992,7 +1008,7 @@ def _phase_stacked(phase, kind):
         if not is_timed:
             continue
         layer = n_layer - 1
-        for pos in (575, 255) if kind in ("bf16", "q8") else (575,):
+        for pos in (575, 255):
             # the library yardstick: SDPA over the layer's slab with the row written
             if kind == "bf16":
                 slab = fds.layer_with_row(args[1], args[0], layer, pos)
@@ -1010,9 +1026,7 @@ def _phase_stacked(phase, kind):
                        plain_ms=time_ms(lambda: plain(q, *args, layer, pos, None, n_head=h,
                                                       **kw), flush=flush),
                        library_ms=time_ms(_sdpa(q, slab, n, h, d, None), flush=flush),
-                       bound_ms=bound, bound_by=by)
-            if kind in ("bf16", "q8"):
-                row["host_us"] = host_us(fn)
+                       bound_ms=bound, bound_by=by, host_us=host_us(fn))
             timings.append(row)
     emit(phase, ok=True, name=kern.__name__, max_abs_err=max_err, atol=KERNEL_ATOL,
          rtol=KERNEL_RTOL, timings=timings)

@@ -1,5 +1,7 @@
 // The split K-query chunk attention kernel shared by csrc/flash_chunk.cu
 // (bf16 and int8 slabs) and csrc/flash_chunk_q4.cu (nibble-packed int4).
+// The int4 decode kernel (csrc/flash_decode_q4.cu) takes its span copies,
+// nibble conversions and mma from here.
 //
 // For batch row b, head h and chunk query j (the chunk's own rows are
 // already in the cache):
@@ -123,6 +125,21 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// One lane's half of the copy of a head span of HB bytes that starts at
+// byte o of the 16-byte-aligned window at src (NP pieces of 16 bytes): the
+// pieces 2 k + part, so that two lanes (part 0 and 1) copy a span; the last
+// piece is zero-filled past the span. The span lands at byte o of dst.
+template <int HB, int NP>
+__device__ __forceinline__ void copy_window(unsigned char* dst, const unsigned char* src, int o,
+                                            int part) {
+#pragma unroll
+  for (int k = 0; k < (NP + 1) / 2; ++k) {
+    const int u = 2 * k + part;
+    const int n = min(16, o + HB - 16 * u);  // 0 or less: past the span
+    if (u < NP && n > 0) cp_async16(dst + 16 * u, src + 16 * u, n);
+  }
 }
 
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
@@ -317,13 +334,8 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q,  // (B, K, H*D)
   auto issue = [&](int st) {
     unsigned char* slot = ring + (st % C::RING) * C::STAGE_BYTES;
     if (st * kStageRows + cp_row < rows) {
-      const unsigned char* src = cp_src + (size_t)st * kStageRows * rb;
-#pragma unroll
-      for (int k = 0; k < (C::NP + 1) / 2; ++k) {
-        const int u = 2 * k + (lane & 1);
-        const int n = min(16, cp_o + C::HB - 16 * u);  // 0 or less: past the span
-        if (u < C::NP && n > 0) cp_async16(slot + cp_dst + 16 * u, src + 16 * u, n);
-      }
+      copy_window<C::HB, C::NP>(slot + cp_dst, cp_src + (size_t)st * kStageRows * rb, cp_o,
+                                lane & 1);
     }
     if (fs_src && st * kStageRows + lane % kStageRows < rows) {
       cp_async4(slot + 2 * kStageRows * C::PITCH + 4 * lane, fs_src + st * fs_step);

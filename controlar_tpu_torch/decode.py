@@ -63,6 +63,7 @@ from controlar_tpu_torch.ops.flash_chunk import (
     flash_chunk_attention_q8,
 )
 from controlar_tpu_torch.ops.flash_decode import (
+    INT4,  # cache_dtype of the nibble-packed cache
     flash_decode_attention,
     flash_decode_attention_q4,
     flash_decode_attention_q8,
@@ -88,7 +89,6 @@ from controlar_tpu_torch.quant import (
 Cache = Union[torch.Tensor, Dict[str, torch.Tensor]]
 Caches = Union[List[Cache], Cache]  # per-layer caches, or one stacked cache
 Rope = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
-INT4 = "int4"  # cache_dtype of the nibble-packed cache
 
 
 def _zeros_cache(cfg: GPTConfig, lead: Tuple[int, ...], dtype: Union[torch.dtype, str],

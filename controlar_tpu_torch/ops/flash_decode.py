@@ -24,7 +24,8 @@ the per-row, per-head f32 scales `scale` (B, S, 2*H) = [k scales | v scales]
 - `flash_decode_attention_q4` (`csrc/flash_decode_q4.cu`): nibble-packed
   rows of 2 * H*D/2 carriers (unpadded: the JAX package pads each half to a
   multiple of 128 bytes), carrier j of a head holding the pair (2j, 2j+1)
-  or, with split=True, the split-rope pair (j, D/2 + j).
+  or, with split=True, the split-rope pair (j, D/2 + j); split as the bf16
+  kernel is, in chunks of `CHUNK_ROWS[INT4][D]` rows.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from controlar_tpu_torch.ops._scratch import _scratch_for
 from controlar_tpu_torch.ops.w4_matmul import unpack_nibbles
 
 HEAD_DIMS = (64, 100, 128)
+INT4 = "int4"  # the nibble-packed cache's cache_dtype (its carriers are torch.int8)
 
 Pos = Union[int, torch.Tensor]
 
@@ -210,13 +212,18 @@ def _pos_args(pos: Pos, b: int):
 
 
 # The split decode kernels (csrc/flash_decode.cu for the bf16 cache,
-# csrc/flash_decode_q8.cu for int8) cut each batch row's live cache rows into
-# chunks of this many rows, one work item per (row, head, chunk): a constant
-# of D, so that a row's partition, and its output bit for bit, depend on its
-# own pos only. Each kernel checks that it was built with the same value.
+# csrc/flash_decode_q8.cu for int8, csrc/flash_decode_q4.cu for int4) cut
+# each batch row's live cache rows into chunks of this many rows, one work
+# item per (row, head, chunk): a constant of D, so that a row's partition,
+# and its output bit for bit, depend on its own pos only. Each kernel checks
+# that it was built with the same value. The int4 cache has its own key: its
+# carriers are torch.int8, whose lengths are the int8 kernel's. Its length is
+# the same at every D, the verify kernels' `chunk::kChunk`
+# (csrc/flash_chunk.cuh), which the int4 kernel takes.
 CHUNK_ROWS = {
     torch.bfloat16: {64: 64, 100: 32, 128: 128},
     torch.int8: {64: 64, 100: 32, 128: 32},
+    INT4: {64: 64, 100: 64, 128: 64},
 }
 Q8_CHUNK_ROWS = CHUNK_ROWS[torch.int8]
 
@@ -229,11 +236,12 @@ class SplitPlan(NamedTuple):
 
 
 def split_plan(b: int, s: int, n_head: int, d: int, pos: Pos, stacked: bool,
-               kv_dtype: torch.dtype) -> SplitPlan:
-    """The launch plan of the split decode kernels over a kv_dtype cache
-    (bf16 or int8) for B = b rows over S = s cache rows. A stacked call (and
-    the fused append) attends over rows [0, pos[b]) of the slab plus the
-    in-flight row, a flat one over rows [0, pos[b]]. For an int pos the grid
+               cache) -> SplitPlan:
+    """The launch plan of the split decode kernels over a cache of the
+    `CHUNK_ROWS` key `cache` (torch.bfloat16, torch.int8 or INT4) for B = b
+    rows over S = s cache rows. A stacked call (and the fused append)
+    attends over rows [0, pos[b]) of the slab plus the in-flight row, a flat
+    one over rows [0, pos[b]]. For an int pos the grid
     holds the live chunks; for a pos tensor, whose values stay on the device,
     it covers the whole cache and the work items past a row's live chunks
     exit. It reads no SM count: the chunk length is fixed by D."""
@@ -243,7 +251,7 @@ def split_plan(b: int, s: int, n_head: int, d: int, pos: Pos, stacked: bool,
         rows = min(max(pos, 0), s) + 1
     else:
         rows = min(max(pos + 1, 0), s)
-    return _split_plan(b, n_head, d, rows, kv_dtype)
+    return _split_plan(b, n_head, d, rows, cache)
 
 
 def q8_plan(b: int, s: int, n_head: int, d: int, pos: Pos, stacked: bool) -> SplitPlan:
@@ -252,47 +260,40 @@ def q8_plan(b: int, s: int, n_head: int, d: int, pos: Pos, stacked: bool) -> Spl
 
 
 @functools.lru_cache(maxsize=4096)
-def _split_plan(b: int, n_head: int, d: int, rows: int, kv_dtype: torch.dtype) -> SplitPlan:
-    chunk = CHUNK_ROWS[kv_dtype][d]
+def _split_plan(b: int, n_head: int, d: int, rows: int, cache) -> SplitPlan:
+    chunk = CHUNK_ROWS[cache][d]
     n_chunks = max(1, -(-rows // chunk))
     return SplitPlan(chunk, n_chunks, b * n_head * n_chunks * (d + 4), b * n_head)
 
 
-def _split_args(kv: torch.Tensor, b: int, s: int, n_head: int, d: int, pos: Pos,
+def _split_args(cache, kv: torch.Tensor, b: int, s: int, n_head: int, d: int, pos: Pos,
                 stacked: bool) -> tuple:
     """-> the trailing arguments of a split kernel's C entry: workspace,
     counters, chunk, n_chunks and the stream, with the workspace and
     counters taken from the stream's scratch (no allocation once it has
-    grown to the call's size). kv: the slab or stack, whose dtype picks the
-    chunk length."""
-    plan = split_plan(b, s, n_head, d, pos, stacked, kv.dtype)
+    grown to the call's size). cache: the `CHUNK_ROWS` key of the kernel
+    (never read from kv's dtype: int4 carriers are int8); kv: the slab or
+    stack."""
+    plan = split_plan(b, s, n_head, d, pos, stacked, cache)
     stream = torch.cuda.current_stream(kv.device).cuda_stream
     counters, ws = _scratch_for(kv.device, stream, plan.counters, plan.ws_floats)
     return ws.data_ptr(), counters.data_ptr(), plan.chunk, plan.n_chunks, stream
 
 
-def _split_lib(source: str, fn: str, n_ptr: int, layer: bool = False):
+def _split_lib(source: str, fn: str, n_ptr: int, layer: bool = False, split: bool = False):
     """The C entry `fn` of a split kernel's csrc/<source>.cu: n_ptr pointers
     (q, the slab or the in-flight row and the stack, scales), [layer,] pos,
-    pos_stride, pos_scalar, bias, out, out_f32, B, S, H, D, ws, counters,
-    chunk, n_chunks, stream."""
-    f = getattr(_build.load(source), fn)
+    pos_stride, pos_scalar, bias, out, out_f32, B, S, H, D, [split,] ws,
+    counters, chunk, n_chunks, stream."""
+    return _bind(getattr(_build.load(source), fn), n_ptr, layer, split)
+
+
+def _bind(f, n_ptr: int, layer: bool, split: bool):
+    """f with the split kernels' argument types set (see `_split_lib`)."""
     if f.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = ([p] * n_ptr + [i] * layer + [p, i, i, p, p, i, i, i, i, i]
+        f.argtypes = ([p] * n_ptr + [i] * layer + [p, i, i, p, p, i, i, i, i, i] + [i] * split
                       + [p, p, i, i, p])
-        f.restype = ctypes.c_int
-    return f
-
-
-def _q4_lib():
-    """The C entry flash_decode_q4 of csrc/flash_decode_q4.cu: q, kv, scale,
-    pos, pos_stride, pos_scalar, bias, out, out_f32, B, S, H, D, split,
-    stream."""
-    f = _build.load("flash_decode_q4").flash_decode_q4
-    if f.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p, p, p, p, i, i, p, p, i, i, i, i, i, i, p]
         f.restype = ctypes.c_int
     return f
 
@@ -317,7 +318,7 @@ def flash_decode_attention(
         qb.data_ptr(), kv.data_ptr(), *_pos_args(pos, b),
         None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
         int(out.dtype == torch.float32), b, s, n_head, d,
-        *_split_args(kv, b, s, n_head, d, pos, stacked=False),
+        *_split_args(torch.bfloat16, kv, b, s, n_head, d, pos, stacked=False),
     )
     if err != 0:
         raise RuntimeError(f"flash_decode_attention launch failed: cudaError {err}")
@@ -350,7 +351,7 @@ def flash_decode_attention_q8(
         qb.data_ptr(), kv.data_ptr(), scale.data_ptr(), *_pos_args(pos, b),
         None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
         int(out.dtype == torch.float32), b, s, n_head, d,
-        *_split_args(kv, b, s, n_head, d, pos, stacked=False),
+        *_split_args(torch.int8, kv, b, s, n_head, d, pos, stacked=False),
     )
     if err != 0:
         raise RuntimeError(f"flash_decode_attention_q8 launch failed: cudaError {err}")
@@ -453,7 +454,7 @@ def flash_decode_attention_q8_append(
         kv_scale.data_ptr(), *_pos_args(pos, b),
         None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
         int(out.dtype == torch.float32), b, s, n_head, d,
-        *_split_args(kv_cache, b, s, n_head, d, pos, stacked=True))
+        *_split_args(torch.int8, kv_cache, b, s, n_head, d, pos, stacked=True))
     if err != 0:
         raise RuntimeError(f"flash_decode_attention_q8_append launch failed: cudaError {err}")
     flash_decode_attention_q8_append.launches += 1
@@ -485,11 +486,11 @@ def flash_decode_attention_q4(
     _check_scale(scale, kv, n_head)
     qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
     out = torch.empty((b, n_head * d), dtype=q.dtype, device=q.device)
-    err = _q4_lib()(
+    err = _split_lib("flash_decode_q4", "flash_decode_q4", 3, split=True)(
         qb.data_ptr(), kv.data_ptr(), scale.data_ptr(), *_pos_args(pos, b),
         None if col_bias is None else col_bias.data_ptr(), out.data_ptr(),
         int(out.dtype == torch.float32), b, s, n_head, d, int(split),
-        torch.cuda.current_stream(kv.device).cuda_stream,
+        *_split_args(INT4, kv, b, s, n_head, d, pos, stacked=False),
     )
     if err != 0:
         raise RuntimeError(f"flash_decode_attention_q4 launch failed: cudaError {err}")

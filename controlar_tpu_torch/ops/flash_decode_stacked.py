@@ -30,12 +30,10 @@ kernel reads only the stack's rows < S).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
-from controlar_tpu_torch import _build
 from controlar_tpu_torch.ops import flash_decode as fd
 
 Pos = fd.Pos
@@ -124,23 +122,6 @@ def _check_scales(new_s, sc_stack, stack, n_head):
                          f"{stack.device}, got {tuple(new_s.shape)} {new_s.dtype}")
 
 
-def _q4_lib():
-    """C entry flash_stacked_q4 of csrc/flash_decode_q4.cu: q, the in-flight
-    row, its scales, the stack, its scales, layer, pos, pos_stride,
-    pos_scalar, bias, out, out_f32, B, S, H, D, split, stream. (The bf16 and
-    int8 entries take the split kernels' scratch: `flash_decode._split_lib`.)"""
-    f = _build.load("flash_decode_q4").flash_stacked_q4
-    if f.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p] * 5 + [i, p, i, i, p, p, i, i, i, i, i, i, p]
-        f.restype = ctypes.c_int
-    return f
-
-
-def _stream(q: torch.Tensor) -> int:
-    return torch.cuda.current_stream(q.device).cuda_stream
-
-
 def _run(f, name, q, ptrs, layer, pos, col_bias, b, s, n_head, d, tail):
     """Launches entry f; tail: its arguments after D (the stream last)."""
     qb = q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
@@ -172,7 +153,7 @@ def flash_stacked(
     f = fd._split_lib("flash_decode", "flash_stacked", 3, layer=True)
     out = _run(f, "flash_stacked", q,
                (new_kv.data_ptr(), kv_stack.data_ptr()), layer, pos, col_bias, b, s, n_head, d,
-               fd._split_args(kv_stack, b, s, n_head, d, pos, stacked=True))
+               fd._split_args(torch.bfloat16, kv_stack, b, s, n_head, d, pos, stacked=True))
     flash_stacked.launches += 1
     return out
 
@@ -204,7 +185,7 @@ def flash_stacked_q8(
     out = _run(f, "flash_stacked_q8", q,
                (new_kv.data_ptr(), new_s.data_ptr(), kv_stack.data_ptr(), sc_stack.data_ptr()),
                layer, pos, col_bias, b, s, n_head, d,
-               fd._split_args(kv_stack, b, s, n_head, d, pos, stacked=True))
+               fd._split_args(torch.int8, kv_stack, b, s, n_head, d, pos, stacked=True))
     flash_stacked_q8.launches += 1
     return out
 
@@ -235,9 +216,12 @@ def flash_stacked_q4(
     b, s, d = _check(q, new_c, kv_stack, layer, pos, col_bias, n_head, torch.int8,
                      int4_head_dim=head_dim)
     _check_scales(new_s, sc_stack, kv_stack, n_head)
-    out = _run(_q4_lib(), "flash_stacked_q4", q,
+    f = fd._split_lib("flash_decode_q4", "flash_stacked_q4", 5, layer=True, split=True)
+    out = _run(f, "flash_stacked_q4", q,
                (new_c.data_ptr(), new_s.data_ptr(), kv_stack.data_ptr(), sc_stack.data_ptr()),
-               layer, pos, col_bias, b, s, n_head, d, (int(split), _stream(q)))
+               layer, pos, col_bias, b, s, n_head, d,
+               (int(split), *fd._split_args(fd.INT4, kv_stack, b, s, n_head, d, pos,
+                                            stacked=True)))
     flash_stacked_q4.launches += 1
     return out
 

@@ -525,6 +525,172 @@ def test_bf16_split_kernels_replay_in_a_cuda_graph(dev, kind):
     assert torch.equal(out, _bf16_run(kind, x, pos))
 
 
+# ---- the split int4 kernels (B3, B12-q4): chunk boundaries, batch ----------
+# ---- invariance, determinism, counters, CUDA-graph replay -----------------
+
+Q4_KINDS = ("flat", "stacked")
+
+
+def _q4_inputs(dev, b, s, h, d, split, bias, seed=7):
+    """q, a 2-layer int4 stack and its scales, the in-flight row and its
+    scales, and a left-padded caption bias (row i's first 7 i columns, row
+    1's whole first chunk and 3 more) or None."""
+    from controlar_tpu_torch.ops.flash_decode import CHUNK_ROWS, INT4
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, h * d, generator=g, device=dev) * 0.5).bfloat16()
+    stack, sc = quantize_kv_rows_4(torch.randn(2, b, s, 2 * h * d, generator=g, device=dev) * 0.5,
+                                   h, split=split)
+    new_c, new_s = quantize_kv_rows_4(torch.randn(b, 2 * h * d, generator=g, device=dev) * 0.5, h,
+                                      split=split)
+    col_bias = None
+    if bias:
+        pad = torch.arange(b, device=dev)[:, None] * 7
+        if b > 1:
+            pad[1] = CHUNK_ROWS[INT4][d] + 3
+        col_bias = torch.where(torch.arange(s, device=dev)[None, :] < pad, -1e9, 0.0).float()
+    return dict(q=q, stack=stack, sc=sc, new_c=new_c, new_s=new_s, bias=col_bias,
+                kw=dict(n_head=h, head_dim=d, split=split))
+
+
+def _q4_run(kind, x, pos, plain=False):
+    """The flat kernel (or plain version) on layer 0 of the stack, the
+    stacked one on layer 1; the stacked call's bias is 0 at the in-flight
+    row, as its callers keep it."""
+    from controlar_tpu_torch.ops import flash_decode_stacked as fds
+
+    b, s = x["q"].shape[0], x["stack"].shape[2]
+    cb = x["bias"]
+    if kind == "flat":
+        fn = flash_decode_attention_q4_ref if plain else flash_decode_attention_q4
+        return fn(x["q"], x["stack"][0], x["sc"][0], pos, cb, **x["kw"])
+    if cb is not None:
+        cb = cb.clone()
+        p = torch.as_tensor(pos, device=cb.device).long().reshape(-1).expand(b)
+        cb[torch.arange(b, device=cb.device), p.clamp(max=s - 1)] = 0.0
+    fn = fds.flash_stacked_q4_ref if plain else fds.flash_stacked_q4
+    return fn(x["q"], x["new_c"], x["new_s"], x["stack"], x["sc"], 1, pos, cb, **x["kw"])
+
+
+def _q4_rows(x, rows):
+    """The inputs of the batch rows `rows` alone."""
+    return {k: v if k == "kw" or v is None else
+            (v[:, rows] if k in ("stack", "sc") else v[rows]).contiguous() for k, v in x.items()}
+
+
+def _q4_positions(d, s):
+    """Positions on each side of a boundary of the int4 kernels' chunks (the
+    live rows, pos + 1, end one before, on and one after it), 0 (1 for the
+    stacked call, as its callers clamp) and S - 1."""
+    from controlar_tpu_torch.ops.flash_decode import CHUNK_ROWS, INT4
+
+    c = CHUNK_ROWS[INT4][d]
+    return {"chunk-1": c - 2, "chunk": c - 1, "chunk+1": c, "zero": 0, "last": s - 1,
+            "per_slot": [c - 2, c - 1, c, s - 1]}
+
+
+@pytest.mark.parametrize("kind", Q4_KINDS)
+@pytest.mark.parametrize("d", [64, 100, 128])
+@pytest.mark.parametrize("h", [3, 4])
+@pytest.mark.parametrize("pos", ["chunk-1", "chunk", "chunk+1", "zero", "last", "per_slot"])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("split", [False, True])
+def test_q4_split_kernels_match_plain_versions(dev, kind, d, h, pos, bias, split):
+    """H = 3 at D = 100 puts the rows' 50-byte head spans at every even
+    offset of their 16-byte windows (300-byte rows)."""
+    b, s = 4, 768
+    pos = _q4_positions(d, s)[pos]
+    if kind == "stacked" and pos == 0:
+        pos = 1
+    if isinstance(pos, list):
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    x = _q4_inputs(dev, b, s, h, d, split, bias)
+    got = _q4_run(kind, x, pos)
+    torch.cuda.synchronize()
+    want = _q4_run(kind, x, pos, plain=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("kind", Q4_KINDS)
+def test_q4_split_kernels_take_slabs_at_an_8_byte_offset(dev, kind):
+    """At D = 100 the wrappers take 8-byte aligned slabs: every span's
+    window offset moves by 8."""
+    b, s, h, d = 4, 768, 3, 100
+    x = _q4_inputs(dev, b, s, h, d, True, True)
+    for name in ("stack", "new_c"):
+        t = x[name]
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=dev)
+        x[name] = buf[8:].view(t.shape)
+        x[name].copy_(t)
+        assert x[name].data_ptr() % 16 == 8
+    pos = torch.tensor([1, 31, 32, 767], dtype=torch.int32, device=dev)
+    got = _q4_run(kind, x, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), _q4_run(kind, x, pos, plain=True).float(), atol=2e-3,
+                               rtol=1e-2)
+
+
+@pytest.mark.parametrize("kind", Q4_KINDS)
+@pytest.mark.parametrize("d,h,split", [(64, 12, False), (100, 8, True), (100, 3, False),
+                                       (128, 8, True)])
+def test_q4_split_kernels_are_batch_invariant_and_deterministic(dev, kind, d, h, split):
+    """A row's output is the same bit for bit in a batch of 16 (per-slot
+    positions on a grid over the whole cache), alone (an int position: a
+    grid of its live chunks; a 1-row position tensor) and over 3 launches."""
+    b, s = 16, 768
+    c = _q4_positions(d, s)
+    pos_list = [c["chunk-1"], c["chunk"], c["chunk+1"], s - 1, 1, 2, 100, 255, 256, 300, 400,
+                500, 575, 600, 700, 767]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    x = _q4_inputs(dev, b, s, h, d, split, True)
+    full = _q4_run(kind, x, pos)
+    for _ in range(2):
+        assert torch.equal(_q4_run(kind, x, pos), full)
+    for i in (0, 1, 2, 3, 9, 15):
+        alone = _q4_rows(x, [i])
+        assert torch.equal(_q4_run(kind, alone, pos_list[i]), full[i:i + 1])
+        assert torch.equal(_q4_run(kind, alone, pos[i:i + 1].clone()), full[i:i + 1])
+
+
+def test_q4_split_counters_are_left_zero(dev):
+    """Every launch leaves the arrival counters of its stream zero, across
+    calls of different shapes, grids and kernels."""
+    from controlar_tpu_torch.ops import _scratch
+
+    for kind in Q4_KINDS:
+        for b, h, d, pos in ((16, 12, 64, 575), (3, 3, 100, 40), (5, 4, 128, 767), (2, 32, 100, 1)):
+            x = _q4_inputs(dev, b, 768, h, d, d == 100, True)
+            _q4_run(kind, x, pos)
+            _q4_run(kind, x, torch.full((b,), pos, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counters, _ = _scratch._scratch[(torch.cuda.current_device(), stream)]
+    assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("kind", Q4_KINDS)
+@pytest.mark.parametrize("d,h,split", [(64, 12, False), (100, 32, True)])
+def test_q4_split_kernels_replay_in_a_cuda_graph(dev, kind, d, h, split):
+    """One call captured with a device position vector, replayed after the
+    vector changed in place, equals the eager call at the new positions."""
+    b, s = 16, 768
+    x = _q4_inputs(dev, b, s, h, d, split, False)
+    pos = torch.tensor([1, 30, 31, 32, 100, 255, 256, 575] * 2, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # the side stream's scratch, before the capture
+        _q4_run(kind, x, pos)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = _q4_run(kind, x, pos)
+    pos.copy_(torch.tensor([2, 63, 64, 65, 17, 511, 400, 767] * 2, dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, _q4_run(kind, x, pos))
+
+
 # ---- W4 weights: the dequant-matmul and the fused FFN ---------------------
 
 def _w4(dev, k, n, seed):
