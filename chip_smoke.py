@@ -17,16 +17,19 @@ ending the run with a non-zero exit when it fails:
                 appended (a TPU kernel on no path of the JAX package: only
                 this phase launches it), slabs bit for bit, timed at the
                 c2i_w8kv8 last step;
-  kernel_append the per-slot KV-cache row append, bit for bit, on every
-                stream the serving paths write;
+  kernel_append the fused KV write (append_kv) of a decode step, bit for
+                bit against its plain version and against the old write
+                sequence (cat, quantizer, one append per stream) on bf16,
+                int8 and int4 caches, timed against both; then the
+                single-stream row append (on no path), bit for bit;
   kernel_chunk  the speculative verify's K-query chunk attention, bf16,
   kernel_chunk_q8  int8 and int4 (split and interleaved), against its plain
   kernel_chunk_q4  version at the spec cells' verify (K = 4, GPT-3B heads),
                 with K = 1 and 8, the t2i caption bias (diagonal exception)
                 and a 120-query prefill chunk; timed with the plain version,
                 SDPA over the live rows and the bound;
-  kernel_append_block  the K-row block append, bit for bit, on every stream
-                a verify writes;
+  kernel_append_block  the same for a verify chunk (T = 4 and 8), then the
+                single-stream K-row block append (on no path), bit for bit;
   kernel_stacked     decode attention over one layer of the stacked cache
   kernel_stacked_q8  plus the in-flight row, bf16, int8 and int4 (split at
   kernel_stacked_q4  GPT-3B, interleaved at GPT-B), against its plain version
@@ -189,6 +192,7 @@ def _kernels():
                                       "controlar_tpu/ops/flash_decode2.py:592"),
         "w4_matmul": (w4.w4_matmul, "w4_matmul.cu", "controlar_tpu/ops/w4_matmul.py:160"),
         "w4_ffn": (w4.w4_ffn, "w4_ffn.cu", "controlar_tpu/ops/w4_matmul.py:242"),
+        "append_kv": (ca.append_kv, "cache_append.cu", "controlar_tpu/ops/cache_append.py:32"),
         "cache_append_rows": (ca.cache_append_rows, "cache_append.cu",
                               "controlar_tpu/ops/cache_append.py:32"),
         "flash_chunk_attention": (fc.flash_chunk_attention, "flash_chunk.cu",
@@ -226,7 +230,18 @@ OFF_PATH = {
         "no path of the JAX package runs flash_decode_attention2_q8_append (only "
         "tests/test_kv_int8.py calls it), so the port's int8 decode step keeps the "
         "separate row append and attention, as the JAX package's does"),
+    "cache_append_rows": (
+        "the decode steps write a layer's rows with append_kv, one launch that quantizes "
+        "them and writes every stream; the single-stream append stays as the counterpart "
+        "of the JAX package's cache_append_rows API"),
+    "cache_append_block": (
+        "the verify chunk writes a layer's rows with append_kv, one launch that quantizes "
+        "them and writes every stream; the single-stream block append stays as the "
+        "counterpart of the JAX package's cache_append_block API"),
 }
+# the TPU kernels a kernel replaces besides its `replaces`: the fused write is
+# the decode steps' row append (B6) and the verify's block append (B9)
+ALSO_REPLACES = {"append_kv": ["controlar_tpu/ops/cache_append.py:90"]}
 
 
 def _roofline(nbytes: float, flops: float, flop_rate: float):
@@ -687,7 +702,8 @@ def phase_kernel_q8_append():
 
 
 # stream, cache dtype, cache rows, row width (elements): what the serving
-# decode step writes at 16 rows (8 slots with CFG)
+# decode step wrote at 16 rows (8 slots with CFG) through the single-stream
+# append, which no path calls since the fused write took its place
 APPEND_STREAMS = (
     ("gpt_b_bf16", torch.bfloat16, 768, 1536),    # [k|v] rows, 3072 B
     ("gpt_b_int8", torch.int8, 768, 1536),        # int8 rows
@@ -698,21 +714,166 @@ APPEND_STREAMS = (
     ("odd_width", torch.int8, 768, 7),            # 1-byte vectors
 )
 
+# the fused write's shapes: name, kv heads, head dim, int4 carrier layout
+# split, cache rows; each with a bf16, an int8 and an int4 cache. GPT-B is
+# also the speculative cells' draft (int4 pairs interleaved at D 64)
+KV_WRITE_CASES = (
+    ("gpt_b", 12, 64, False, 768),
+    ("gpt_xl", 20, 64, False, 1280),
+    ("gpt_3b", 32, 100, True, 768),
+)
+KV_WRITE_KINDS = ("bf16", "int8", "int4")
+
+
+def _kv_write_inputs(gen, name, kind, t, b=16):
+    """A cache of `kind` with random contents and a layer's new rows k, v
+    (b, t, KV*D) bf16 as the projections leave them: v a slice of a wqkv
+    output (H = KV query heads), k a slice of the rotated [q|k] at GPT-3B
+    (split rope), else a contiguous tensor; head 0 of row 0's k is zero (the
+    scale's floor). -> (cache, k, v, kv_heads, split)."""
+    _, kvh, d, split, s = next(c for c in KV_WRITE_CASES if c[0] == name)
+    kvd = kvh * d
+    dev = "cuda"
+    qkv = (torch.randn(b, t, 3 * kvd, generator=gen, device=dev) * 2).bfloat16()
+    v = qkv[..., 2 * kvd:]
+    if split:
+        k = (torch.randn(b, t, 2 * kvd, generator=gen, device=dev) * 2).bfloat16()[..., kvd:]
+    else:
+        k = (torch.randn(b, t, kvd, generator=gen, device=dev) * 2).bfloat16()
+    k[0, 0, :d] = 0
+    if kind == "bf16":
+        cache = torch.randn(b, s, 2 * kvd, generator=gen, device=dev).bfloat16()
+    else:
+        key, width = ("kv", 2 * kvd) if kind == "int8" else ("kv4", kvd)
+        cache = {key: torch.randint(-128, 128, (b, s, width), generator=gen, device=dev,
+                                    dtype=torch.int8),
+                 "s": torch.rand(b, s, 2 * kvh, generator=gen, device=dev) * 0.02}
+    return cache, k, v, kvh, split and kind == "int4"
+
+
+def _clone_cache(cache):
+    return {k: t.clone() for k, t in cache.items()} if isinstance(cache, dict) else cache.clone()
+
+
+def _same_cache(a, b) -> bool:
+    if isinstance(a, dict):
+        return all(torch.equal(a[k].view(torch.uint8), b[k].view(torch.uint8)) for k in a)
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def _old_kv_write(cache, k, v, pos, kv_heads, split):
+    """The decode paths' write before the fused kernel, as it ran on the
+    card: concatenate k and v, quantize with the port's quantizer, then one
+    slice assignment (an int pos) or one single-stream append kernel per
+    stream."""
+    from controlar_tpu_torch.ops.cache_append import (
+        cache_append_block, cache_append_rows, cache_streams)
+
+    kv_rows = torch.cat([k, v], dim=-1)
+    t = kv_rows.shape[1]
+    for dst, src in cache_streams(cache, kv_rows, kv_heads, split):
+        if isinstance(pos, int):
+            dst[:, pos:pos + t] = src
+        elif t == 1:
+            cache_append_rows(dst, src[:, 0], pos)
+        else:
+            cache_append_block(dst, src, pos)
+    return cache
+
+
+def _kv_write_checks(phase, ts, seed):
+    """append_kv against its plain version and against the old write
+    sequence, bit for bit, on every case and cache kind, at each T in ts,
+    with per-row positions that include 0 and S - T and with one int
+    position. Returns the checks' launches."""
+    from controlar_tpu_torch.ops.cache_append import append_kv as kern
+    from controlar_tpu_torch.ops.cache_append import append_kv_ref as plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    launches = kern.launches
+    for name, *_ in KV_WRITE_CASES:
+        for kind in KV_WRITE_KINDS:
+            for t in ts:
+                cache, k, v, kvh, split = _kv_write_inputs(gen, name, kind, t)
+                s = (cache if kind == "bf16" else cache["s"]).shape[1]
+                per_row = torch.tensor([0, s - t] + [(37 * i) % (s - t) for i in range(1, 15)],
+                                       dtype=torch.int32, device="cuda")
+                for pos in (per_row, s - t):
+                    want = plain(_clone_cache(cache), k, v, pos, kv_heads=kvh, split=split)
+                    old = _old_kv_write(_clone_cache(cache), k, v, pos, kvh, split)
+                    got = kern(_clone_cache(cache), k, v, pos, kv_heads=kvh, split=split)
+                    torch.cuda.synchronize()
+                    where = f"{name} {kind} T={t} pos={'per_row' if pos is per_row else pos}"
+                    check(_same_cache(got, want), phase,
+                          f"append_kv {where}: the cache differs from the plain version's")
+                    check(_same_cache(got, old), phase,
+                          f"append_kv {where}: the cache differs from the old write sequence's")
+    return kern.launches - launches
+
+
+def _kv_write_row(label, name, kind, t, pos, flush, seed):
+    """One timed case of append_kv: its time, the plain version's, the old
+    write sequence's (cat + quantize + appends, one stretch of CUDA events
+    around the whole sequence) and each one's host time a layer write, with
+    the bound: k and v read, the rows and scales written, pos read."""
+    from controlar_tpu_torch.ops.cache_append import append_kv as kern
+    from controlar_tpu_torch.ops.cache_append import append_kv_ref as plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cache, k, v, kvh, split = _kv_write_inputs(gen, name, kind, t)
+    b = k.shape[0]
+    if pos == "per_row":
+        s = (cache if kind == "bf16" else cache["s"]).shape[1]
+        pos = torch.tensor([(37 * i + s - t) % (s - t + 1) for i in range(b)], dtype=torch.int32,
+                           device="cuda")
+    streams = cache.values() if isinstance(cache, dict) else [cache]
+    nbytes = (2 * k.numel() * k.element_size()
+              + sum(b * t * st.shape[-1] * st.element_size() for st in streams)
+              + (b * 4 if isinstance(pos, torch.Tensor) else 0))
+    bound, by = _roofline(nbytes, 0, FP32_FLOPS)
+    fused = lambda: kern(cache, k, v, pos, kv_heads=kvh, split=split)  # noqa: E731
+    old = lambda: _old_kv_write(cache, k, v, pos, kvh, split)  # noqa: E731
+    return dict(case=label, kind=kind, t=t, rows=b, kv_heads=kvh, d=k.shape[-1] // kvh,
+                int_pos=not isinstance(pos, torch.Tensor), ms=time_ms(fused, flush=flush),
+                old_ms=time_ms(old, flush=flush),
+                plain_ms=time_ms(lambda: plain(cache, k, v, pos, kv_heads=kvh, split=split),
+                                 flush=flush),
+                library_ms=None, bound_ms=bound, bound_by=by, host_us=host_us(fused),
+                old_host_us=host_us(old))
+
 
 def phase_kernel_append():
-    """cache_append_rows against its plain version, bit for bit, on every
-    stream the serving paths write, at per-slot positions that include 0 and
-    S-1; timed at the GPT-B bf16 stream. The plain version is one indexed
-    assignment, which is also the one-call library yardstick: its time is
-    recorded under both."""
+    """The fused write (append_kv) of a decode step (T = 1) against its plain
+    version and the old write sequence, bit for bit, at GPT-B (12 x 64),
+    GPT-XL (20 x 64) and GPT-3B (32 x 100, split) on a bf16, an int8 and an
+    int4 cache, with strided k / v and a head of zeros; timed at the decode
+    cells' steps. Then the single-stream row append (cache_append_rows, on
+    no path since the fused write) against its plain version, bit for bit,
+    on every stream the serving paths wrote, at per-slot positions that
+    include 0 and S-1; timed at the GPT-B bf16 stream, with the plain version
+    (one indexed assignment) also the one-call library yardstick. Returns
+    {"append_kv": (c2i_3b_w4kv4 row, 0.0), "cache_append_rows": (row, 0.0,
+    launches of its checks)}."""
     from controlar_tpu_torch.ops.cache_append import (
         cache_append_rows as kern,
         cache_append_rows_ref as plain,
     )
 
-    gen = torch.Generator(device="cuda").manual_seed(5)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fused_launches = _kv_write_checks("kernel_append", (1,), seed=5)
+    fused = [_kv_write_row(*case, flush=flush, seed=6) for case in (
+        ("c2i_3b_w4kv4 step", "gpt_3b", "int4", 1, 575),
+        ("c2i step", "gpt_b", "bf16", 1, 575),
+        ("c2i_w8kv8 step", "gpt_b", "int8", 1, 575),
+        ("t2i step", "gpt_xl", "bf16", 1, 1142),
+        ("serve_c2i step", "gpt_b", "bf16", 1, "per_row"),
+        ("serve_c2i_w8kv8 step", "gpt_b", "int8", 1, "per_row"),
+        ("spec draft step (w4kv4)", "gpt_b", "int4", 1, "per_row"),
+        ("spec draft step (w8kv8)", "gpt_b", "int8", 1, "per_row"))]
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
     b, timed = 16, None
+    kern.launches = 0
     for name, dt, s, w in APPEND_STREAMS:
         if dt == torch.int8:
             cache = torch.randint(-128, 128, (b, s, w), generator=gen, device="cuda", dtype=dt)
@@ -729,6 +890,7 @@ def phase_kernel_append():
               f"{name}: the cache differs from the plain version's")
         if timed is None:
             timed = (cache, rows, pos)
+    launches = kern.launches
     cache, rows, pos = timed
     nbytes = 2 * rows.numel() * rows.element_size() + pos.numel() * 4  # rows in and out
     bound, by = _roofline(nbytes, 0, FP32_FLOPS)
@@ -736,9 +898,13 @@ def phase_kernel_append():
     row = dict(case="gpt_b_bf16", rows=b, row_bytes=rows.shape[1] * rows.element_size(),
                s=cache.shape[1], ms=time_ms(lambda: kern(cache, rows, pos), flush=flush),
                plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound, bound_by=by)
-    emit("kernel_append", ok=True, name="cache_append_rows", bit_exact=True,
-         streams=[s[0] for s in APPEND_STREAMS], timings=[row])
-    return row, 0.0
+    emit("kernel_append", ok=True, name="append_kv", bit_exact=True,
+         cases=[c[0] for c in KV_WRITE_CASES], kinds=KV_WRITE_KINDS, t=[1],
+         launches=fused_launches, timings=fused,
+         single_stream=dict(name="cache_append_rows", bit_exact=True,
+                            streams=[st[0] for st in APPEND_STREAMS], launches=launches,
+                            timings=[row]))
+    return {"append_kv": (fused[0], 0.0), "cache_append_rows": (row, 0.0, launches)}
 
 
 def _chunk_cases(with_t2i: bool):
@@ -875,7 +1041,8 @@ def phase_kernel_chunk_q4():
 
 
 # stream, cache dtype, cache rows, row width (elements): what a GPT-3B verify
-# writes at 16 rows (8 images with CFG), K = 4 rows each
+# wrote at 16 rows (8 images with CFG), K = 4 rows each, through the
+# single-stream block append, which no path calls since the fused write
 BLOCK_STREAMS = (
     ("gpt_3b_bf16", torch.bfloat16, 768, 6400),   # [k|v] rows, 12800 B
     ("gpt_3b_int8", torch.int8, 768, 6400),       # int8 rows
@@ -888,19 +1055,30 @@ K_VERIFY = 4
 
 
 def phase_kernel_append_block():
-    """cache_append_block against its plain version, bit for bit, on every
-    stream a verify writes, with blocks at rows 0 and S - K among per-row
-    positions; timed at the GPT-3B bf16 stream. As for the row append, the
-    plain version is one indexed assignment, which is also the one-call
-    library yardstick."""
+    """The fused write (append_kv) of a verify chunk (T = 4 and 8) against
+    its plain version and the old write sequence, bit for bit, on the cases
+    and cache kinds of kernel_append; timed at the spec cells' verify (T =
+    4, GPT-3B). Then the single-stream block append (cache_append_block, on
+    no path since the fused write) against its plain version, bit for bit,
+    on every stream a verify wrote, with blocks at rows 0 and S - K among
+    per-row positions; timed at the GPT-3B bf16 stream, the plain version
+    (one indexed assignment) also the one-call library yardstick. Returns
+    {"cache_append_block": (row, 0.0, launches of its checks)}."""
     from controlar_tpu_torch.ops.cache_append import (
         cache_append_block as kern,
         cache_append_block_ref as plain,
     )
 
-    gen = torch.Generator(device="cuda").manual_seed(12)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fused_launches = _kv_write_checks("kernel_append_block", (K_VERIFY, 8), seed=12)
+    fused = [_kv_write_row(*case, flush=flush, seed=13) for case in (
+        ("spec_c2i_3b_w4kv4 verify", "gpt_3b", "int4", K_VERIFY, "per_row"),
+        ("spec_c2i_3b verify", "gpt_3b", "bf16", K_VERIFY, "per_row"),
+        ("spec_c2i_3b_w8kv8 verify", "gpt_3b", "int8", K_VERIFY, "per_row"))]
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
     b, k, timed = 16, K_VERIFY, None
+    kern.launches = 0
     for name, dt, s, w in BLOCK_STREAMS:
         if dt == torch.int8:
             cache = torch.randint(-128, 128, (b, s, w), generator=gen, device="cuda", dtype=dt)
@@ -917,6 +1095,7 @@ def phase_kernel_append_block():
               f"{name}: the cache differs from the plain version's")
         if timed is None:
             timed = (cache, rows, pos)
+    launches = kern.launches
     cache, rows, pos = timed
     nbytes = 2 * rows.numel() * rows.element_size() + pos.numel() * 4  # rows in and out
     bound, by = _roofline(nbytes, 0, FP32_FLOPS)
@@ -924,9 +1103,13 @@ def phase_kernel_append_block():
     row = dict(case="gpt_3b_bf16", rows=b, k=k, row_bytes=rows.shape[2] * rows.element_size(),
                s=cache.shape[1], ms=time_ms(lambda: kern(cache, rows, pos), flush=flush),
                plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound, bound_by=by)
-    emit("kernel_append_block", ok=True, name="cache_append_block", bit_exact=True,
-         streams=[s[0] for s in BLOCK_STREAMS], timings=[row])
-    return row, 0.0
+    emit("kernel_append_block", ok=True, name="append_kv", bit_exact=True,
+         cases=[c[0] for c in KV_WRITE_CASES], kinds=KV_WRITE_KINDS, t=[K_VERIFY, 8],
+         launches=fused_launches, timings=fused,
+         single_stream=dict(name="cache_append_block", bit_exact=True,
+                            streams=[st[0] for st in BLOCK_STREAMS], launches=launches,
+                            timings=[row]))
+    return {"cache_append_block": (row, 0.0, launches)}
 
 
 def _stacked_cases(kind):
@@ -1786,18 +1969,20 @@ def phase_train_cell(name: str, warm: int = 2, timed: int = 5) -> dict:
 
 def _expected_per_call(name: str, cfg) -> dict:
     """Launches of each kernel in one generate call of the cell: attention
-    at every decode step of every layer; on the W4 path two W4 products
+    and the fused KV write at every decode step of every layer (the prefill
+    writes its rows by assignment); on the W4 path two W4 products
     (wqkv, wo) and one fused FFN per layer at the prefill (16 rows) and at
     every decode step."""
     from controlar_tpu_torch.cells import CELLS
 
     cell, layers, steps = CELLS[name], cfg.n_layer, cfg.block_size - 1
+    write = {"append_kv": layers * steps}
     if cell.get("quant") == "w4":
-        return {"flash_decode_attention_q4": layers * steps,
+        return {"flash_decode_attention_q4": layers * steps, **write,
                 "w4_matmul": 2 * layers * (steps + 1), "w4_ffn": layers * (steps + 1)}
     if cell.get("cache_dtype") == torch.int8:
-        return {"flash_decode_attention_q8": layers * steps}
-    return {"flash_decode_attention": layers * steps}
+        return {"flash_decode_attention_q8": layers * steps, **write}
+    return {"flash_decode_attention": layers * steps, **write}
 
 
 def phase_cell(name: str, runs: int) -> dict:
@@ -1848,12 +2033,14 @@ def phase_cell(name: str, runs: int) -> dict:
 def _stacked_expected(base: str, cfg) -> dict:
     """Launches of each kernel in one generate(kv_stacked=True) call on the
     model of pipeline cell `base`: the stacked attention at every decode step
-    of every layer, the W4 kernels as in the flat call; no per-layer append
-    and no flat attention."""
+    of every layer, the W4 kernels as in the flat call; no per-layer write
+    (a flat step writes the stacked rows by assignment) and no flat
+    attention."""
     flat = _expected_per_call(base, cfg)
     attn = next(k for k in flat if k.startswith("flash_decode_attention"))
     suffix = attn.removeprefix("flash_decode_attention")
-    return {f"flash_stacked{suffix}" if k == attn else k: v for k, v in flat.items()}
+    return {f"flash_stacked{suffix}" if k == attn else k: v for k, v in flat.items()
+            if k != "append_kv"}
 
 
 def _device_kernels(fn) -> int:
@@ -1978,9 +2165,9 @@ def phase_stacked_cell(name: str, runs: int) -> dict:
 
 def _spec_expected(name: str, cfg, dcfg, cycles: int) -> dict:
     """Launches of one speculative generate call of `cycles` cycles: each
-    cycle runs k draft decode steps (attention and a row append per layer,
-    the append twice on a quantized cache: rows and scales) and one verify
-    (chunk attention and a block append per layer, likewise); on the W4
+    cycle runs k draft decode steps (attention and the fused KV write per
+    layer) and one verify (chunk attention and the fused KV write per
+    layer); on the W4
     target two W4 products (wqkv, wo) and one fused FFN per layer at the
     prefill and at every verify. The prefills launch no attention or append
     kernel."""
@@ -1988,14 +2175,12 @@ def _spec_expected(name: str, cfg, dcfg, cycles: int) -> dict:
 
     cell = SPEC_CELLS[name]
     cache = cell.get("cache_dtype")
-    streams = 1 if cache is None else 2
     draft_steps = dcfg.n_layer * SPEC_K * cycles
     verify = cfg.n_layer * cycles
     attn = {None: "", torch.int8: "_q8", "int4": "_q4"}[cache]
     out = {f"flash_decode_attention{attn}": draft_steps,
-           "cache_append_rows": streams * draft_steps,
            f"flash_chunk_attention{attn}": verify,
-           "cache_append_block": streams * verify}
+           "append_kv": draft_steps + verify}
     if cell.get("quant") == "w4":
         out.update(w4_matmul=2 * cfg.n_layer * (cycles + 1), w4_ffn=cfg.n_layer * (cycles + 1))
     return out
@@ -2065,9 +2250,9 @@ def phase_spec_cell(name: str, runs: int) -> dict:
 
 def _serve_expected(cfg, scfg, slot_steps: int) -> dict:
     """Launches of one serving run: at every decode step of every layer one
-    attention call and one row append per cache stream (rows, and scales for
-    the int8 cache), or with the stacked cache one stacked append per stream
-    and step; steps = slot_steps / max_slots. Admission prefills launch no
+    attention call and one fused KV write, or with the stacked cache one
+    stacked append per stream (rows, and scales for the int8 cache) and
+    step; steps = slot_steps / max_slots. Admission prefills launch no
     kernel."""
     steps = slot_steps // scfg.max_slots
     streams = 2 if scfg.cache_dtype == torch.int8 else 1
@@ -2076,7 +2261,7 @@ def _serve_expected(cfg, scfg, slot_steps: int) -> dict:
         return {f"flash_stacked{attn}": cfg.n_layer * steps,
                 "cache_append_rows_stacked": streams * steps}
     return {f"flash_decode_attention{attn}": cfg.n_layer * steps,
-            "cache_append_rows": streams * cfg.n_layer * steps}
+            "append_kv": cfg.n_layer * steps}
 
 
 def _serve_run(engine, feats, wrappers):
@@ -2198,6 +2383,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase_device()
+    off_path_launches = {}  # kernel on no path -> the launches of its phase's checks
     main_rows, max_err = phase_kernel()
     timed = {  # kernel -> (the main-path row that is timed, max abs error, where)
         "flash_decode_attention": (main_rows["c2i"], max_err,
@@ -2208,8 +2394,6 @@ def main() -> int:
                                       "B=16 H=32 D=100 S=768 pos=575"),
         "w4_matmul": (*phase_kernel_w4mm(), "GPT-3B wqkv: 16 x 3200 -> 9600"),
         "w4_ffn": (*phase_kernel_w4ffn(), "GPT-3B FFN: 16 x 3200, F=8704"),
-        "cache_append_rows": (*phase_kernel_append(),
-                              "serve_c2i step: 16 GPT-B bf16 rows of 3072 B, S 768"),
         "flash_chunk_attention": (*phase_kernel_chunk(),
                                   "spec_c2i_3b last verify: B=16 K=4 H=32 D=100 S=768 pos=572"),
         "flash_chunk_attention_q8": (*phase_kernel_chunk_q8(),
@@ -2218,8 +2402,6 @@ def main() -> int:
         "flash_chunk_attention_q4": (*phase_kernel_chunk_q4(),
                                      "spec_c2i_3b_w4kv4 last verify, split: B=16 K=4 H=32 "
                                      "D=100 S=768 pos=572"),
-        "cache_append_block": (*phase_kernel_append_block(),
-                               "spec_c2i_3b verify: 16 x 4 GPT-3B bf16 rows of 12800 B, S 768"),
         "flash_stacked": (*phase_kernel_stacked(),
                           "c2i_stacked last step: L=12 B=16 H=12 D=64 S=768 layer 11 pos=575"),
         "flash_stacked_q8": (*phase_kernel_stacked_q8(),
@@ -2232,7 +2414,14 @@ def main() -> int:
                                       "serve_c2i_stacked step: 12 x 16 GPT-B bf16 rows of "
                                       "3072 B, S 768"),
     }
-    row, err, off_path_launches = phase_kernel_q8_append()
+    appends = {**phase_kernel_append(), **phase_kernel_append_block()}
+    timed["append_kv"] = (*appends["append_kv"], "c2i_3b_w4kv4 step: B=16 T=1 KV=32 D=100 "
+                          "int4 split, S 768, pos 575")
+    row, err, off_path_launches["cache_append_rows"] = appends["cache_append_rows"]
+    timed["cache_append_rows"] = (row, err, "16 GPT-B bf16 rows of 3072 B, S 768")
+    row, err, off_path_launches["cache_append_block"] = appends["cache_append_block"]
+    timed["cache_append_block"] = (row, err, "16 x 4 GPT-3B bf16 rows of 12800 B, S 768")
+    row, err, off_path_launches["flash_decode_attention_q8_append"] = phase_kernel_q8_append()
     timed["flash_decode_attention_q8_append"] = (
         row, err, "c2i_w8kv8 last step: B=16 H=12 D=64 S=768 pos=575")
     train_rows = phase_kernel_train()
@@ -2273,8 +2462,9 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda", "source": f"controlar_tpu_torch/csrc/{source}",
             "replaces": replaces,
+            **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
             # the timed runs of the cells, or for a kernel on no path its phase's checks
-            "launches": launches[name] if on_path else off_path_launches,
+            "launches": launches[name] if on_path else off_path_launches[name],
             "on_path": on_path, **({} if on_path else {"why_no_path": OFF_PATH[name]}),
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

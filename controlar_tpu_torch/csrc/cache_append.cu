@@ -1,28 +1,62 @@
-// Per-slot KV-cache row append, cache[b, pos[b], :] = rows[b, :], its K-row
-// block form, cache[b, pos[b] + j, :] = rows[b, j, :] for j < K, and its
-// stacked form over all layers of a (L, B, S, W) cache,
-// cache[l, b, pos[b], :] = rows[l, b, :]; in place.
+// KV-cache writes, in place:
+//   - the fused write (`kv_write`): a layer's new k and v rows, (B, T, KV*D)
+//     each, quantized to the cache's format and written at rows pos[b] + t
+//     of every stream of the layer's cache: the [k|v] row of a floating
+//     cache; the per-head int8 rows and f32 scales of an int8 cache; the
+//     nibble-packed int4 carriers (pairs interleaved or split-rope) and the
+//     scales of an int4 cache. T = 1 is a decode step, T = K a verify chunk;
+//   - the single-stream copies: the per-slot row append, cache[b, pos[b], :]
+//     = rows[b, :], its K-row block form, cache[b, pos[b] + j, :] = rows[b,
+//     j, :] for j < K, and its stacked form over all layers of a (L, B, S,
+//     W) cache, cache[l, b, pos[b], :] = rows[l, b, :].
 //
 // Replaces the Pallas kernels `_kernel` (cache_append_rows), `_block_kernel`
 // (cache_append_block) and `_stacked_kernel` (cache_append_rows_stacked) of
-// controlar_tpu/ops/cache_append.py. A stacked cache is L * B elements of
-// S rows each, element l * B + b taking its position from pos[b]: one launch
-// writes every layer's row of a decode step, where the TPU kernel runs a
-// grid (L, B) of read-modify-write windows.
+// controlar_tpu/ops/cache_append.py. The decode steps and the verify chunk
+// of the JAX package quantize the new rows in XLA (`decode._quantize_rows_for`)
+// and then append each stream with the Pallas kernel; the fused write does
+// both in one launch. A stacked cache is L * B elements of S rows each,
+// element l * B + b taking its position from pos[b]: one launch writes every
+// layer's row of a decode step, where the TPU kernel runs a grid (L, B) of
+// read-modify-write windows.
 //
 // The TPU kernels read and rewrite the aligned 8- or 32-row window around
 // pos[b], because their DMA offsets must follow the (8, 128) tiling (the
 // block form also needs a window of slack past the chunk); on this card the
-// K rows of element b are one contiguous span of K * row_bytes bytes at row
-// pos[b], so the kernel copies that span and nothing else.
+// rows are addressed directly.
 //
-// Bound: launch latency. At the serving shapes one call moves 16 rows of at
-// most 3200 bytes in and out (about 0.1 MB, some 0.03 us at 3.35 TB/s); a
-// speculative verify at GPT-3B moves 16 spans of 4 bf16 rows of 12800 bytes
-// (1.6 MB in and out, 0.5 us); the stacked form at serve_c2i moves 12 layers
-// of those 16 rows (1.2 MB, 0.35 us): all far less than the few
-// microseconds a launch takes. The design keeps the copy at the widest
-// aligned access and does no other work:
+// Bound: launch latency. A layer's new rows are at most 16 x 4 rows of
+// 12800 bytes (GPT-3B bf16, a verify chunk: 1.6 MB in and out, 0.5 us at
+// 3.35 TB/s); a decode step's are 16 rows: all far less than the few
+// microseconds a launch takes. What the fused write saves is the launches
+// around the copy: the concatenation of k and v, the quantizer's
+// elementwise kernels (9 for int8, 14 for int4) and one append per stream.
+//
+// The fused write: one warp per (element b * T + t, cache head hh), hh in
+// [k heads | v heads]; blocks of kWarps warps over a grid (B * T, 2KV /
+// kWarps). Each warp reads pos[b] (or the position passed by value) and
+// skips its element when rows pos .. pos + T - 1 are not all inside [0, S),
+// as the copies do. A lane holds value pairs j = lane + 32 m of its head: (2j,
+// 2j + 1), or (j, D/2 + j) for split-rope carriers. The quantized forms take
+// the head's amax from a __shfl_xor_sync reduction and compute what the
+// port's quantizer (`quant.quantize_kv_rows`, `_4`) computes on this card,
+// bit for bit:
+//   s = max(amax * f32(1 / QMAX), 1e-8)   PyTorch divides by a Python scalar
+//                                         on CUDA as a product with its f32
+//                                         reciprocal; a NaN amax stays NaN,
+//                                         as torch.clamp keeps it;
+//   q = clamp(rint(x / s), -QMAX, QMAX)   IEEE division, round half to even;
+//                                         a NaN quotient stores 0, as the
+//                                         card's float-to-integer cast does.
+// Lane 0 writes the head's scale; int4 carriers are (q0 & 15) | (q1 & 15) << 4.
+// Loads and stores are element-wise at the elements' own alignment (k and v
+// are strided views of the projection; D = 100 heads sit at 2-byte offsets
+// in an int4 row), coalesced across the warp. No shared memory: a warp's
+// values stay in registers.
+//
+// The copies: the K rows of element b are one contiguous span of K *
+// row_bytes bytes at row pos[b], and the kernel copies that span and nothing
+// else:
 //   - blockIdx.x is the element e (the batch row b, or l * B + b for a
 //     stacked cache) and p = pos[e % B] its row; a long span is cut over
 //     blockIdx.y (one block per 512 vectors), a single row stays one block;
@@ -37,9 +71,13 @@
 //     neighbouring addresses.
 //
 // Plain C interface, loaded with ctypes. The launch goes on the caller's
-// stream; the function returns cudaGetLastError() after the launch.
+// stream; each function returns cudaGetLastError() after the launch.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -92,6 +130,138 @@ int dispatch(void* cache, const void* rows, const void* pos, int L, int B, int S
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- the fused write ---------------------------------------------------------
+
+constexpr int kWarps = 8;     // cache heads (warps) a block
+constexpr int kMaxPairs = 4;  // value pairs a lane holds: D <= 256
+
+// cache formats, as ops/cache_append.py passes them
+enum Kind { kFloat = 0, kInt8 = 1, kInt4 = 2, kInt4Split = 3 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+// a floating value in the cache's dtype: a bit copy for the same dtype,
+// else through f32 with round to nearest even (PyTorch's casts)
+template <typename Out, typename In>
+__device__ __forceinline__ Out cast(In x) {
+  if constexpr (std::is_same_v<Out, In>) {
+    return x;
+  } else if constexpr (std::is_same_v<Out, float>) {
+    return to_f32(x);
+  } else if constexpr (std::is_same_v<Out, __nv_bfloat16>) {
+    return __float2bfloat16_rn(to_f32(x));
+  } else {
+    return __float2half_rn(to_f32(x));
+  }
+}
+
+// max that keeps a NaN from either side, as torch.amax does
+__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
+
+template <int QMAX>
+__device__ __forceinline__ int quantize(float x, float s) {
+  const float r = rintf(__fdiv_rn(x, s));
+  return r != r ? 0 : static_cast<int>(fminf(fmaxf(r, -QMAX), QMAX));
+}
+
+template <typename In, typename Out, int KIND>
+__global__ void __launch_bounds__(kWarps * 32)
+kv_write_kernel(Out* __restrict__ rows,        // (B, S, 2KV*D) values or int8; (B, S, KV*D) carriers
+                float* __restrict__ scales,    // (B, S, 2KV) f32; unused for a floating cache
+                const In* __restrict__ k,      // (B, T, KV*D), element strides k_b, k_t, 1
+                const In* __restrict__ v,      // (B, T, KV*D), element strides v_b, v_t, 1
+                long long k_b, long long k_t, long long v_b, long long v_t,
+                const int* __restrict__ pos,   // (B,) int32, or null: every row at pos0
+                int pos0, int T, int S, int KV, int D) {
+  const int lane = threadIdx.x & 31;
+  const int hh = blockIdx.y * kWarps + (threadIdx.x >> 5);  // [k heads | v heads]
+  if (hh >= 2 * KV) return;
+  const int b = blockIdx.x / T;
+  const int t = blockIdx.x - b * T;
+  const int p = pos == nullptr ? pos0 : pos[b];
+  if (p < 0 || p > S - T) return;  // out of range: the element is skipped
+  const bool is_v = hh >= KV;
+  const In* src = (is_v ? v + b * v_b + t * v_t : k + b * k_b + t * k_t)
+                  + (long long)(is_v ? hh - KV : hh) * D;
+  const long long row = (long long)b * S + p + t;
+
+  if constexpr (KIND == kFloat) {
+    Out* dst = rows + row * 2 * KV * D + (long long)hh * D;
+    for (int i = lane; i < D; i += 32) dst[i] = cast<Out>(src[i]);
+    return;
+  } else {
+    constexpr int QMAX = KIND == kInt8 ? 127 : 7;
+    const int P = D / 2;
+    float x0[kMaxPairs], x1[kMaxPairs];
+    float amax = 0.f;
+#pragma unroll
+    for (int m = 0; m < kMaxPairs; ++m) {
+      const int j = lane + 32 * m;
+      x0[m] = x1[m] = 0.f;
+      if (j < P) {
+        x0[m] = to_f32(src[KIND == kInt4Split ? j : 2 * j]);
+        x1[m] = to_f32(src[KIND == kInt4Split ? P + j : 2 * j + 1]);
+        amax = nan_max(amax, nan_max(fabsf(x0[m]), fabsf(x1[m])));
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    float s = __fmul_rn(amax, 1.0f / QMAX);
+    s = s != s ? s : fmaxf(s, 1e-8f);
+    if (lane == 0) scales[row * 2 * KV + hh] = s;
+#pragma unroll
+    for (int m = 0; m < kMaxPairs; ++m) {
+      const int j = lane + 32 * m;
+      if (j >= P) break;
+      const int q0 = quantize<QMAX>(x0[m], s), q1 = quantize<QMAX>(x1[m], s);
+      if constexpr (KIND == kInt8) {
+        Out* dst = rows + row * 2 * KV * D + (long long)hh * D;
+        dst[2 * j] = static_cast<Out>(q0);
+        dst[2 * j + 1] = static_cast<Out>(q1);
+      } else {
+        rows[row * KV * D + (long long)hh * P + j] = static_cast<Out>((q0 & 0xF) | ((q1 & 0xF) << 4));
+      }
+    }
+  }
+}
+
+template <typename In, typename Out, int KIND>
+int launch_kv(void* rows, void* scales, const void* k, const void* v, long long k_b,
+              long long k_t, long long v_b, long long v_t, const void* pos, int pos0, int B,
+              int T, int S, int KV, int D, cudaStream_t stream) {
+  const dim3 grid(B * T, (2 * KV + kWarps - 1) / kWarps);
+  kv_write_kernel<In, Out, KIND><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<Out*>(rows), static_cast<float*>(scales), static_cast<const In*>(k),
+      static_cast<const In*>(v), k_b, k_t, v_b, v_t, static_cast<const int*>(pos), pos0, T, S,
+      KV, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype codes: 0 f32, 1 bf16, 2 f16
+template <typename In>
+int dispatch_kv(int kind, int out_dtype, void* rows, void* scales, const void* k, const void* v,
+                long long k_b, long long k_t, long long v_b, long long v_t, const void* pos,
+                int pos0, int B, int T, int S, int KV, int D, cudaStream_t st) {
+#define KV_ARGS rows, scales, k, v, k_b, k_t, v_b, v_t, pos, pos0, B, T, S, KV, D, st
+  switch (kind) {
+    case kFloat:
+      switch (out_dtype) {
+        case 0: return launch_kv<In, float, kFloat>(KV_ARGS);
+        case 1: return launch_kv<In, __nv_bfloat16, kFloat>(KV_ARGS);
+        case 2: return launch_kv<In, __half, kFloat>(KV_ARGS);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+      }
+    case kInt8: return launch_kv<In, int8_t, kInt8>(KV_ARGS);
+    case kInt4: return launch_kv<In, int8_t, kInt4>(KV_ARGS);
+    case kInt4Split: return launch_kv<In, int8_t, kInt4Split>(KV_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef KV_ARGS
+}
+
 }  // namespace
 
 // cache (B, S, row_bytes) bytes; rows (B, row_bytes) bytes; pos (B,) int32 on
@@ -117,4 +287,32 @@ extern "C" int cache_append_rows_stacked(void* cache, const void* rows, const vo
                                          int B, int S, long long row_bytes, int vec_bytes,
                                          void* stream) {
   return dispatch(cache, rows, pos, L, B, S, 1, row_bytes, vec_bytes, stream);
+}
+
+// The fused write of a layer's new rows k, v (B, T, KV*D) of dtype in_dtype
+// (0 f32, 1 bf16, 2 f16; element strides k_b, k_t / v_b, v_t, the last dim
+// contiguous) at rows pos[b] + t: kind 0 a floating cache `rows` (B, S,
+// 2KV*D) of dtype out_dtype; kind 1 int8 rows (B, S, 2KV*D) and f32 `scales`
+// (B, S, 2KV); kinds 2 and 3 int4 carriers (B, S, KV*D), pairs (2j, 2j + 1)
+// or split (j, D/2 + j), and scales. pos: (B,) int32 on the device, or null
+// for every row at pos0. D even and at most 256 for kinds 1-3. Returns a
+// cudaError_t.
+extern "C" int kv_write(int kind, int in_dtype, int out_dtype, void* rows, void* scales,
+                        const void* k, const void* v, long long k_b, long long k_t,
+                        long long v_b, long long v_t, const void* pos, int pos0, int B, int T,
+                        int S, int KV, int D, void* stream) {
+  if (B <= 0 || T <= 0 || KV <= 0 || D <= 0) return 0;
+  if (kind != kFloat && (D % 2 != 0 || D > 64 * kMaxPairs)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (in_dtype) {
+    case 0: return dispatch_kv<float>(kind, out_dtype, rows, scales, k, v, k_b, k_t, v_b, v_t,
+                                      pos, pos0, B, T, S, KV, D, st);
+    case 1: return dispatch_kv<__nv_bfloat16>(kind, out_dtype, rows, scales, k, v, k_b, k_t,
+                                              v_b, v_t, pos, pos0, B, T, S, KV, D, st);
+    case 2: return dispatch_kv<__half>(kind, out_dtype, rows, scales, k, v, k_b, k_t, v_b,
+                                       v_t, pos, pos0, B, T, S, KV, D, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

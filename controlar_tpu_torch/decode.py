@@ -29,10 +29,11 @@ Decode attention runs the kernels when `use_flash` (on the card: CUDA,
 reading only rows <= pos), else a masked einsum over the whole (dequantized)
 slab. `decode_step_flat` decodes every row at one position (the generation
 loop); `decode_step_multi` at a position per row (the serving engine and
-the speculative draft), with the new rows written by `cache_append_rows`.
-Both, and `spec_decode.forward_chunk` (T query rows per batch row, the
-chunk kernels and `cache_append_block`), run one layer loop
-(`_decode_layers`). Quantized weights (`quant.W8Linear`, `quant.W4Linear`)
+the speculative draft). Both, and `spec_decode.forward_chunk` (T query rows
+per batch row, the chunk kernels), run one layer loop (`_decode_layers`),
+which writes a layer's new k and v rows into a per-layer cache with one
+`append_kv` (on the card one launch that quantizes the rows and writes
+every stream). Quantized weights (`quant.W8Linear`, `quant.W4Linear`)
 are called where the linears are; a layer with a fused W4 `w13` runs the fused FFN
 kernel on the card (`ffn`).
 """
@@ -53,9 +54,10 @@ from controlar_tpu_torch.models.gpt import (
     make_rope_table,
 )
 from controlar_tpu_torch.ops.cache_append import (
-    cache_append_block,
-    cache_append_rows,
+    Cache,
+    append_kv,
     cache_append_rows_stacked,
+    cache_streams,
 )
 from controlar_tpu_torch.ops.flash_chunk import (
     flash_chunk_attention,
@@ -82,11 +84,8 @@ from controlar_tpu_torch.quant import (
     dequantize_kv_slab,
     W4Linear,
     is_split,
-    quantize_kv_rows,
-    quantize_kv_rows_4,
 )
 
-Cache = Union[torch.Tensor, Dict[str, torch.Tensor]]
 Caches = Union[List[Cache], Cache]  # per-layer caches, or one stacked cache
 Rope = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -175,43 +174,13 @@ def _qkv_for(lp, cfg: GPTConfig, x: torch.Tensor, rope: Rope):
     return q, k, qkv[..., (nh + nkv) * hd:].reshape(b, t, nkv, hd)
 
 
-def _quantize_rows_for(cache: Dict[str, torch.Tensor], kv_rows: torch.Tensor, kv_heads: int,
-                       split: bool = False):
-    """New rows in the cache's own format -> (rows, scales)."""
-    if "kv4" in cache:
-        return quantize_kv_rows_4(kv_rows, kv_heads, split=split)
-    return quantize_kv_rows(kv_rows, kv_heads)
-
-
-def _cache_streams(cache: Cache, kv_rows: torch.Tensor, kv_heads: int, split: bool):
-    """(destination, source) pairs that store new rows kv_rows (..., 2*KV*D):
-    the slab and the rows, or a quantized cache's rows and scales."""
-    if isinstance(cache, dict):
-        rows, scales = _quantize_rows_for(cache, kv_rows, kv_heads, split)
-        return ((cache["kv4" if "kv4" in cache else "kv"], rows), (cache["s"], scales))
-    return ((cache, kv_rows),)
-
-
 def _write_rows(cache: Cache, kv_rows: torch.Tensor, start: int, kv_heads: int,
                 split: bool) -> None:
     """cache[:, start:start+T] = kv_rows (B, T, 2*KV*D), quantized for a
     quantized cache; in place."""
     stop = start + kv_rows.shape[1]
-    for dst, src in _cache_streams(cache, kv_rows, kv_heads, split):
+    for dst, src in cache_streams(cache, kv_rows, kv_heads, split):
         dst[:, start:stop] = src
-
-
-def _append_rows(cache: Cache, kv_rows: torch.Tensor, pos: torch.Tensor, kv_heads: int,
-                 split: bool, block: bool = False) -> None:
-    """cache[b, pos[b] + j] = kv_rows[b, j] (B, T, 2*KV*D), quantized for a
-    quantized cache, in place: one `cache_append_rows` per stream for a
-    decode step (T = 1), one `cache_append_block` per stream for a chunk
-    (block=True)."""
-    for dst, src in _cache_streams(cache, kv_rows, kv_heads, split):
-        if block:
-            cache_append_block(dst, src, pos)
-        else:
-            cache_append_rows(dst, src[:, 0], pos)
 
 
 def _layer_with_rows(caches: Cache, l: int, rows: List[torch.Tensor], pos) -> Cache:
@@ -342,7 +311,7 @@ def prefill_flat(
 
 
 def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
-                   pos: Union[int, torch.Tensor], rope: Rope, control, write_rows,
+                   pos: Union[int, torch.Tensor], rope: Rope, control,
                    col_mask_full: Optional[torch.Tensor], control_strength,
                    use_flash: bool, chunk: bool = False) -> torch.Tensor:
     """The layer loop of the decode steps and of the chunk forward; returns
@@ -353,17 +322,18 @@ def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
     position pos[b] + j. pos is one position for every row, or a (B,) int32
     tensor of a position per row; rope holds the rows' RoPE; control(f) ->
     (B, T | 1, dim) picks the rows' control tokens from fusion slab f (None:
-    no control); write_rows(cache, kv_rows (B, T, 2*KV*D)) stores the new
-    rows in place. Row j of a chunk attends to the cache rows <= pos[b] + j,
-    and the column mask is not applied on its own row (the diagonal
-    exception of the chunk kernels); a decode step applies the mask
-    everywhere, as the JAX package's decode steps do.
+    no control). A layer's new k and v rows go into its cache at pos[b] + j
+    through one `append_kv`, before its attention. Row j of a chunk attends
+    to the cache rows <= pos[b] + j, and the column mask is not applied on
+    its own row (the diagonal exception of the chunk kernels); a decode step
+    applies the mask everywhere, as the JAX package's decode steps do.
 
     On a stacked cache (a decode step, T = 1), layer l attends to its rows
     < pos[b] and its in-flight row: through the stacked kernels, or over a
-    copy of the layer with the row written. After the last layer,
-    write_rows(stream, rows (L, B, W)) stores every layer's rows, once per
-    stream (the rows, and a quantized cache's scales)."""
+    copy of the layer with the row written. After the last layer every
+    layer's rows are stored, once per stream (the rows, and a quantized
+    cache's scales): one indexed assignment at an int pos,
+    `cache_append_rows_stacked` at a position per row."""
     b, t = h.shape[:2]
     dev = h.device
     kvd = cfg.kv_heads * cfg.head_dim
@@ -395,15 +365,16 @@ def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
             h = h + _fuse(control(fidx[l]), control_strength, h.dtype)
         x = rms_norm(h, lp.attention_norm, cfg.norm_eps)
         q, k, v = _qkv_for(lp, cfg, x, rope)  # (B, T, H, D), (B, T, KV, D)
-        kv_rows = torch.cat([k.reshape(b, t, kvd), v.reshape(b, t, kvd)], dim=-1)
         if stacked:
-            streams = _cache_streams(caches, kv_rows[:, 0], cfg.kv_heads, split)
+            kv_rows = torch.cat([k.reshape(b, kvd), v.reshape(b, kvd)], dim=-1)
+            streams = cache_streams(caches, kv_rows, cfg.kv_heads, split)
             rows = [src.to(dst.dtype).contiguous() for dst, src in streams]
             inflight.append(rows)
             cache = None if use_flash else _layer_with_rows(caches, l, rows, pos)
         else:
             cache = caches[l]
-            write_rows(cache, kv_rows)
+            append_kv(cache, k.reshape(b, t, kvd), v.reshape(b, t, kvd), pos,
+                      kv_heads=cfg.kv_heads, split=split)
         if use_flash and stacked:
             attn = _flash_stacked_attn(q, caches, rows, l, pos, col_bias, cfg, split).to(h.dtype)
         elif use_flash:
@@ -417,7 +388,11 @@ def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
         h = h + ffn(lp, rms_norm(h, lp.ffn_norm, cfg.norm_eps))
     if stacked:
         for i, (dst, _) in enumerate(streams):
-            write_rows(dst, torch.stack([rows[i] for rows in inflight]))
+            new = torch.stack([rows[i] for rows in inflight])  # (L, B, W)
+            if isinstance(pos, int):
+                dst[:, :, pos] = new
+            else:
+                cache_append_rows_stacked(dst, new, pos)
     return h
 
 
@@ -440,18 +415,10 @@ def decode_step_flat(
     if rope_table is None:
         rope_table = rope_tables(model, cfg, token.device)
     rope = _rope_rows(rope_table, pos, pos + 1)
-    split = isinstance(rope, tuple)
     f = pos - cfg.cls_token_num + 1
     control = None if fused3 is None else (lambda i: fused3[i][:, f:f + 1])
-
-    def write_rows(cache, kv_rows):
-        if is_stacked_caches(caches):
-            cache[:, :, pos] = kv_rows  # every layer's row: (L, B, W)
-        else:
-            _write_rows(cache, kv_rows, pos, cfg.kv_heads, split)
-
     h = _decode_layers(model, cfg, caches, model.tok_embeddings(token)[:, None, :], pos, rope,
-                       control, write_rows, col_mask_full, control_strength, use_flash)
+                       control, col_mask_full, control_strength, use_flash)
     return _logits(model, cfg, h[:, -1]), caches
 
 
@@ -495,7 +462,7 @@ def decode_step_multi(
     at position 0 (f = 1 - cls_token_num); as in the JAX package's dynamic
     slice, a negative f counts once from the end and f is then clamped to
     [0, block_size - 1] (the rows of such slots are discarded). The rows go
-    through `cache_append_rows` (its kernel on the card); attention through
+    through `append_kv` (its kernel on the card); attention through
     the flash kernels with the column bias of col_mask_full under use_flash,
     else the masked einsum.
 
@@ -511,20 +478,12 @@ def decode_step_multi(
     if rope_table is None:
         rope_table = rope_tables(model, cfg, dev)
     rope = _rope_at(rope_table, pos)
-    split = isinstance(rope, tuple)
     f = pos.long() - cfg.cls_token_num + 1
     # the JAX package's dynamic slice: a negative start counts once from the
     # end, then the start is clamped into the block
     f = torch.clamp(torch.where(f < 0, f + cfg.block_size, f), 0, cfg.block_size - 1)
     rows_idx = torch.arange(token.shape[0], device=dev)
     control = None if fused3 is None else (lambda i: fused3[i][rows_idx, f][:, None])
-
-    def write_rows(cache, kv_rows):
-        if stacked:
-            cache_append_rows_stacked(cache, kv_rows, pos)  # every layer's row: (L, B, W)
-        else:
-            _append_rows(cache, kv_rows, pos, cfg.kv_heads, split)
-
     h = _decode_layers(model, cfg, caches, model.tok_embeddings(token)[:, None, :], pos, rope,
-                       control, write_rows, col_mask_full, control_strength, use_flash)
+                       control, col_mask_full, control_strength, use_flash)
     return _logits(model, cfg, h[:, -1]), caches

@@ -1,4 +1,20 @@
-"""Per-slot KV-cache row and block append.
+"""KV-cache writes: the fused write of a layer's new k/v rows, and the
+per-slot row and block appends of one stream.
+
+`append_kv(cache, k, v, pos, kv_heads=..., split=...)` writes a layer's new
+rows k, v (B, T, KV*D) at rows pos[b] + t of every stream of the layer's
+cache, quantized to the cache's format: the `[k|v]` row of a floating
+(B, S, 2*KV*D) cache; the per-head int8 rows and f32 scales of an int8
+cache {"kv", "s"}; the nibble-packed int4 carriers (pairs (2j, 2j+1), or
+(j, D/2 + j) with split=True, which other caches ignore) and the scales
+of an int4 cache {"kv4", "s"}.
+pos is a (B,) int32 tensor on the cache's device, or one Python int for
+every row (the flat decode step). T = 1 is a decode step, T = K a verify
+chunk. k and v may be strided views of the projection (any row strides,
+the last dim contiguous). This is what the decode steps and the verify
+chunk call, once a layer; it computes what the JAX package's
+`decode._quantize_rows_for` followed by the Pallas `cache_append_rows` /
+`cache_append_block` of each stream computes, on unpadded rows and scales.
 
 `cache_append_rows(cache, rows, pos)` sets `cache[b, pos[b]] = rows[b]` in
 place for cache (B, S, W), rows (B, W) (cast to the cache's dtype, as the JAX
@@ -7,16 +23,19 @@ package's `cache_append_rows` does) and pos (B,) int32, and returns `cache`.
 j]` for j < K, rows (B, K, W): the K rows of a speculative verify chunk.
 `cache_append_rows_stacked(cache, rows, pos)` sets `cache[l, b, pos[b]] =
 rows[l, b]` for every layer of a stacked cache (L, B, S, W), rows (L, B, W):
-all layers' rows of a per-slot decode step in one call.
-All take every stream the decode steps write: bf16 `[k|v]` rows, int8
-rows, nibble-packed int4 carriers and the unpadded f32 scales.
+all layers' rows of a per-slot decode step in one call. All three take any
+stream: bf16 `[k|v]` rows, int8 rows, nibble-packed int4 carriers and the
+unpadded f32 scales.
 
-On a CUDA tensor they launch `csrc/cache_append.cu`, which copies each
-element's contiguous K * W span at the widest aligned vector width; on a
-CPU tensor they take the plain versions, one indexed assignment. Rows
-pos[b] .. pos[b] + K - 1 must lie in [0, S): the kernel skips an element
-whose rows do not (it never writes outside the cache), while the plain
-versions of the block and stacked appends raise on it.
+On a CUDA tensor they launch `csrc/cache_append.cu`: `append_kv` one fused
+launch (`kv_write`) that quantizes and writes every stream, the others a
+copy of each element's contiguous K * W span at the widest aligned vector
+width. On a CPU tensor they take the plain versions: for `append_kv` the
+concatenation, the port's quantizer (`quant.quantize_kv_rows`, `_4`) and an
+indexed or slice assignment per stream; for the others one indexed
+assignment. Rows pos[b] .. pos[b] + T - 1 must lie in [0, S): the kernels
+skip an element whose rows do not (they never write outside the cache),
+while the plain versions of the block and stacked appends raise on it.
 
 The JAX package's kernels rewrite the aligned 8- or 32-row window around
 pos[b], and the block form needs a window of slack past the chunk: both are
@@ -26,10 +45,14 @@ here.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Union
 
 import torch
 
 from controlar_tpu_torch import _build
+from controlar_tpu_torch.quant import quantize_kv_rows, quantize_kv_rows_4
+
+Cache = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
 
 def cache_append_rows_ref(cache: torch.Tensor, rows: torch.Tensor,
@@ -189,3 +212,148 @@ def cache_append_rows_stacked(cache: torch.Tensor, rows: torch.Tensor,
 
 
 cache_append_rows_stacked.launches = 0
+
+
+# ---- the fused write ---------------------------------------------------------
+
+# dtype codes of csrc/cache_append.cu's kv_write, for k / v and a floating cache
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# cache kinds: floating, int8, int4 pairs (2j, 2j + 1), int4 split (j, D/2 + j)
+_FLOAT, _INT8, _INT4, _INT4_SPLIT = 0, 1, 2, 3
+_MAX_QUANT_HEAD_DIM = 256  # 4 value pairs a lane
+
+
+def cache_streams(cache: Cache, kv_rows: torch.Tensor, kv_heads: int, split: bool):
+    """(destination, source) pairs that store new rows kv_rows (..., 2*KV*D):
+    the slab and the rows, or a quantized cache's rows and scales, quantized
+    by the port's quantizer."""
+    if not isinstance(cache, dict):
+        return ((cache, kv_rows),)
+    if "kv4" in cache:
+        rows, scales = quantize_kv_rows_4(kv_rows, kv_heads, split=split)
+        return ((cache["kv4"], rows), (cache["s"], scales))
+    rows, scales = quantize_kv_rows(kv_rows, kv_heads)
+    return ((cache["kv"], rows), (cache["s"], scales))
+
+
+def append_kv_ref(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos: Union[int, torch.Tensor],
+                  *, kv_heads: int, split: bool = False) -> Cache:
+    """Plain version of the fused write: concatenate, quantize, then one
+    slice assignment per stream for an int pos, `cache_append_rows_ref`
+    (T = 1) or `cache_append_block_ref` per stream for a position tensor; in
+    place, returns cache."""
+    kv_rows = torch.cat([k, v], dim=-1)
+    t = kv_rows.shape[1]
+    for dst, src in cache_streams(cache, kv_rows, kv_heads, split):
+        if isinstance(pos, int):
+            dst[:, pos:pos + t] = src
+        elif t == 1:
+            cache_append_rows_ref(dst, src[:, 0], pos)
+        else:
+            cache_append_block_ref(dst, src, pos)
+    return cache
+
+
+def _kv_kind(cache: Cache, split: bool) -> int:
+    if not isinstance(cache, dict):
+        return _FLOAT
+    if "kv4" in cache:
+        return _INT4_SPLIT if split else _INT4
+    return _INT8
+
+
+def _check_kv(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos, kv_heads: int):
+    """Raise ValueError unless the operands are a cache, rows and a position
+    the fused write takes; returns (rows, scales | None, head_dim)."""
+    if isinstance(cache, dict):
+        key = "kv4" if "kv4" in cache else "kv"
+        if set(cache) != {key, "s"}:
+            raise ValueError(f"a quantized cache is {{'kv' | 'kv4', 's'}}, got {sorted(cache)}")
+        rows, scales = cache[key], cache["s"]
+        if rows.dtype != torch.int8 or scales.dtype != torch.float32:
+            raise ValueError(f"cache[{key!r}] must be int8 and cache['s'] float32, got "
+                             f"{rows.dtype} and {scales.dtype}")
+    else:
+        rows, scales = cache, None
+        if rows.dtype not in _DTYPE_CODE:
+            raise ValueError(f"a floating cache must be one of {list(_DTYPE_CODE)}, got "
+                             f"{rows.dtype}")
+    if k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"k and v must be (B, T, KV*D) of one shape, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if k.dtype != v.dtype or k.dtype not in _DTYPE_CODE:
+        raise ValueError(f"k and v must share a dtype of {list(_DTYPE_CODE)}, got {k.dtype} and "
+                         f"{v.dtype}")
+    b, t, kvd = k.shape
+    if kv_heads <= 0 or kvd % kv_heads != 0 or (kvd // kv_heads) % 2 != 0:
+        raise ValueError(f"the row width {kvd} must be kv_heads ({kv_heads}) heads of an even "
+                         f"head_dim")
+    d = kvd // kv_heads
+    if scales is not None and d > _MAX_QUANT_HEAD_DIM:
+        raise ValueError(f"a quantized cache takes head_dim <= {_MAX_QUANT_HEAD_DIM}, got {d}")
+    width = kvd if isinstance(cache, dict) and "kv4" in cache else 2 * kvd
+    if rows.dim() != 3 or rows.shape[0] != b or rows.shape[2] != width:
+        raise ValueError(f"the cache rows must be ({b}, S, {width}), got {tuple(rows.shape)}")
+    if scales is not None and scales.shape != (b, rows.shape[1], 2 * kv_heads):
+        raise ValueError(f"the scales must be ({b}, {rows.shape[1]}, {2 * kv_heads}), got "
+                         f"{tuple(scales.shape)}")
+    if isinstance(pos, torch.Tensor):
+        if pos.shape != (b,) or pos.dtype != torch.int32 or not pos.is_contiguous():
+            raise ValueError(f"pos must be a contiguous ({b},) int32 tensor, got "
+                             f"{tuple(pos.shape)} {pos.dtype}")
+    elif not isinstance(pos, int) or isinstance(pos, bool):
+        raise ValueError(f"pos must be an int or a (B,) int32 tensor, got {type(pos).__name__}")
+    operands = [k, v, *([] if scales is None else [scales])]
+    operands += [pos] if isinstance(pos, torch.Tensor) else []
+    for x in operands:
+        if x.device != rows.device:
+            raise ValueError(f"all operands must be on {rows.device}, got {x.device}")
+    if k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("k and v must be contiguous in their last dim")
+    if not rows.is_contiguous() or (scales is not None and not scales.is_contiguous()):
+        raise ValueError("the cache streams must be contiguous")
+    return rows, scales, d
+
+
+def _kv_lib():
+    """The C entry: kind, in_dtype, out_dtype, rows, scales, k, v, k_b, k_t,
+    v_b, v_t, pos, pos0, B, T, S, KV, D, stream."""
+    f = _build.load("cache_append").kv_write
+    if f.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        f.argtypes = [i, i, i, p, p, p, p, ll, ll, ll, ll, p, i, i, i, i, i, i, p]
+        f.restype = ctypes.c_int
+    return f
+
+
+def append_kv(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos: Union[int, torch.Tensor],
+              *, kv_heads: int, split: bool = False) -> Cache:
+    """Write a layer's new rows k, v (B, T, KV*D) at rows pos[b] + t of every
+    stream of cache, quantized to its format, in place; returns cache. See
+    the module docstring."""
+    rows, scales, d = _check_kv(cache, k, v, pos, kv_heads)
+    if rows.device.type == "cpu":
+        return append_kv_ref(cache, k, v, pos, kv_heads=kv_heads, split=split)
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    if rows.device.index != torch.cuda.current_device():
+        raise ValueError(f"cache is on {rows.device}, the current device is cuda:"
+                         f"{torch.cuda.current_device()}")
+    b, t, _ = k.shape
+    if b == 0 or t == 0:
+        return cache
+    tensor_pos = isinstance(pos, torch.Tensor)
+    err = _kv_lib()(_kv_kind(cache, split), _DTYPE_CODE[k.dtype],
+                    _DTYPE_CODE.get(rows.dtype, 0), rows.data_ptr(),
+                    0 if scales is None else scales.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+                    pos.data_ptr() if tensor_pos else 0, 0 if tensor_pos else pos, b, t,
+                    rows.shape[1], kv_heads, d,
+                    torch.cuda.current_stream(rows.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"append_kv launch failed: cudaError {err}")
+    append_kv.launches += 1
+    return cache
+
+
+append_kv.launches = 0

@@ -4,8 +4,8 @@ verifies them in one forward over the k positions.
 The port of the JAX package's `spec_decode.py`. A cycle runs k draft decode
 steps (`decode.decode_step_multi`, a position per row, on the draft's own
 cache), then one target `forward_chunk` over [cur, d_1 .. d_{k-1}] at each
-row's base position, which writes the chunk's rows with
-`cache_append_block` and attends through the chunk kernels
+row's base position, which writes the chunk's rows with one
+`append_kv` a layer and attends through the chunk kernels
 (`ops/flash_chunk.py`). Greedy decoding (no seed) accepts the leading
 drafts that equal the target's argmax, so the tokens are the target's own
 greedy tokens for any draft; with a seed, Leviathan accept/reject
@@ -53,7 +53,7 @@ def forward_chunk(
     """K-token chunk forward with a base position per row: tokens (B, K), or
     None with emb (B, K, dim) pre-embedded rows; pos (B,) int32, the chunk
     occupying rows pos[b] .. pos[b] + K - 1. Returns (logits (B, K, V) f32,
-    caches); the chunk's rows are written in place (`cache_append_block`).
+    caches); the chunk's rows are written in place (`append_kv`, once a layer).
 
     Query j attends to the cache rows <= pos[b] + j and always to its own
     row, even where col_mask_full masks it (the diagonal exception, as in
@@ -74,7 +74,6 @@ def forward_chunk(
     ar = torch.arange(k, device=dev)
     chunk_pos = pos.long()[:, None] + ar[None, :]  # (B, K)
     rope = dec._rope_at(rope_table, chunk_pos)
-    split = isinstance(rope, tuple)
 
     control = None
     if fused3 is not None:
@@ -92,10 +91,7 @@ def forward_chunk(
             def control(i):
                 return fused3[i][rows, start[:, None] + ar[None, :]]
 
-    def write_rows(cache, kv_rows):
-        dec._append_rows(cache, kv_rows, pos, cfg.kv_heads, split, block=True)
-
-    h = dec._decode_layers(model, cfg, caches, h, pos, rope, control, write_rows, col_mask_full,
+    h = dec._decode_layers(model, cfg, caches, h, pos, rope, control, col_mask_full,
                            control_strength, use_flash, chunk=True)
     return dec._logits(model, cfg, h), caches
 

@@ -876,13 +876,137 @@ def test_cache_append_rejects(dev, bad):
         cache_append_rows(cache, rows, pos)
 
 
+# ---- the fused KV write: a layer's new k / v rows into every stream ----------
+
+def _kv_write_case(dev, kind, t, d, layout, dtype, b=16, s=768, kvh=4, seed=0):
+    """A cache of `kind` with random contents and new rows k, v (b, t, kvh*d)
+    as the projections leave them: v a slice of a wqkv output, k a slice of
+    the rotated [q|k] (layout "qkv_split") or a contiguous tensor; a head of
+    zeros and an outlier head."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kvd = kvh * d
+    v = (torch.randn(b, t, 3 * kvd, generator=g, device=dev) * 2).to(dtype)[..., 2 * kvd:]
+    if layout == "qkv_split":
+        k = (torch.randn(b, t, 2 * kvd, generator=g, device=dev) * 2).to(dtype)[..., kvd:]
+    else:
+        k = (torch.randn(b, t, kvd, generator=g, device=dev) * 2).to(dtype)
+    k[0, 0, :d] = 0
+    v[1, -1, d:2 * d] *= 1000
+    if kind in ("bf16", "f32"):
+        cache = torch.randn(b, s, 2 * kvd, generator=g, device=dev).to(
+            torch.bfloat16 if kind == "bf16" else torch.float32)
+    else:
+        key, width = ("kv", 2 * kvd) if kind == "int8" else ("kv4", kvd)
+        cache = {key: torch.randint(-128, 128, (b, s, width), generator=g, device=dev,
+                                    dtype=torch.int8),
+                 "s": torch.rand(b, s, 2 * kvh, generator=g, device=dev) * 0.02}
+    return cache, k, v, kvh
+
+
+def _clone(cache):
+    return {k: t.clone() for k, t in cache.items()} if isinstance(cache, dict) else cache.clone()
+
+
+def _assert_same(got, want):
+    if isinstance(got, dict):
+        for key in got:
+            assert torch.equal(got[key].view(torch.uint8), want[key].view(torch.uint8)), key
+    else:
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8", "int4", "int4_split"])
+@pytest.mark.parametrize("t", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 100, 128])
+@pytest.mark.parametrize("layout", ["qkv", "qkv_split"])
+@pytest.mark.parametrize("pos", ["rows", "int"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_append_kv_matches_plain_version(dev, kind, t, d, layout, pos, dtype):
+    """The fused write against its plain version (concatenation, the port's
+    quantizer, one indexed or slice assignment per stream), bit for bit, on
+    every stream."""
+    from controlar_tpu_torch.ops.cache_append import append_kv, append_kv_ref
+
+    cache, k, v, kvh = _kv_write_case(dev, kind, t, d, layout, dtype)
+    s = cache.shape[1] if kind in ("bf16", "f32") else cache["s"].shape[1]
+    split = kind == "int4_split"
+    if pos == "rows":
+        pos = torch.tensor([0, s - t] + [37 * i + 3 for i in range(14)], dtype=torch.int32,
+                           device=dev)
+    else:
+        pos = s - t
+    want = append_kv_ref(_clone(cache), k, v, pos, kv_heads=kvh, split=split)
+    before = append_kv.launches
+    out = append_kv(cache, k, v, pos, kv_heads=kvh, split=split)
+    torch.cuda.synchronize()
+    assert out is cache and append_kv.launches == before + 1
+    _assert_same(cache, want)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4", "int4_split"])
+def test_append_kv_nan_and_inf_match_plain_version(dev, kind):
+    """Non-finite values: a NaN head's scale stays NaN and its values store
+    0, as the plain version's clamp and cast do on the card; an inf head's
+    scale is inf."""
+    from controlar_tpu_torch.ops.cache_append import append_kv, append_kv_ref
+
+    cache, k, v, kvh = _kv_write_case(dev, kind, 1, 64, "qkv", torch.bfloat16)
+    k[2, 0, 5] = float("nan")
+    v[3, 0, 64 + 7] = float("inf")
+    v[4, 0, 9] = float("-inf")
+    pos = torch.arange(16, dtype=torch.int32, device=dev) * 3
+    want = append_kv_ref(_clone(cache), k, v, pos, kv_heads=kvh, split=kind == "int4_split")
+    append_kv(cache, k, v, pos, kv_heads=kvh, split=kind == "int4_split")
+    torch.cuda.synchronize()
+    _assert_same(cache, want)
+    assert torch.isnan(cache["s"][2, 6, 0]) and torch.isinf(cache["s"][3, 9, kvh + 1])
+
+
+def test_append_kv_skips_out_of_range_rows(dev):
+    from controlar_tpu_torch.ops.cache_append import append_kv
+
+    cache = torch.zeros(3, 8, 2 * 2 * 64, dtype=torch.bfloat16, device=dev)
+    k = torch.ones(3, 2, 2 * 64, device=dev)
+    v = torch.ones(3, 2, 2 * 64, device=dev)
+    append_kv(cache, k, v, torch.tensor([-1, 7, 2], dtype=torch.int32, device=dev), kv_heads=2)
+    torch.cuda.synchronize()
+    assert cache[:2].abs().sum().item() == 0 and cache[2, 2:4].float().sum().item() == 2 * 256
+    append_kv(cache, k, v, 7, kv_heads=2)
+    torch.cuda.synchronize()
+    assert cache[:, 7].abs().sum().item() == 0
+
+
+def test_append_kv_under_a_cuda_graph(dev):
+    """The fused write replays under a CUDA graph, reading pos on the device."""
+    from controlar_tpu_torch.ops.cache_append import append_kv, append_kv_ref
+
+    cache, k, v, kvh = _kv_write_case(dev, "int8", 1, 64, "qkv", torch.bfloat16)
+    pos = torch.zeros(16, dtype=torch.int32, device=dev)
+    want = _clone(cache)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        append_kv(cache, k, v, pos, kv_heads=kvh)  # warm: the library is loaded
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        append_kv(cache, k, v, pos, kv_heads=kvh)
+    for p in (5, 300):
+        pos.fill_(p)
+        graph.replay()
+        append_kv_ref(want, k, v, pos, kv_heads=kvh)
+    torch.cuda.synchronize()
+    append_kv_ref(want, k, v, torch.zeros_like(pos), kv_heads=kvh)
+    _assert_same(cache, want)
+
+
 def test_serve_slot_isolation_on_the_card(dev):
     """Request 0 alone and with a neighbour admitted one step() later: the
-    same sampled tokens, through the kernels (flash decode, row append)."""
+    same sampled tokens, through the kernels (flash decode, fused KV write)."""
     from controlar_tpu_torch.cells import serve_requests, serve_staggered
     from controlar_tpu_torch.config import GPTConfig
     from controlar_tpu_torch.models import gpt as tgpt
-    from controlar_tpu_torch.ops.cache_append import cache_append_rows
+    from controlar_tpu_torch.ops.cache_append import append_kv
     from controlar_tpu_torch.serve import ServeConfig, ServeEngine
 
     cfg = GPTConfig(model_type="c2i", dim=128, n_layer=3, n_head=2, vocab_size=64,
@@ -894,9 +1018,9 @@ def test_serve_slot_isolation_on_the_card(dev):
         return serve_staggered(eng, serve_requests(n, num_classes=10), upfront=1,
                                add_after_step=1)
 
-    before = cache_append_rows.launches
+    before = append_kv.launches
     solo, duo = run(1), run(2)
-    assert cache_append_rows.launches > before
+    assert append_kv.launches > before
     np.testing.assert_array_equal(solo[0].tokens, duo[0].tokens)
     assert not np.array_equal(duo[0].tokens, duo[1].tokens)
 
@@ -1179,7 +1303,7 @@ def test_spec_greedy_equals_plain_greedy_on_the_card(dev):
     from controlar_tpu_torch import spec_decode as tspec
     from controlar_tpu_torch.config import GPTConfig
     from controlar_tpu_torch.models import gpt as tgpt
-    from controlar_tpu_torch.ops.cache_append import cache_append_block
+    from controlar_tpu_torch.ops.cache_append import append_kv
     from controlar_tpu_torch.ops.flash_chunk import flash_chunk_attention
 
     cfg = GPTConfig(model_type="c2i", dim=128, n_layer=3, n_head=2, vocab_size=64,
@@ -1187,10 +1311,11 @@ def test_spec_greedy_equals_plain_greedy_on_the_card(dev):
     model = tgpt.init_gpt(cfg, seed=0, device=dev)
     draft = tgpt.init_gpt(cfg, seed=1, device=dev)
     kw = dict(labels=torch.arange(3, device=dev), max_new_tokens=16, cfg_scale=2.0, device=dev)
-    before = (flash_chunk_attention.launches, cache_append_block.launches)
+    before = (flash_chunk_attention.launches, append_kv.launches)
     spec, stats = tspec.generate_spec(model, cfg, draft, return_stats=True, **kw)
     assert flash_chunk_attention.launches - before[0] == cfg.n_layer * stats["loop_iters"]
-    assert cache_append_block.launches - before[1] == cfg.n_layer * stats["loop_iters"]
+    # each cycle: k = 4 draft steps and the verify, one fused write a layer each
+    assert append_kv.launches - before[1] == 5 * cfg.n_layer * stats["loop_iters"]
     plain = tgen.generate(model, cfg, sample_logits=False, **kw)
     assert torch.equal(spec, plain)
     with pytest.raises(ValueError, match="use_flash=False"):
@@ -1502,9 +1627,11 @@ def test_generate_stacked_card_matches_cpu(dev, cache):
     fn = {"bf16": fds.flash_stacked, "int8": fds.flash_stacked_q8,
           "int4": fds.flash_stacked_q4}[cache]
     fn.launches = ca.cache_append_rows.launches = flash_decode_attention.launches = 0
+    ca.append_kv.launches = 0
     got = tgen.generate(model.to(dev), cfg, device=dev, **kw).cpu()
     assert fn.launches == cfg.n_layer * (cfg.block_size - 1)
     assert ca.cache_append_rows.launches == flash_decode_attention.launches == 0
+    assert ca.append_kv.launches == 0
     # greedy tokens at random weights: ties flip rarely; require most to agree
     assert (got == want).float().mean().item() >= 0.85, (got, want)
 
@@ -1533,9 +1660,10 @@ def test_serve_stacked_slot_isolation_on_the_card(dev, cache):
         return done, eng.stats["slot_steps"] // 2
 
     ca.cache_append_rows.launches = ca.cache_append_rows_stacked.launches = 0
+    ca.append_kv.launches = 0
     (solo, steps), (duo, steps2) = run(1), run(2)
     streams = 1 if cache == torch.bfloat16 else 2
     assert ca.cache_append_rows_stacked.launches == streams * (steps + steps2)
-    assert ca.cache_append_rows.launches == 0
+    assert ca.cache_append_rows.launches == ca.append_kv.launches == 0
     np.testing.assert_array_equal(solo[0].tokens, duo[0].tokens)
     assert not np.array_equal(duo[0].tokens, duo[1].tokens)
