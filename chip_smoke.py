@@ -37,14 +37,18 @@ ending the run with a non-zero exit when it fails:
                 per-slot positions, first and last layer; timed with the
                 plain version, SDPA over the layer's slab with the row
                 written and the bound;
-  kernel_append_stacked  the stacked append (every layer's row at a
-                position per slot), bit for bit, on every stream of the
-                stacked cache at the serve_c2i shape;
+  kernel_append_stacked  the stacked cache's end-of-step write (every
+                layer's in-flight rows of every stream in one launch) against
+                its plain version and the step's writes against the old
+                sequence, bit for bit, at int and per-slot positions; then
+                the single-stream stacked append (on no path), bit for bit;
   kernel_train_fwd  the training attention's forward, dq and dk/dv kernels
   kernel_train_dq   against their plain versions at the training cells'
   kernel_train_dkv  shapes (caption bias), c2i without bias and D = 100;
                 timed with the plain version, SDPA (boolean mask; forward,
-                and the autograd backward) and the bound;
+                and the autograd backward; is_causal=True at the case
+                without a bias) and the bound, the forward with its
+                variant and host us a call;
   reference     small models on the card against the same models on the CPU
                 (the CPU path is the one the tests hold to the JAX package):
                 bf16, W8 + int8 cache, W4 split-rope + int4 cache, each with
@@ -215,6 +219,8 @@ def _kernels():
                              "controlar_tpu/ops/flash_decode_stacked.py:225"),
         "flash_stacked_q4": (fds.flash_stacked_q4, "flash_decode_q4.cu",
                              "controlar_tpu/ops/flash_decode_stacked.py:391"),
+        "append_stacked": (ca.append_stacked, "cache_append.cu",
+                           "controlar_tpu/ops/cache_append.py:159"),
         "cache_append_rows_stacked": (ca.cache_append_rows_stacked, "cache_append.cu",
                                       "controlar_tpu/ops/cache_append.py:159"),
         "flash_decode_attention_q8_append": (fd.flash_decode_attention_q8_append,
@@ -238,6 +244,11 @@ OFF_PATH = {
         "the verify chunk writes a layer's rows with append_kv, one launch that quantizes "
         "them and writes every stream; the single-stream block append stays as the "
         "counterpart of the JAX package's cache_append_block API"),
+    "cache_append_rows_stacked": (
+        "the stacked decode step writes a layer's rows into the step's in-flight rows with "
+        "append_kv and every stream into the stacked cache with one append_stacked; the "
+        "single-stream stacked append stays as the counterpart of the JAX package's "
+        "cache_append_rows_stacked API"),
 }
 # the TPU kernels a kernel replaces besides its `replaces`: the fused write is
 # the decode steps' row append (B6) and the verify's block append (B9)
@@ -1229,7 +1240,9 @@ def phase_kernel_stacked_q4():
 
 
 # stream, cache dtype, row width (elements): what the stacked serving step
-# writes at GPT-B, 12 layers x 16 rows (8 slots with CFG), 768 cache rows
+# wrote at GPT-B, 12 layers x 16 rows (8 slots with CFG), 768 cache rows,
+# through the single-stream stacked append, on no path since the fused
+# end-of-step write took its place
 STACKED_APPEND_STREAMS = (
     ("gpt_b_bf16", torch.bfloat16, 1536),   # [k|v] rows, 3072 B
     ("gpt_b_int8", torch.int8, 1536),       # int8 rows
@@ -1237,13 +1250,158 @@ STACKED_APPEND_STREAMS = (
     ("gpt_b_scales", torch.float32, 24),    # 12-head [k|v] scales, 96 B
 )
 
+# the stacked cells' steps: name, layers, kv heads, head dim, int4 carrier
+# layout split, cache rows; GPT-B runs c2i_stacked, c2i_w8kv8_stacked and
+# serve_c2i_stacked, GPT-3B c2i_3b_w4kv4_stacked
+STACKED_WRITE_CASES = (
+    ("gpt_b", 12, 12, 64, False, 768),
+    ("gpt_3b", 24, 32, 100, True, 768),
+)
+STACKED_WRITE_KINDS = ("bf16", "int8", "int4", "int4_pairs")
+
+
+def _stacked_write_inputs(gen, name, kind, b=16):
+    """A stacked cache of `kind` with random contents and one step's new rows
+    of every layer, k and v (b, 1, KV*D) bf16 (v a slice of a wqkv output)
+    -> (cache, [(k, v) per layer], kv_heads, split). int4 carriers are split
+    at GPT-3B unless kind is int4_pairs."""
+    _, n_layer, kvh, d, split, s = next(c for c in STACKED_WRITE_CASES if c[0] == name)
+    kvd, dev = kvh * d, "cuda"
+    if kind == "bf16":
+        cache = torch.randn(n_layer, b, s, 2 * kvd, generator=gen, device=dev).bfloat16()
+    else:
+        key, width = ("kv", 2 * kvd) if kind == "int8" else ("kv4", kvd)
+        cache = {key: torch.randint(-128, 128, (n_layer, b, s, width), generator=gen, device=dev,
+                                    dtype=torch.int8),
+                 "s": torch.rand(n_layer, b, s, 2 * kvh, generator=gen, device=dev) * 0.02}
+    new = []
+    for _ in range(n_layer):
+        qkv = (torch.randn(b, 1, 3 * kvd, generator=gen, device=dev) * 2).bfloat16()
+        new.append((qkv[..., kvd:2 * kvd], qkv[..., 2 * kvd:]))
+    return cache, new, kvh, split and kind == "int4"
+
+
+def _new_stacked_write(cache, new, pos, kv_heads, split, rows_only=False):
+    """The stacked decode step's writes: each layer's rows quantized into the
+    step's in-flight rows by append_kv, then one append_stacked; rows_only:
+    the in-flight rows alone (the per-layer launches)."""
+    from controlar_tpu_torch.ops.cache_append import (
+        append_kv, append_stacked, inflight_layer, stacked_inflight)
+
+    inflight = stacked_inflight(cache, new[0][0].shape[0])
+    for l, (k, v) in enumerate(new):
+        append_kv(inflight_layer(inflight, l), k, v, 0, kv_heads=kv_heads, split=split)
+    return inflight if rows_only else append_stacked(cache, inflight, pos)
+
+
+def _old_stacked_rows(cache, new, kv_heads, split):
+    """The stacked decode step's per-layer writes before the fused ones:
+    cat, the port's quantizer, a contiguous copy per stream."""
+    from controlar_tpu_torch.ops.cache_append import cache_streams
+
+    inflight = []
+    for k, v in new:
+        kv_rows = torch.cat([k[:, 0], v[:, 0]], dim=-1)
+        inflight.append([src.to(dst.dtype).contiguous()
+                         for dst, src in cache_streams(cache, kv_rows, kv_heads, split)])
+    return inflight
+
+
+def _old_stacked_end(cache, inflight, pos):
+    """The stacked decode step's end before the fused write: per stream a
+    stack of the layers' rows, then an indexed assignment (int pos) or the
+    single-stream stacked append."""
+    from controlar_tpu_torch.ops.cache_append import cache_append_rows_stacked, stream_list
+
+    for i, dst in enumerate(stream_list(cache)):
+        rows = torch.stack([r[i] for r in inflight])
+        if isinstance(pos, int):
+            dst[:, :, pos] = rows
+        else:
+            cache_append_rows_stacked(dst, rows, pos)
+    return cache
+
+
+def _stacked_write_checks(gen):
+    """append_stacked against its plain version, and the whole step's writes
+    (append_kv into the in-flight rows, append_stacked) against the old
+    sequence, bit for bit, on every case and cache kind, at an int position
+    and at per-slot positions that include 1 and S - 1 (the clamped serving
+    step). Returns the checks' launches of append_stacked."""
+    from controlar_tpu_torch.ops.cache_append import append_stacked, append_stacked_ref
+
+    launches = append_stacked.launches
+    for name, *_ in STACKED_WRITE_CASES:
+        for kind in STACKED_WRITE_KINDS:
+            cache, new, kvh, split = _stacked_write_inputs(gen, name, kind)
+            s = (cache if kind == "bf16" else cache["s"]).shape[2]
+            per_row = torch.tensor([1, s - 1] + [(37 * i) % s for i in range(1, 15)],
+                                   dtype=torch.int32, device="cuda")
+            for pos in (per_row, s - 1):
+                inflight = _new_stacked_write(_clone_cache(cache), new, pos, kvh, split,
+                                              rows_only=True)
+                want = append_stacked_ref(_clone_cache(cache), inflight, pos)
+                got = append_stacked(_clone_cache(cache), inflight, pos)
+                old = _old_stacked_end(_clone_cache(cache),
+                                       _old_stacked_rows(cache, new, kvh, split), pos)
+                torch.cuda.synchronize()
+                where = f"{name} {kind} pos={'per_row' if pos is per_row else pos}"
+                check(_same_cache(got, want), "kernel_append_stacked",
+                      f"append_stacked {where}: the cache differs from the plain version's")
+                check(_same_cache(got, old), "kernel_append_stacked",
+                      f"append_stacked {where}: the cache differs from the old sequence's")
+    return append_stacked.launches - launches
+
+
+def _stacked_write_row(label, name, kind, pos, flush, seed):
+    """One timed stacked step's writes: the end-of-step append_stacked, its
+    plain version and the old end (stack + a write per stream), each with
+    host us a call; and the whole step's writes, fused (L append_kv + one
+    append_stacked) and old (L x (cat + quantizer + copies) + the old end),
+    each as one stretch of CUDA events. Bound: the in-flight rows read and
+    written once, pos read."""
+    from controlar_tpu_torch.ops.cache_append import (
+        append_stacked, append_stacked_ref, stream_list)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cache, new, kvh, split = _stacked_write_inputs(gen, name, kind)
+    n_layer, b, s = stream_list(cache)[0].shape[:3]
+    if pos == "per_row":
+        pos = torch.tensor([(37 * i + 1) % s for i in range(b)], dtype=torch.int32,
+                           device="cuda").clamp_(min=1)
+    inflight = _new_stacked_write(cache, new, pos, kvh, split, rows_only=True)
+    old_rows = _old_stacked_rows(cache, new, kvh, split)
+    nbytes = (2 * sum(x.numel() * x.element_size() for x in stream_list(inflight))
+              + (b * 4 if isinstance(pos, torch.Tensor) else 0))
+    bound, by = _roofline(nbytes, 0, FP32_FLOPS)
+    end = lambda: append_stacked(cache, inflight, pos)  # noqa: E731
+    old_end = lambda: _old_stacked_end(cache, old_rows, pos)  # noqa: E731
+    return dict(case=label, kind=kind, layers=n_layer, rows=b, kv_heads=kvh,
+                streams=len(stream_list(cache)), int_pos=not isinstance(pos, torch.Tensor),
+                ms=time_ms(end, flush=flush), old_ms=time_ms(old_end, flush=flush),
+                plain_ms=time_ms(lambda: append_stacked_ref(cache, inflight, pos), flush=flush),
+                library_ms=None, bound_ms=bound, bound_by=by, host_us=host_us(end),
+                old_host_us=host_us(old_end),
+                step_ms=time_ms(lambda: _new_stacked_write(cache, new, pos, kvh, split),
+                                flush=flush),
+                old_step_ms=time_ms(lambda: _old_stacked_end(
+                    cache, _old_stacked_rows(cache, new, kvh, split), pos), flush=flush))
+
 
 def phase_kernel_append_stacked():
-    """cache_append_rows_stacked against its plain version, bit for bit, on
-    every stream of the stacked cache at the serve_c2i shape (12 layers, 16
-    rows, 768 cache rows), positions 0 and S - 1 among per-slot ones; timed
-    at the bf16 stream. The plain version, one indexed assignment, is also
-    the one-call library yardstick."""
+    """The stacked cache's end-of-step write (append_stacked, one launch for
+    every stream) against its plain version, and the step's writes (append_kv
+    into the in-flight rows a layer, then append_stacked) against the old
+    sequence (cat + quantizer + copies a layer, a stack and a write per
+    stream), bit for bit, at GPT-B and GPT-3B on bf16, int8 and int4 (split
+    and interleaved) caches, int and per-slot positions; timed at the
+    stacked cells' steps. Then the single-stream stacked append
+    (cache_append_rows_stacked, on no path since the fused write) against its
+    plain version, bit for bit, on every stream of the stacked cache at the
+    serve_c2i shape, positions 0 and S - 1 among per-slot ones; timed at the
+    bf16 stream, the plain version (one indexed assignment) also its one-call
+    library yardstick. Returns {"append_stacked": (serve_c2i_stacked row,
+    0.0), "cache_append_rows_stacked": (row, 0.0, launches of its checks)}."""
     from controlar_tpu_torch.ops.cache_append import (
         cache_append_rows_stacked as kern,
         cache_append_rows_stacked_ref as plain,
@@ -1251,7 +1409,15 @@ def phase_kernel_append_stacked():
 
     gen = torch.Generator(device="cuda").manual_seed(14)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fused_launches = _stacked_write_checks(gen)
+    fused = [_stacked_write_row(*case, flush=flush, seed=15) for case in (
+        ("serve_c2i_stacked step", "gpt_b", "bf16", "per_row"),
+        ("c2i_stacked step", "gpt_b", "bf16", 575),
+        ("c2i_w8kv8_stacked step", "gpt_b", "int8", 575),
+        ("c2i_3b_w4kv4_stacked step", "gpt_3b", "int4", 575))]
+
     n_layer, b, s, timed = 12, 16, 768, None
+    kern.launches = 0
     for name, dt, w in STACKED_APPEND_STREAMS:
         if dt == torch.int8:
             cache = torch.randint(-128, 128, (n_layer, b, s, w), generator=gen, device="cuda",
@@ -1270,6 +1436,7 @@ def phase_kernel_append_stacked():
               "kernel_append_stacked", f"{name}: the cache differs from the plain version's")
         if timed is None:
             timed = (cache, rows, pos)
+    launches = kern.launches
     cache, rows, pos = timed
     nbytes = 2 * rows.numel() * rows.element_size() + pos.numel() * 4  # rows in and out
     bound, by = _roofline(nbytes, 0, FP32_FLOPS)
@@ -1278,9 +1445,13 @@ def phase_kernel_append_stacked():
                row_bytes=rows.shape[2] * rows.element_size(), s=s,
                ms=time_ms(lambda: kern(cache, rows, pos), flush=flush),
                plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound, bound_by=by)
-    emit("kernel_append_stacked", ok=True, name="cache_append_rows_stacked", bit_exact=True,
-         streams=[st[0] for st in STACKED_APPEND_STREAMS], timings=[row])
-    return row, 0.0
+    emit("kernel_append_stacked", ok=True, name="append_stacked", bit_exact=True,
+         cases=[c[0] for c in STACKED_WRITE_CASES], kinds=STACKED_WRITE_KINDS,
+         launches=fused_launches, timings=fused,
+         single_stream=dict(name="cache_append_rows_stacked", bit_exact=True,
+                            streams=[st[0] for st in STACKED_APPEND_STREAMS],
+                            launches=launches, timings=[row]))
+    return {"append_stacked": (fused[0], 0.0), "cache_append_rows_stacked": (row, 0.0, launches)}
 
 
 # Training attention kernels vs their plain versions: |out - ref| <= TRAIN_ATOL +
@@ -1352,6 +1523,15 @@ def _sdpa_train(q, k, v, valid):
     return fwd, lambda: torch.autograd.grad(out, (qh, kh, vh), do, retain_graph=True)
 
 
+def _sdpa_causal(q, k, v):
+    """The library yardstick where there is no bias: SDPA with is_causal=True
+    over (B, H, T, D) views (never called by the port)."""
+    import torch.nn.functional as F
+
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+
 def phase_kernel_train():
     """flash_train_fwd, flash_train_dq and flash_train_dkv against their
     plain versions at the training cells' shapes (left-padded caption bias),
@@ -1387,6 +1567,8 @@ def phase_kernel_train():
                 errs[kern] = max(errs[kern], err)
         lib_fwd, lib_bwd = _sdpa_train(q, k, v, valid)
         lib_fwd_ms, lib_bwd_ms = time_ms(lib_fwd, flush=flush), time_ms(lib_bwd, flush=flush)
+        # without a bias the function is causal SDPA's: the library's causal kernel
+        causal_ms = None if n_cls else time_ms(_sdpa_causal(q, k, v), flush=flush)
         calls = {
             "flash_train_fwd": (lambda: ft.flash_train_fwd(q, k, v, bias),
                                 lambda: ft.flash_train_fwd_ref(q, k, v, bias), lib_fwd_ms, "fwd"),
@@ -1399,9 +1581,14 @@ def phase_kernel_train():
         }
         for kern, (fn, plain, lib, kind) in calls.items():
             bound, by = _train_bound(kind, b, t, h, d, bias is not None)
-            rows[kern].append(dict(case=name, b=b, t=t, h=h, d=d, bias=bias is not None,
-                                   ms=time_ms(fn, flush=flush), plain_ms=time_ms(plain, flush=flush),
-                                   library_ms=lib, bound_ms=bound, bound_by=by))
+            row = dict(case=name, b=b, t=t, h=h, d=d, bias=bias is not None,
+                       ms=time_ms(fn, flush=flush), plain_ms=time_ms(plain, flush=flush),
+                       library_ms=lib, bound_ms=bound, bound_by=by)
+            if kind == "fwd":
+                row.update(variant=ft.fwd_variant(d), host_us=host_us(fn))
+                if causal_ms is not None:
+                    row["library_causal_ms"] = causal_ms
+            rows[kern].append(row)
         del q, k, v, do, out_ref, dq_ref, dk_ref, dv_ref, out, dq, dk, dv, lib_fwd, lib_bwd
         torch.cuda.empty_cache()
     phases = {"flash_train_fwd": "kernel_train_fwd", "flash_train_dq": "kernel_train_dq",
@@ -1409,7 +1596,8 @@ def phase_kernel_train():
     for kern, phase in phases.items():
         emit(phase, ok=True, name=kern, max_abs_err=errs[kern], atol=TRAIN_ATOL,
              rtol=TRAIN_RTOL, library="SDPA, boolean mask" + (
-                 "" if kern == "flash_train_fwd" else ", autograd backward (dq, dk, dv)"),
+                 "; library_causal_ms: SDPA is_causal=True, at the case without a bias"
+                 if kern == "flash_train_fwd" else ", autograd backward (dq, dk, dv)"),
              timings=rows[kern])
     return {kern: (rows[kern][0], errs[kern]) for kern in phases}
 
@@ -2032,15 +2220,15 @@ def phase_cell(name: str, runs: int) -> dict:
 
 def _stacked_expected(base: str, cfg) -> dict:
     """Launches of each kernel in one generate(kv_stacked=True) call on the
-    model of pipeline cell `base`: the stacked attention at every decode step
-    of every layer, the W4 kernels as in the flat call; no per-layer write
-    (a flat step writes the stacked rows by assignment) and no flat
-    attention."""
+    model of pipeline cell `base`: the stacked attention in place of the
+    flat one, the fused KV write into the in-flight rows at every decode
+    step of every layer, one end-of-step write a step, the W4 kernels as in
+    the flat call."""
     flat = _expected_per_call(base, cfg)
     attn = next(k for k in flat if k.startswith("flash_decode_attention"))
     suffix = attn.removeprefix("flash_decode_attention")
-    return {f"flash_stacked{suffix}" if k == attn else k: v for k, v in flat.items()
-            if k != "append_kv"}
+    out = {f"flash_stacked{suffix}" if k == attn else k: v for k, v in flat.items()}
+    return dict(out, append_stacked=cfg.block_size - 1)
 
 
 def _device_kernels(fn) -> int:
@@ -2250,16 +2438,14 @@ def phase_spec_cell(name: str, runs: int) -> dict:
 
 def _serve_expected(cfg, scfg, slot_steps: int) -> dict:
     """Launches of one serving run: at every decode step of every layer one
-    attention call and one fused KV write, or with the stacked cache one
-    stacked append per stream (rows, and scales for the int8 cache) and
-    step; steps = slot_steps / max_slots. Admission prefills launch no
-    kernel."""
+    attention call and one fused KV write (into the step's in-flight rows
+    with the stacked cache, plus one end-of-step write a step); steps =
+    slot_steps / max_slots. Admission prefills launch no kernel."""
     steps = slot_steps // scfg.max_slots
-    streams = 2 if scfg.cache_dtype == torch.int8 else 1
     attn = "_q8" if scfg.cache_dtype == torch.int8 else ""
     if scfg.kv_stacked:
-        return {f"flash_stacked{attn}": cfg.n_layer * steps,
-                "cache_append_rows_stacked": streams * steps}
+        return {f"flash_stacked{attn}": cfg.n_layer * steps, "append_kv": cfg.n_layer * steps,
+                "append_stacked": steps}
     return {f"flash_decode_attention{attn}": cfg.n_layer * steps,
             "append_kv": cfg.n_layer * steps}
 
@@ -2410,10 +2596,14 @@ def main() -> int:
         "flash_stacked_q4": (*phase_kernel_stacked_q4(),
                              "c2i_3b_w4kv4_stacked last step, split: L=24 B=16 H=32 D=100 "
                              "S=768 layer 23 pos=575"),
-        "cache_append_rows_stacked": (*phase_kernel_append_stacked(),
-                                      "serve_c2i_stacked step: 12 x 16 GPT-B bf16 rows of "
-                                      "3072 B, S 768"),
     }
+    stacked_writes = phase_kernel_append_stacked()
+    timed["append_stacked"] = (*stacked_writes["append_stacked"],
+                               "serve_c2i_stacked step: 12 x 16 GPT-B bf16 rows of 3072 B, "
+                               "S 768, per-slot pos")
+    row, err, off_path_launches["cache_append_rows_stacked"] = (
+        stacked_writes["cache_append_rows_stacked"])
+    timed["cache_append_rows_stacked"] = (row, err, "12 x 16 GPT-B bf16 rows of 3072 B, S 768")
     appends = {**phase_kernel_append(), **phase_kernel_append_block()}
     timed["append_kv"] = (*appends["append_kv"], "c2i_3b_w4kv4 step: B=16 T=1 KV=32 D=100 "
                           "int4 split, S 768, pos 575")

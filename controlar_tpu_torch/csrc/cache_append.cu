@@ -262,6 +262,61 @@ int dispatch_kv(int kind, int out_dtype, void* rows, void* scales, const void* k
 #undef KV_ARGS
 }
 
+
+// ---- the stacked cache's end-of-step write ---------------------------------
+
+constexpr int kMaxStreams = 2;  // the rows (values, int8 or int4 carriers) and the scales
+
+// One stream of a stacked cache and its in-flight rows: the cache (L, B, S,
+// row_bytes); the rows (L, B, row_bytes), layer l at l * layer_bytes; vec:
+// the bytes a vector (16, 8, 4, 2 or 1) dividing the row and every address.
+struct StackedStream {
+  char* cache;
+  const char* rows;
+  long long row_bytes;
+  long long layer_bytes;
+  int vec;
+};
+
+struct StackedStreams {
+  StackedStream s[kMaxStreams];
+  int n;
+};
+
+template <typename V>
+__device__ __forceinline__ void copy_row(char* dst, const char* src, long long bytes) {
+  V* d = reinterpret_cast<V*>(dst);
+  const V* r = reinterpret_cast<const V*>(src);
+  const long long n = bytes / (long long)sizeof(V);
+  for (long long i = threadIdx.x; i < n; i += kThreads) d[i] = r[i];
+}
+
+// a block per element e = l * B + b: every stream's row (l, b) to row p of
+// element e, p = pos[b] (or pos0 for every row); skipped when p is outside
+// [0, S), as the other copies skip
+__global__ void __launch_bounds__(kThreads)
+kv_write_stacked_kernel(StackedStreams st, const int* __restrict__ pos, int pos0, int B, int S) {
+  const int e = blockIdx.x;
+  const int b = e % B;
+  const long long l = e / B;
+  const int p = pos == nullptr ? pos0 : pos[b];
+  if (p < 0 || p >= S) return;
+#pragma unroll
+  for (int i = 0; i < kMaxStreams; ++i) {
+    if (i >= st.n) break;
+    const StackedStream x = st.s[i];
+    char* dst = x.cache + ((long long)e * S + p) * x.row_bytes;
+    const char* src = x.rows + l * x.layer_bytes + (long long)b * x.row_bytes;
+    switch (x.vec) {
+      case 16: copy_row<uint4>(dst, src, x.row_bytes); break;
+      case 8: copy_row<uint2>(dst, src, x.row_bytes); break;
+      case 4: copy_row<uint32_t>(dst, src, x.row_bytes); break;
+      case 2: copy_row<uint16_t>(dst, src, x.row_bytes); break;
+      default: copy_row<uint8_t>(dst, src, x.row_bytes); break;
+    }
+  }
+}
+
 }  // namespace
 
 // cache (B, S, row_bytes) bytes; rows (B, row_bytes) bytes; pos (B,) int32 on
@@ -315,4 +370,36 @@ extern "C" int kv_write(int kind, int in_dtype, int out_dtype, void* rows, void*
                                        v_t, pos, pos0, B, T, S, KV, D, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The stacked cache's end-of-step write: for each of n_streams (1 or 2)
+// streams, cache (L, B, S, row_bytes) and in-flight rows (L, B, row_bytes)
+// whose layer l starts at l * layer_bytes, rows[l, b] lands at row pos[b] of
+// layer l (pos (B,) int32 on the device, or null for every row at pos0):
+// the values of a floating cache, or an int8 / int4 cache's rows and its
+// scales, in one launch. vec: the bytes a vector of each stream (16, 8, 4,
+// 2 or 1), dividing its row_bytes, layer_bytes and both pointers. The second
+// stream's arguments are ignored when n_streams is 1. Returns a cudaError_t.
+extern "C" int kv_write_stacked(int n_streams, void* cache0, const void* rows0,
+                                long long row_bytes0, long long layer_bytes0, int vec0,
+                                void* cache1, const void* rows1, long long row_bytes1,
+                                long long layer_bytes1, int vec1, const void* pos, int pos0,
+                                int L, int B, int S, void* stream) {
+  if (n_streams < 1 || n_streams > kMaxStreams) return static_cast<int>(cudaErrorInvalidValue);
+  if (L <= 0 || B <= 0) return 0;
+  StackedStreams st{};
+  st.n = n_streams;
+  st.s[0] = {static_cast<char*>(cache0), static_cast<const char*>(rows0), row_bytes0,
+             layer_bytes0, vec0};
+  st.s[1] = {static_cast<char*>(cache1), static_cast<const char*>(rows1), row_bytes1,
+             layer_bytes1, vec1};
+  for (int i = 0; i < n_streams; ++i) {
+    const int v = st.s[i].vec;
+    if (v != 16 && v != 8 && v != 4 && v != 2 && v != 1) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  kv_write_stacked_kernel<<<L * B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      st, static_cast<const int*>(pos), pos0, B, S);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -75,6 +75,9 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr float kNeg = -1e9f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegLog2 = kNeg * kLog2e;  // the mask and the running max's start, log2 units
 constexpr int kThreads = 128;  // four warps
 constexpr int kRows = 64;      // rows a block owns (16 a warp)
 constexpr int kKeyTile = 64;   // keys per shared tile (fwd, dq)
@@ -90,45 +93,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
 __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment (16 x 16) of a row-major shared tile M[row][col], rows r0..,
-// cols c0..; g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void frag_a(const bf16* M, int ld, int r0, int c0, int g, int t,
-                                       uint32_t* a) {
-  const bf16* p = M + (r0 + g) * ld + c0 + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-// B fragment (16 x 8, k x n) of a tile stored n-major, M[n][k] (k, q or v
-// rows against the head dimension): two 32-bit loads.
-__device__ __forceinline__ void frag_b_nk(const bf16* M, int ld, int n0, int k0, int g, int t,
-                                          uint32_t& b0, uint32_t& b1) {
-  const bf16* p = M + (n0 + g) * ld + k0 + 2 * t;
-  b0 = *reinterpret_cast<const uint32_t*>(p);
-  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment (16 x 8, k x n) of a tile stored k-major, M[k][n]: gathered
-// from two rows per register.
-__device__ __forceinline__ void frag_b_kn(const bf16* M, int ld, int k0, int n0, int g, int t,
-                                          uint32_t& b0, uint32_t& b1) {
-  const bf16* p = M + (k0 + 2 * t) * ld + n0 + g;
-  b0 = pack_raw(p[0], p[ld]);
-  b1 = pack_raw(p[8 * ld], p[9 * ld]);
 }
 
 // A fragments of a 16 x 16 slice of a 16 x N accumulator (columns of the
@@ -138,23 +108,6 @@ __device__ __forceinline__ void acc_to_a(float (*s)[4], int ks, uint32_t* a) {
   a[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
   a[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
   a[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
-}
-
-// Copy `rows` rows (r0..) of one head of a (B, T, H, D) tensor into a
-// shared tile [rows][LD]; rows past T and columns past D are zero.
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* __restrict__ src, int rows,
-                                          int r0, int T, int HD, int D) {
-  constexpr int LD = DP + 8;
-  constexpr int CH = DP / 4;  // 8-byte chunks a row
-  for (int i = threadIdx.x; i < rows * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 4;
-    uint2 val = make_uint2(0u, 0u);
-    if (r0 + r < T && c < D) {
-      val = *reinterpret_cast<const uint2*>(src + (size_t)(r0 + r) * HD + c);
-    }
-    *reinterpret_cast<uint2*>(sm + r * LD + c) = val;
-  }
 }
 
 __device__ __forceinline__ void store2(float* p, float x, float y) {
@@ -180,37 +133,7 @@ __device__ __forceinline__ void store_rows(OutT* __restrict__ dst, float (*acc)[
   }
 }
 
-// The scores of a warp's 16 rows against the 64 keys of a shared tile:
-// s[nt][e] for key column nt * 8 + 2 t + (e & 1), row g + 8 * (e >> 1).
-template <int DP>
-__device__ __forceinline__ void scores_rows(const bf16* Qs, const bf16* Ks, int wrow, int g,
-                                            int t, float (*s)[4]) {
-  constexpr int LD = DP + 8;
-#pragma unroll
-  for (int nt = 0; nt < kKeyTile / 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t a[4];
-    frag_a(Qs, LD, wrow, kk * 16, g, t, a);
-#pragma unroll
-    for (int nt = 0; nt < kKeyTile / 8; ++nt) {
-      uint32_t b0, b1;
-      frag_b_nk(Ks, LD, nt * 8, kk * 16, g, t, b0, b1);
-      mma(s[nt], a, b0, b1);
-    }
-  }
-}
-
-// The masked, scaled score of query `row` against key `col`.
-__device__ __forceinline__ float masked(float s, int row, int col, int T, float scale,
-                                        const float* __restrict__ brow) {
-  if (col > row || col >= T) return kNeg;
-  return s * scale + (brow ? brow[col] : 0.f);
-}
-
-// ---- the backward kernels' copies and fragments ----
+// ---- copies and fragments of the cp.async kernels ----
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -335,77 +258,168 @@ __device__ __forceinline__ void mma_acc_kn(float (*acc)[4], float (*p)[4], const
   }
 }
 
+// Shared memory of the cp.async forward: the Q tile, then kStages stages
+// of the K tile, the V tile and the bias row (the dq kernel's ring).
+template <int DP>
+constexpr size_t fwd_smem() {
+  return (size_t)kRows * (DP + 8) * sizeof(bf16)
+         + (size_t)kStages<DP> * (2 * kKeyTile * (DP + 8) * sizeof(bf16) + kKeyTile * sizeof(float));
+}
+
+// The online softmax of a warp's 16 rows over one key tile, in log2 units:
+// s[nt][e] (q.k of row r0 + 8 (e >> 1) and key column nt * 8 + 2 t + (e & 1)
+// of the tile) becomes x = s scale log2(e) + bias log2(e), the causal mask
+// -1e9 log2(e) past the row on the diagonal tile (diag_k0: the tile's first
+// key, or -1 off the diagonal), and then p = exp2(x - m) with the running
+// max m; alpha rescales l and the output of the tiles before. bias: the
+// tile's 64 staged bias values, or null.
+template <int NT>
+__device__ __forceinline__ void softmax_tile(float (*s)[4], const float* bias, int t,
+                                             float scale_log2, int diag_k0, int r0, int r1,
+                                             float& m0, float& m1, float& l0, float& l1,
+                                             float& a0, float& a1) {
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int cl = nt * 8 + 2 * t;
+    float2 bb = make_float2(0.f, 0.f);
+    if (bias) {
+      bb = *reinterpret_cast<const float2*>(bias + cl);
+      bb.x *= kLog2e;
+      bb.y *= kLog2e;
+    }
+    float x[4] = {fmaf(s[nt][0], scale_log2, bb.x), fmaf(s[nt][1], scale_log2, bb.y),
+                  fmaf(s[nt][2], scale_log2, bb.x), fmaf(s[nt][3], scale_log2, bb.y)};
+    if (diag_k0 >= 0) {  // the only tile with keys past a row (or past T)
+      const int c = diag_k0 + cl;
+      if (c > r0) x[0] = kNegLog2;
+      if (c + 1 > r0) x[1] = kNegLog2;
+      if (c > r1) x[2] = kNegLog2;
+      if (c + 1 > r1) x[3] = kNegLog2;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = x[e];
+    mx0 = fmaxf(mx0, fmaxf(x[0], x[1]));
+    mx1 = fmaxf(mx1, fmaxf(x[2], x[3]));
+  }
+  // the four lanes of a quad hold one row's columns
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  a0 = exp2f(m0 - mx0);
+  a1 = exp2f(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    s[nt][0] = exp2f(s[nt][0] - m0);
+    s[nt][1] = exp2f(s[nt][1] - m0);
+    s[nt][2] = exp2f(s[nt][2] - m1);
+    s[nt][3] = exp2f(s[nt][3] - m1);
+    sum0 += s[nt][0] + s[nt][1];
+    sum1 += s[nt][2] + s[nt][3];
+  }
+  // per-lane partial sums; every lane of a quad rescales by the same alpha
+  l0 = l0 * a0 + sum0;
+  l1 = l1 * a1 + sum1;
+}
+
+// The epilogue of a warp's 16 rows: out = o / l (rows < T), lse = m ln 2 +
+// log l in natural units.
+template <int DP, typename OutT>
+__device__ __forceinline__ void store_fwd(OutT* __restrict__ out, float* __restrict__ lse,
+                                          float (*o)[4], int b, int h, int row0, int g, int t,
+                                          float m0, float m1, float l0, float l1, int T, int H,
+                                          int D) {
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int HD = H * D;
+  store_rows<DP>(out + (size_t)b * T * HD + (size_t)h * D, o, row0, g, t, 1.f / l0, 1.f / l1,
+                 T, HD, D);
+  if (t == 0) {
+    float* lrow = lse + ((size_t)b * H + h) * T;
+    const int r0 = row0 + g, r1 = r0 + 8;
+    if (r0 < T) lrow[r0] = m0 * kLn2 + logf(l0);
+    if (r1 < T) lrow[r1] = m1 * kLn2 + logf(l1);
+  }
+}
+
 template <int DP, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 flash_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const float* __restrict__ kbias,
                        OutT* __restrict__ out, float* __restrict__ lse, int T, int H, int D,
-                       float scale) {
+                       float scale_log2) {
   constexpr int LD = DP + 8;
   constexpr int NT = kKeyTile / 8;
+  constexpr int NS = kStages<DP>;
+  constexpr int TILE = kKeyTile * LD;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kRows * LD;
-  bf16* Vs = Ks + kKeyTile * LD;
+  bf16* KVs = Qs + kRows * LD;  // NS x (K tile, V tile)
+  float* Bs = reinterpret_cast<float*>(KVs + NS * 2 * TILE);  // NS x bias row
 
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  // heaviest first: the last query tile (the most key tiles) of every (b, head)
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int HD = H * D;
   const size_t base = (size_t)b * T * HD + (size_t)h * D;
   const float* brow = kbias ? kbias + (size_t)b * T : nullptr;
   const int wrow = warp * 16;
   const int r0 = q0 + wrow + g, r1 = r0 + 8;
+  const int n_tiles = q0 / kKeyTile + 1;  // key tiles up to the diagonal one
 
-  load_tile<DP>(Qs, q + base, kRows, q0, T, HD, D);
+  // stage j: key tile j's K and V rows and bias row, one commit group
+  auto issue = [&](int j) {
+    const int k0 = j * kKeyTile;
+    bf16* Ks = KVs + (j % NS) * 2 * TILE;
+    copy_tile<DP>(Ks, k + base, k0, T, HD, D);
+    copy_tile<DP>(Ks + TILE, v + base, k0, T, HD, D);
+    if (brow && threadIdx.x < kKeyTile) {
+      const int c = k0 + threadIdx.x;
+      cp_async_zfill<4>(Bs + (j % NS) * kKeyTile + threadIdx.x, c < T ? brow + c : brow,
+                        c < T ? 4 : 0);
+    }
+    cp_commit();
+  };
+  copy_tile<DP>(Qs, q + base, q0, T, HD, D);  // with stage 0's group
+#pragma unroll
+  for (int j = 0; j < NS - 1; ++j) {
+    if (j < n_tiles) {
+      issue(j);
+    } else {
+      cp_commit();
+    }
+  }
 
   float o[DP / 8][4];
 #pragma unroll
   for (int dn = 0; dn < DP / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+  float m0 = kNegLog2, m1 = kNegLog2, l0 = 0.f, l1 = 0.f;
 
-  const int nk = (T + kKeyTile - 1) / kKeyTile;
-  const int hi = min((q0 + kRows + kKeyTile - 1) / kKeyTile, nk);
-  for (int j = 0; j < hi; ++j) {
-    const int k0 = j * kKeyTile;
-    __syncthreads();
-    load_tile<DP>(Ks, k + base, kKeyTile, k0, T, HD, D);
-    load_tile<DP>(Vs, v + base, kKeyTile, k0, T, HD, D);
-    __syncthreads();
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_wait<NS - 2>();  // stage j has landed in this thread's copies
+    __syncthreads();    // in every thread's; and every warp is done with stage j - 1
+    if (j + NS - 1 < n_tiles) {
+      issue(j + NS - 1);
+    } else {
+      cp_commit();
+    }
+    const bf16* Ks = KVs + (j % NS) * 2 * TILE;
+    const bf16* Vs = Ks + TILE;
 
     float s[NT][4];
-    scores_rows<DP>(Qs, Ks, wrow, g, t, s);
-    float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = k0 + nt * 8 + 2 * t;
-      s[nt][0] = masked(s[nt][0], r0, c, T, scale, brow);
-      s[nt][1] = masked(s[nt][1], r0, c + 1, T, scale, brow);
-      s[nt][2] = masked(s[nt][2], r1, c, T, scale, brow);
-      s[nt][3] = masked(s[nt][3], r1, c + 1, T, scale, brow);
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    // the four lanes of a quad hold one row's columns
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float a0 = expf(m0 - mx0), a1 = expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = expf(s[nt][0] - m0);
-      s[nt][1] = expf(s[nt][1] - m0);
-      s[nt][2] = expf(s[nt][2] - m1);
-      s[nt][3] = expf(s[nt][3] - m1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
-    }
-    // per-lane partial sums; every lane of a quad rescales by the same alpha
-    l0 = l0 * a0 + sum0;
-    l1 = l1 * a1 + sum1;
+    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    mma_rows_nk<DP, NT>(s, Qs, wrow, Ks, 0, LD, lane);
+    float a0, a1;
+    softmax_tile<NT>(s, brow ? Bs + (j % NS) * kKeyTile : nullptr, t, scale_log2,
+                     j == n_tiles - 1 ? j * kKeyTile : -1, r0, r1, m0, m1, l0, l1, a0, a1);
 #pragma unroll
     for (int dn = 0; dn < DP / 8; ++dn) {
       o[dn][0] *= a0;
@@ -413,28 +427,9 @@ flash_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       o[dn][2] *= a1;
       o[dn][3] *= a1;
     }
-#pragma unroll
-    for (int ks = 0; ks < kKeyTile / 16; ++ks) {
-      uint32_t a[4];
-      acc_to_a(s, ks, a);
-#pragma unroll
-      for (int dn = 0; dn < DP / 8; ++dn) {
-        uint32_t b0, b1;
-        frag_b_kn(Vs, LD, ks * 16, dn * 8, g, t, b0, b1);
-        mma(o[dn], a, b0, b1);
-      }
-    }
+    mma_acc_kn<DP, kKeyTile / 16>(o, s, Vs, 0, LD, lane);  // p . V
   }
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  store_rows<DP>(out + base, o, q0 + wrow, g, t, 1.f / l0, 1.f / l1, T, HD, D);
-  if (t == 0) {
-    float* lrow = lse + ((size_t)b * H + h) * T;
-    if (r0 < T) lrow[r0] = m0 + logf(l0);
-    if (r1 < T) lrow[r1] = m1 + logf(l1);
-  }
+  store_fwd<DP>(out, lse, o, b, h, q0 + wrow, g, t, m0, m1, l0, l1, T, H, D);
 }
 
 // Shared memory of the dq kernel: Q and dO tiles, then kStages stages of
@@ -682,14 +677,14 @@ cudaError_t prepare(K kernel, size_t smem) {
 template <int DP, typename OutT>
 cudaError_t fwd(const void* q, const void* k, const void* v, const float* kbias, void* out,
                 float* lse, int B, int T, int H, int D, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * kRows + kKeyTile) * (DP + 8) * sizeof(bf16);
+  const size_t smem = fwd_smem<DP>();
   auto kern = flash_train_fwd_kernel<DP, OutT>;
   cudaError_t err = prepare(kern, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((T + kRows - 1) / kRows, H, B);
+  dim3 grid(B * H, (T + kRows - 1) / kRows);  // blockIdx.y: query tiles, heaviest first
   kern<<<grid, kThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, kbias, (OutT*)out, lse, T, H, D,
-      1.f / sqrtf((float)D));
+      kLog2e / sqrtf((float)D));
   return cudaGetLastError();
 }
 

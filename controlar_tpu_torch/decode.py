@@ -21,9 +21,10 @@ holds every layer in one tensor per stream: a (L, B, S, 2*KV*D) tensor, or
 the int8 / int4 dict of (L, B, S, ...) tensors. A decode step over it
 scores each layer's new row, the in-flight row, from an operand of the
 stacked attention kernels (`ops/flash_decode_stacked.py`) and writes all L
-layers' rows at the end of the step, one write per stream: an indexed
-assignment at a uniform position, `cache_append_rows_stacked` at a position
-per row. The prefill writes each layer's rows through a view of the stack.
+layers' rows at the end of the step: each layer's rows are quantized into
+the step's in-flight rows by `append_kv`, and one `append_stacked` writes
+them all into the stack (on the card one launch a layer and one a step).
+The prefill writes each layer's rows through a view of the stack.
 
 Decode attention runs the kernels when `use_flash` (on the card: CUDA,
 reading only rows <= pos), else a masked einsum over the whole (dequantized)
@@ -56,8 +57,11 @@ from controlar_tpu_torch.models.gpt import (
 from controlar_tpu_torch.ops.cache_append import (
     Cache,
     append_kv,
-    cache_append_rows_stacked,
+    append_stacked,
     cache_streams,
+    inflight_layer,
+    stacked_inflight,
+    stream_list,
 )
 from controlar_tpu_torch.ops.flash_chunk import (
     flash_chunk_attention,
@@ -328,12 +332,13 @@ def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
     its own row (the diagonal exception of the chunk kernels); a decode step
     applies the mask everywhere, as the JAX package's decode steps do.
 
-    On a stacked cache (a decode step, T = 1), layer l attends to its rows
-    < pos[b] and its in-flight row: through the stacked kernels, or over a
-    copy of the layer with the row written. After the last layer every
-    layer's rows are stored, once per stream (the rows, and a quantized
-    cache's scales): one indexed assignment at an int pos,
-    `cache_append_rows_stacked` at a position per row."""
+    On a stacked cache (a decode step, T = 1), layer l's new rows go through
+    the same `append_kv` into the step's in-flight rows (`stacked_inflight`,
+    (L, B, W) per stream) at layer l, and layer l attends to its rows <
+    pos[b] and that in-flight row: through the stacked kernels, or over a
+    copy of the layer with the row written. After the last layer one
+    `append_stacked` stores every layer's rows of every stream (the rows,
+    and a quantized cache's scales) at pos[b]."""
     b, t = h.shape[:2]
     dev = h.device
     kvd = cfg.kv_heads * cfg.head_dim
@@ -345,7 +350,8 @@ def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
         raise ValueError(f"a stacked cache takes one query row per batch row and "
                          f"{cfg.n_layer} layers, got T = {t} and the cache "
                          f"{tuple(_first_stream(caches).shape)}")
-    inflight = []  # stacked: each layer's new rows, one (B, W) tensor per stream
+    # stacked: this step's new rows of every layer, (L, B, W) per stream
+    inflight = stacked_inflight(caches, b) if stacked else None
     col_bias = None
     if use_flash:
         if col_mask_full is not None:
@@ -365,16 +371,15 @@ def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
             h = h + _fuse(control(fidx[l]), control_strength, h.dtype)
         x = rms_norm(h, lp.attention_norm, cfg.norm_eps)
         q, k, v = _qkv_for(lp, cfg, x, rope)  # (B, T, H, D), (B, T, KV, D)
-        if stacked:
-            kv_rows = torch.cat([k.reshape(b, kvd), v.reshape(b, kvd)], dim=-1)
-            streams = cache_streams(caches, kv_rows, cfg.kv_heads, split)
-            rows = [src.to(dst.dtype).contiguous() for dst, src in streams]
-            inflight.append(rows)
+        kr, vr = k.reshape(b, t, kvd), v.reshape(b, t, kvd)
+        if stacked:  # layer l's in-flight rows, written as a (B, 1, W) cache at row 0
+            append_kv(inflight_layer(inflight, l), kr, vr, 0, kv_heads=cfg.kv_heads,
+                      split=split)
+            rows = [x[l] for x in stream_list(inflight)]
             cache = None if use_flash else _layer_with_rows(caches, l, rows, pos)
         else:
             cache = caches[l]
-            append_kv(cache, k.reshape(b, t, kvd), v.reshape(b, t, kvd), pos,
-                      kv_heads=cfg.kv_heads, split=split)
+            append_kv(cache, kr, vr, pos, kv_heads=cfg.kv_heads, split=split)
         if use_flash and stacked:
             attn = _flash_stacked_attn(q, caches, rows, l, pos, col_bias, cfg, split).to(h.dtype)
         elif use_flash:
@@ -387,12 +392,7 @@ def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
         h = h + lp.wo(attn)
         h = h + ffn(lp, rms_norm(h, lp.ffn_norm, cfg.norm_eps))
     if stacked:
-        for i, (dst, _) in enumerate(streams):
-            new = torch.stack([rows[i] for rows in inflight])  # (L, B, W)
-            if isinstance(pos, int):
-                dst[:, :, pos] = new
-            else:
-                cache_append_rows_stacked(dst, new, pos)
+        append_stacked(caches, inflight, pos)
     return h
 
 
@@ -411,7 +411,7 @@ def decode_step_flat(
     """One decode step at position pos for token (B,); returns (logits (B, V)
     f32, caches). Position pos receives control token pos - cls_token_num + 1.
     On a stacked cache every layer's row is written at the end of the step
-    with one indexed assignment per stream."""
+    with one `append_stacked`."""
     if rope_table is None:
         rope_table = rope_tables(model, cfg, token.device)
     rope = _rope_rows(rope_table, pos, pos + 1)
@@ -470,7 +470,7 @@ def decode_step_multi(
     JAX package does: a never-admitted slot at position 0 then takes its
     RoPE, control row and written row at position 1 (the engine overwrites
     the slot at admission). All layers' rows are written at the end of the
-    step, one `cache_append_rows_stacked` per stream."""
+    step with one `append_stacked`."""
     stacked = is_stacked_caches(caches)
     if stacked:
         pos = torch.clamp(pos, min=1)

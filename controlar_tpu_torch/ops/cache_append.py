@@ -357,3 +357,131 @@ def append_kv(cache: Cache, k: torch.Tensor, v: torch.Tensor, pos: Union[int, to
 
 
 append_kv.launches = 0
+
+
+# ---- the stacked cache's in-flight rows and end-of-step write ---------------
+
+
+def stream_list(cache: Cache):
+    """A cache's streams in the order the kernels take them: the floating
+    slab, or a quantized cache's rows (int8 values or int4 carriers) and then
+    its scales."""
+    if not isinstance(cache, dict):
+        return [cache]
+    return [cache["kv4" if "kv4" in cache else "kv"], cache["s"]]
+
+
+def stacked_inflight(cache: Cache, batch: int) -> Cache:
+    """Uninitialised in-flight rows for one decode step of a stacked cache:
+    for each stream (L, B, S, W) an (L, batch, W) tensor of its dtype on its
+    device, with the same keys. Layer l's rows, `[l]`, are a contiguous
+    (batch, W) tensor starting at a multiple of 16 bytes, as the stacked
+    attention kernels take their in-flight row."""
+    def rows(x: torch.Tensor) -> torch.Tensor:
+        n_layer, w, size = x.shape[0], x.shape[-1], x.element_size()
+        per_layer = -(-batch * w * size // 16) * 16 // size
+        flat = torch.empty((n_layer, per_layer), dtype=x.dtype, device=x.device)
+        return flat[:, :batch * w].view(n_layer, batch, w)
+
+    if isinstance(cache, dict):
+        return {k: rows(v) for k, v in cache.items()}
+    return rows(cache)
+
+
+def inflight_layer(inflight: Cache, layer: int) -> Cache:
+    """Layer `layer` of in-flight rows (L, B, W per stream) as a (B, 1, W)
+    cache, which `append_kv` writes at row 0."""
+    if isinstance(inflight, dict):
+        return {k: v[layer][:, None] for k, v in inflight.items()}
+    return inflight[layer][:, None]
+
+
+def append_stacked_ref(cache: Cache, inflight: Cache, pos: Union[int, torch.Tensor]) -> Cache:
+    """Plain version of the end-of-step write: per stream one slice
+    assignment at an int pos, `cache_append_rows_stacked_ref` at a position
+    tensor; in place, returns cache."""
+    for dst, src in zip(stream_list(cache), stream_list(inflight)):
+        if isinstance(pos, int):
+            dst[:, :, pos] = src
+        else:
+            cache_append_rows_stacked_ref(dst, src, pos)
+    return cache
+
+
+def _check_stacked(cache: Cache, inflight: Cache, pos):
+    """Raise ValueError unless cache is a stacked cache, inflight its rows
+    (as `stacked_inflight` makes them) and pos an int or a (B,) int32
+    tensor; returns the (cache, rows) stream pairs."""
+    if isinstance(cache, dict) != isinstance(inflight, dict) or (
+            isinstance(cache, dict) and set(cache) != set(inflight)):
+        raise ValueError("the in-flight rows must have the cache's streams")
+    pairs = list(zip(stream_list(cache), stream_list(inflight)))
+    n_layer, b = pairs[0][0].shape[:2]
+    for dst, src in pairs:
+        if dst.dim() != 4 or dst.shape[:2] != (n_layer, b):
+            raise ValueError(f"a stacked cache's streams are ({n_layer}, {b}, S, W), got "
+                             f"{tuple(dst.shape)}")
+        if src.shape != (n_layer, b, dst.shape[3]) or src.dtype != dst.dtype:
+            raise ValueError(f"in-flight rows must be {(n_layer, b, dst.shape[3])} {dst.dtype}, "
+                             f"got {tuple(src.shape)} {src.dtype}")
+        if src.stride(2) != 1 or src.stride(1) != dst.shape[3]:
+            raise ValueError("each layer of the in-flight rows must be contiguous")
+        if not dst.is_contiguous():
+            raise ValueError("the cache streams must be contiguous")
+        if src.device != dst.device or dst.device != pairs[0][0].device:
+            raise ValueError("all operands must be on one device")
+    if isinstance(pos, torch.Tensor):
+        if pos.shape != (b,) or pos.dtype != torch.int32 or not pos.is_contiguous():
+            raise ValueError(f"pos must be a contiguous ({b},) int32 tensor, got "
+                             f"{tuple(pos.shape)} {pos.dtype}")
+        if pos.device != pairs[0][0].device:
+            raise ValueError(f"pos is on {pos.device}, the cache on {pairs[0][0].device}")
+    elif not isinstance(pos, int) or isinstance(pos, bool):
+        raise ValueError(f"pos must be an int or a (B,) int32 tensor, got {type(pos).__name__}")
+    return pairs
+
+
+def _stacked_lib():
+    """The C entry: n_streams, then (cache, rows, row_bytes, layer_bytes,
+    vec) of two streams, pos, pos0, L, B, S, stream."""
+    f = _build.load("cache_append").kv_write_stacked
+    if f.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        f.argtypes = [i] + [p, p, ll, ll, i] * 2 + [p, i, i, i, i, p]
+        f.restype = ctypes.c_int
+    return f
+
+
+def append_stacked(cache: Cache, inflight: Cache, pos: Union[int, torch.Tensor]) -> Cache:
+    """Write a decode step's in-flight rows (L, B, W) of every stream into
+    the stacked cache: `cache[l, b, pos[b]] = inflight[l, b]` (pos an int:
+    every row at pos), in place; returns cache. On a CUDA tensor one launch
+    writes every stream; it skips a row whose position lies outside [0, S),
+    where the plain version raises."""
+    pairs = _check_stacked(cache, inflight, pos)
+    dev = pairs[0][0].device
+    if dev.type == "cpu":
+        return append_stacked_ref(cache, inflight, pos)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"cache is on {dev}, the current device is cuda:"
+                         f"{torch.cuda.current_device()}")
+    n_layer, b, s, _ = pairs[0][0].shape
+    args = []
+    for dst, src in pairs + pairs[-1:] * (2 - len(pairs)):
+        size = dst.element_size()
+        row_bytes, layer_bytes = dst.shape[3] * size, src.stride(0) * size
+        args += [dst.data_ptr(), src.data_ptr(), row_bytes, layer_bytes,
+                 _vec_bytes(row_bytes, layer_bytes, dst.data_ptr(), src.data_ptr())]
+    tensor_pos = isinstance(pos, torch.Tensor)
+    err = _stacked_lib()(len(pairs), *args, pos.data_ptr() if tensor_pos else 0,
+                         0 if tensor_pos else pos, n_layer, b, s,
+                         torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"append_stacked launch failed: cudaError {err}")
+    append_stacked.launches += 1
+    return cache
+
+
+append_stacked.launches = 0

@@ -39,6 +39,24 @@ from controlar_tpu_torch import _build
 
 NEG = -1e9
 
+# The forward's launch plan, mirrored from csrc/flash_train.cu (a CPU test
+# reads the source's constants): blocks of ROWS query rows over key tiles of
+# KEY_TILE keys, the head dimension padded to 64, 112 or 128.
+ROWS = KEY_TILE = 64
+
+
+def padded_head_dim(d: int) -> int:
+    """The kernels' padded head dimension (the source's `padded`)."""
+    if d <= 0 or d % 4 or d > 128:
+        raise ValueError(f"head dim {d}: the kernels take multiples of 4 up to 128")
+    return 64 if d <= 64 else (112 if d <= 112 else 128)
+
+
+def fwd_variant(d: int) -> str:
+    """The forward kernel that head dimension d runs: "cp.async"."""
+    padded_head_dim(d)
+    return "cp.async"
+
 
 def key_bias(key_valid: Optional[Tensor]) -> Optional[Tensor]:
     """(B, T) bool column mask -> (B, T) f32 additive bias (0 / -1e9)."""

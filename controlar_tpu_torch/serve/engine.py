@@ -97,7 +97,7 @@ class ServeConfig:
     the row append runs its kernel on the card either way. kv_stacked=True
     keeps the stacked cache (`decode.init_stacked_caches`): a step runs the
     stacked attention kernels and writes every layer's rows with one
-    `cache_append_rows_stacked` per stream."""
+    `append_stacked` (`decode._decode_layers`)."""
     max_slots: int = 8
     quantum: int = 64
     quantum_buckets: Optional[tuple] = None

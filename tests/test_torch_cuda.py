@@ -1374,6 +1374,83 @@ def test_flash_train_kernels_are_deterministic_and_take_f32(dev):
         ft.flash_train_fwd(q.detach().half(), k.detach().half(), v.detach().half())
 
 
+# chip_smoke's _train_cases: the two training cells' layers, c2i without a
+# bias, GPT-3B heads (name, B, T, H, D, left-padded caption columns)
+_TRAIN_SHAPES = [("t2i_xl512", 8, 1143, 20, 64, 120), ("t2i_b256", 16, 375, 12, 64, 120),
+                 ("c2i_b384", 4, 576, 12, 64, 0), ("d100", 2, 333, 32, 100, 120)]
+
+
+def _fwd_inputs(dev, b, t, h, d, pads, seed, dtype=torch.bfloat16):
+    """q, k, v (B, T, H, D), the caption bias of the left pads (None when
+    pads is None) and the valid rows."""
+    from controlar_tpu_torch.ops import flash_train as ft
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, t, h, d, generator=g, device=dev).to(dtype) for _ in range(3))
+    valid = torch.ones(b, t, dtype=torch.bool, device=dev)
+    if pads is not None:
+        valid = torch.arange(t, device=dev)[None, :] >= torch.tensor(pads, device=dev)[:, None]
+    return q, k, v, (ft.key_bias(valid) if pads is not None else None), valid
+
+
+def _check_fwd(out, lse, want, valid):
+    """out and lse finite everywhere (a fully masked row is finite junk) and
+    within the training tolerance of the plain version on the valid rows."""
+    out_ref, lse_ref = want
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    rows = valid[:, :, None, None]
+    torch.testing.assert_close((out * rows).float(), (out_ref * rows).float(), **_TRAIN_TOL)
+    lrows = valid[:, None, :].expand_as(lse)
+    torch.testing.assert_close(lse[lrows], lse_ref[lrows], atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", _TRAIN_SHAPES, ids=[c[0] for c in _TRAIN_SHAPES])
+def test_flash_train_fwd_matches_plain_version_at_the_training_shapes(dev, case):
+    """The forward (the TMA / wgmma variant at D 64, the cp.async one at D
+    100) at chip_smoke's four timed shapes, with its caption lengths."""
+    from controlar_tpu_torch.cells import train_caption_lens
+    from controlar_tpu_torch.ops import flash_train as ft
+
+    name, b, t, h, d, n_cls = case
+    pads = [n_cls - n for n in train_caption_lens(b, 7)] if n_cls else None
+    q, k, v, kb, valid = _fwd_inputs(dev, b, t, h, d, pads, seed=t)
+    out, lse = ft.flash_train_fwd(q, k, v, kb)
+    torch.cuda.synchronize()
+    _check_fwd(out, lse, ft.flash_train_fwd_ref(q, k, v, kb), valid)
+
+
+@pytest.mark.parametrize("d", [32, 64, 100, 128])
+@pytest.mark.parametrize("t", [1, 40, 64, 65, 130, 333])
+def test_flash_train_fwd_matches_plain_version_at_ragged_t(dev, d, t):
+    """Every variant (TMA / wgmma at D 64 and 128, cp.async at 32 and 100)
+    at T below one 64-row tile, on it, one past it and not a multiple of it,
+    with a bias that masks whole rows (3 left pads in batch row 0, T // 2 in
+    row 1) and without one."""
+    from controlar_tpu_torch.ops import flash_train as ft
+
+    for pads in ([3, t // 2], None):
+        q, k, v, kb, valid = _fwd_inputs(dev, 2, t, 3, d, pads, seed=t + d)
+        out, lse = ft.flash_train_fwd(q, k, v, kb)
+        torch.cuda.synchronize()
+        _check_fwd(out, lse, ft.flash_train_fwd_ref(q, k, v, kb), valid)
+
+
+@pytest.mark.parametrize("d", [64, 100, 128])
+def test_flash_train_fwd_is_bitwise_deterministic_and_writes_f32(dev, d):
+    """Two launches give the same bits; f32 inputs give an f32 output within
+    the tolerance of the plain version."""
+    from controlar_tpu_torch.ops import flash_train as ft
+
+    q, k, v, kb, valid = _fwd_inputs(dev, 2, 333, 4, d, [5, 120], seed=d)
+    first, second = ft.flash_train_fwd(q, k, v, kb), ft.flash_train_fwd(q, k, v, kb)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    q, k, v, kb, valid = _fwd_inputs(dev, 2, 200, 3, d, [5, 60], seed=d + 1,
+                                     dtype=torch.float32)
+    out, lse = ft.flash_train_fwd(q, k, v, kb)
+    assert out.dtype == torch.float32
+    _check_fwd(out, lse, ft.flash_train_fwd_ref(q, k, v, kb), valid)
+
+
 def _train_bwd_inputs(dev, b, t, h, d, pads, seed):
     """q, k, v, dO (B, T, H, D) bf16, the caption bias of the left pads
     (batch row i's first pads[i] columns masked: those rows see no key) and
@@ -1596,6 +1673,94 @@ def test_cache_append_stacked_skips_out_of_range_slots(dev):
     assert cache[:, :2].abs().sum().item() == 0 and cache[:, 2, 2].float().sum().item() == 32
 
 
+# the stacked cells' steps: layers, kv heads, head dim, int4 split, cache rows
+_STACKED_WRITE = {"gpt_b": (12, 12, 64, False, 768), "gpt_3b": (24, 32, 100, True, 768)}
+
+
+def _stacked_write_case(dev, shape, kind, seed, b=16):
+    """A stacked cache of kind (bf16, int8, int4, int4_pairs) with random
+    contents and one step's k, v (b, 1, KV*D) bf16 views per layer."""
+    n_layer, kvh, d, split, s = _STACKED_WRITE[shape]
+    kvd = kvh * d
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "bf16":
+        cache = torch.randn(n_layer, b, s, 2 * kvd, generator=g, device=dev).bfloat16()
+    else:
+        key, width = ("kv", 2 * kvd) if kind == "int8" else ("kv4", kvd)
+        cache = {key: torch.randint(-128, 128, (n_layer, b, s, width), generator=g, device=dev,
+                                    dtype=torch.int8),
+                 "s": torch.rand(n_layer, b, s, 2 * kvh, generator=g, device=dev) * 0.02}
+    new = []
+    for _ in range(n_layer):
+        qkv = (torch.randn(b, 1, 3 * kvd, generator=g, device=dev) * 2).bfloat16()
+        new.append((qkv[..., kvd:2 * kvd], qkv[..., 2 * kvd:]))
+    new[0][0][0, 0, :d] = 0
+    return cache, new, kvh, split and kind == "int4"
+
+
+def _stacked_step_writes(cache, new, pos, kvh, split, old=False):
+    """The stacked step's writes: append_kv into the in-flight rows a layer
+    and one append_stacked, or (old) the sequence they replace."""
+    from controlar_tpu_torch.ops import cache_append as ca
+
+    if not old:
+        inflight = ca.stacked_inflight(cache, new[0][0].shape[0])
+        for l, (k, v) in enumerate(new):
+            ca.append_kv(ca.inflight_layer(inflight, l), k, v, 0, kv_heads=kvh, split=split)
+        return ca.append_stacked(cache, inflight, pos), inflight
+    rows = [[src.to(dst.dtype).contiguous() for dst, src in ca.cache_streams(
+        cache, torch.cat([k[:, 0], v[:, 0]], dim=-1), kvh, split)] for k, v in new]
+    for i, dst in enumerate(ca.stream_list(cache)):
+        stacked = torch.stack([r[i] for r in rows])
+        if isinstance(pos, int):
+            dst[:, :, pos] = stacked
+        else:
+            ca.cache_append_rows_stacked(dst, stacked, pos)
+    return cache, None
+
+
+@pytest.mark.parametrize("pos", ["int", "per_slot"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "int4_pairs"])
+@pytest.mark.parametrize("shape", list(_STACKED_WRITE))
+def test_append_stacked_matches_plain_version_and_old_sequence(dev, shape, kind, pos):
+    """The fused stacked writes (one append_kv a layer, one append_stacked a
+    step) leave the cache bit for bit as the old sequence and as the plain
+    end-of-step write on the same in-flight rows, with one launch a step."""
+    from controlar_tpu_torch.ops import cache_append as ca
+
+    cache, new, kvh, split = _stacked_write_case(dev, shape, kind, seed=len(shape + kind))
+    s = ca.stream_list(cache)[0].shape[2]
+    p = s - 1 if pos == "int" else torch.tensor(
+        [1, s - 1] + [(37 * i) % s for i in range(1, 15)], dtype=torch.int32, device=dev)
+    clone = lambda c: {k: v.clone() for k, v in c.items()} if isinstance(c, dict) else c.clone()  # noqa: E731
+    before = ca.append_stacked.launches
+    got, inflight = _stacked_step_writes(clone(cache), new, p, kvh, split)
+    assert ca.append_stacked.launches == before + 1
+    old, _ = _stacked_step_writes(clone(cache), new, p, kvh, split, old=True)
+    plain = ca.append_stacked_ref(clone(cache), inflight, p)
+    torch.cuda.synchronize()
+    for a, b, c in zip(ca.stream_list(got), ca.stream_list(old), ca.stream_list(plain)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        assert torch.equal(a.view(torch.uint8), c.view(torch.uint8))
+
+
+def test_append_stacked_skips_out_of_range_slots(dev):
+    from controlar_tpu_torch.ops import cache_append as ca
+
+    cache = {"kv": torch.zeros(2, 3, 8, 16, dtype=torch.int8, device=dev),
+             "s": torch.zeros(2, 3, 8, 4, device=dev)}
+    inflight = ca.stacked_inflight(cache, 3)
+    for x in inflight.values():
+        x.fill_(1)
+    ca.append_stacked(cache, inflight, torch.tensor([-1, 8, 2], dtype=torch.int32, device=dev))
+    ca.append_stacked(cache, inflight, 8)  # an int position past the cache: nothing written
+    torch.cuda.synchronize()
+    for x in cache.values():
+        assert x[:, :2].abs().sum().item() == 0
+        assert x[:, 2, 2].float().sum().item() == x.shape[0] * x.shape[-1]
+        assert x.float().sum().item() == x.shape[0] * x.shape[-1]
+
+
 def _small_model(dev, dtype=torch.float32, quant=None):
     from controlar_tpu_torch.config import GPTConfig
     from controlar_tpu_torch.models import gpt as tgpt
@@ -1613,7 +1778,9 @@ def _small_model(dev, dtype=torch.float32, quant=None):
 def test_generate_stacked_card_matches_cpu(dev, cache):
     """Greedy generate(kv_stacked=True) through the stacked kernels on the
     card: the first logits within the reference limits, tokens equal to the
-    CPU's plain route at a clear margin, and the exact kernel launches."""
+    CPU's plain route at a clear margin, and the exact kernel launches (a
+    fused KV write a layer into the in-flight rows, one end-of-step write
+    a step)."""
     from controlar_tpu_torch import generate as tgen
     from controlar_tpu_torch.ops import cache_append as ca
     from controlar_tpu_torch.ops import flash_decode_stacked as fds
@@ -1627,11 +1794,13 @@ def test_generate_stacked_card_matches_cpu(dev, cache):
     fn = {"bf16": fds.flash_stacked, "int8": fds.flash_stacked_q8,
           "int4": fds.flash_stacked_q4}[cache]
     fn.launches = ca.cache_append_rows.launches = flash_decode_attention.launches = 0
-    ca.append_kv.launches = 0
+    ca.append_kv.launches = ca.append_stacked.launches = ca.cache_append_rows_stacked.launches = 0
     got = tgen.generate(model.to(dev), cfg, device=dev, **kw).cpu()
-    assert fn.launches == cfg.n_layer * (cfg.block_size - 1)
+    steps = cfg.block_size - 1
+    assert fn.launches == ca.append_kv.launches == cfg.n_layer * steps
+    assert ca.append_stacked.launches == steps  # one end-of-step write a step
     assert ca.cache_append_rows.launches == flash_decode_attention.launches == 0
-    assert ca.append_kv.launches == 0
+    assert ca.cache_append_rows_stacked.launches == 0
     # greedy tokens at random weights: ties flip rarely; require most to agree
     assert (got == want).float().mean().item() >= 0.85, (got, want)
 
@@ -1640,7 +1809,8 @@ def test_generate_stacked_card_matches_cpu(dev, cache):
 def test_serve_stacked_slot_isolation_on_the_card(dev, cache):
     """The stacked engine on the card: request 0 alone (slot 1 never
     admitted, so the pos >= 1 clamp runs every step) and with a neighbour:
-    the same sampled tokens; one stacked append per stream and step."""
+    the same sampled tokens; one fused KV write a layer and one end-of-step
+    write a step."""
     from controlar_tpu_torch.cells import serve_requests, serve_staggered
     from controlar_tpu_torch.config import GPTConfig
     from controlar_tpu_torch.models import gpt as tgpt
@@ -1660,10 +1830,10 @@ def test_serve_stacked_slot_isolation_on_the_card(dev, cache):
         return done, eng.stats["slot_steps"] // 2
 
     ca.cache_append_rows.launches = ca.cache_append_rows_stacked.launches = 0
-    ca.append_kv.launches = 0
+    ca.append_kv.launches = ca.append_stacked.launches = 0
     (solo, steps), (duo, steps2) = run(1), run(2)
-    streams = 1 if cache == torch.bfloat16 else 2
-    assert ca.cache_append_rows_stacked.launches == streams * (steps + steps2)
-    assert ca.cache_append_rows.launches == ca.append_kv.launches == 0
+    assert ca.append_stacked.launches == steps + steps2
+    assert ca.append_kv.launches == cfg.n_layer * (steps + steps2)
+    assert ca.cache_append_rows.launches == ca.cache_append_rows_stacked.launches == 0
     np.testing.assert_array_equal(solo[0].tokens, duo[0].tokens)
     assert not np.array_equal(duo[0].tokens, duo[1].tokens)

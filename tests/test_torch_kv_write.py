@@ -11,7 +11,9 @@ package (CPU).
   compared, on the port's unpadded widths;
 - the wrapper's checks: bad shapes, dtypes and devices raise ValueError;
 - every per-layer decode path writes a layer's new rows with one
-  `append_kv` call, and the stacked cache with none.
+  `append_kv` call; a stacked step writes each layer's rows into the step's
+  in-flight rows with one `append_kv` call and the stack with one
+  `append_stacked`.
 """
 import functools
 
@@ -269,6 +271,13 @@ def test_each_decode_path_writes_a_layer_once(monkeypatch, path, cache):
         return tca.append_kv(c, k, v, pos, **kw)
 
     monkeypatch.setattr(tdec, "append_kv", counting)
+    ends = []
+
+    def counting_end(c, inflight, pos):
+        ends.append(pos)
+        return tca.append_stacked(c, inflight, pos)
+
+    monkeypatch.setattr(tdec, "append_stacked", counting_end)
     b, s = 2, 24
     stacked = path.endswith("stacked")
     init = tdec.init_stacked_caches if stacked else tdec.init_flat_caches
@@ -284,10 +293,13 @@ def test_each_decode_path_writes_a_layer_once(monkeypatch, path, cache):
         else:
             tspec.forward_chunk(model, cfg, caches, torch.tensor([[1, 2, 3], [4, 5, 6]]), pos,
                                 **kw)
-    if stacked:
-        assert calls == []
-        return
     t = 3 if path == "chunk" else 1
-    assert [c[0] for c in calls] == [id(c) for c in caches]
     assert all(c[1] == (b, t, cfg.kv_heads * cfg.head_dim) for c in calls)
+    if stacked:  # a layer's rows into the step's in-flight rows, then one write a step
+        assert len(calls) == cfg.n_layer and all(c[2] == 0 for c in calls)
+        assert len(ends) == 1 and (ends[0] == 4 if path == "flat_stacked"
+                                   else torch.equal(ends[0], pos))
+        return
+    assert ends == []
+    assert [c[0] for c in calls] == [id(c) for c in caches]
     assert all((c[2] == 4) if path == "flat" else torch.equal(c[2], pos) for c in calls)
