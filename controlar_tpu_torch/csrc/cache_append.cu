@@ -5,6 +5,10 @@
 //     cache; the per-head int8 rows and f32 scales of an int8 cache; the
 //     nibble-packed int4 carriers (pairs interleaved or split-rope) and the
 //     scales of an int4 cache. T = 1 is a decode step, T = K a verify chunk;
+//   - the stacked cache's end-of-step write (`kv_write_stacked`): every
+//     layer's in-flight rows of a decode step, (L, B, W) per stream, which
+//     the fused write quantized into them a layer at a time, written into
+//     every stream of the (L, B, S, W) cache at row pos[b] in one launch;
 //   - the single-stream copies: the per-slot row append, cache[b, pos[b], :]
 //     = rows[b, :], its K-row block form, cache[b, pos[b] + j, :] = rows[b,
 //     j, :] for j < K, and its stacked form over all layers of a (L, B, S,
@@ -16,9 +20,11 @@
 // of the JAX package quantize the new rows in XLA (`decode._quantize_rows_for`)
 // and then append each stream with the Pallas kernel; the fused write does
 // both in one launch. A stacked cache is L * B elements of S rows each,
-// element l * B + b taking its position from pos[b]: one launch writes every
-// layer's row of a decode step, where the TPU kernel runs a grid (L, B) of
-// read-modify-write windows.
+// element l * B + b taking its position from pos[b]: the stacked write
+// stores every layer's row of every stream of a decode step in one launch,
+// where the TPU kernel runs a grid (L, B) of read-modify-write windows for
+// each stream, and the JAX package's step stacks and quantizes the rows in
+// XLA first.
 //
 // The TPU kernels read and rewrite the aligned 8- or 32-row window around
 // pos[b], because their DMA offsets must follow the (8, 128) tiling (the
@@ -53,6 +59,12 @@
 // are strided views of the projection; D = 100 heads sit at 2-byte offsets
 // in an int4 row), coalesced across the warp. No shared memory: a warp's
 // values stay in registers.
+//
+// The stacked write: one block per element l * B + b copies the element's
+// in-flight row of each stream (one or two: the rows, and a quantized
+// cache's scales) to row pos[b], at the widest vector of 16, 8, 4, 2 or 1
+// bytes that divides the stream's row, its layer stride and both pointers;
+// a row whose position lies outside [0, S) is skipped.
 //
 // The copies: the K rows of element b are one contiguous span of K *
 // row_bytes bytes at row pos[b], and the kernel copies that span and nothing
@@ -278,11 +290,6 @@ struct StackedStream {
   int vec;
 };
 
-struct StackedStreams {
-  StackedStream s[kMaxStreams];
-  int n;
-};
-
 template <typename V>
 __device__ __forceinline__ void copy_row(char* dst, const char* src, long long bytes) {
   V* d = reinterpret_cast<V*>(dst);
@@ -291,30 +298,32 @@ __device__ __forceinline__ void copy_row(char* dst, const char* src, long long b
   for (long long i = threadIdx.x; i < n; i += kThreads) d[i] = r[i];
 }
 
+// row (l, b) of stream x to row p of element e = l * B + b
+__device__ __forceinline__ void write_row(StackedStream x, long long e, long long l, int b, int S,
+                                          int p) {
+  char* dst = x.cache + (e * S + p) * x.row_bytes;
+  const char* src = x.rows + l * x.layer_bytes + (long long)b * x.row_bytes;
+  switch (x.vec) {
+    case 16: copy_row<uint4>(dst, src, x.row_bytes); break;
+    case 8: copy_row<uint2>(dst, src, x.row_bytes); break;
+    case 4: copy_row<uint32_t>(dst, src, x.row_bytes); break;
+    case 2: copy_row<uint16_t>(dst, src, x.row_bytes); break;
+    default: copy_row<uint8_t>(dst, src, x.row_bytes); break;
+  }
+}
+
 // a block per element e = l * B + b: every stream's row (l, b) to row p of
 // element e, p = pos[b] (or pos0 for every row); skipped when p is outside
 // [0, S), as the other copies skip
 __global__ void __launch_bounds__(kThreads)
-kv_write_stacked_kernel(StackedStreams st, const int* __restrict__ pos, int pos0, int B, int S) {
+kv_write_stacked_kernel(StackedStream s0, StackedStream s1, int n_streams,
+                        const int* __restrict__ pos, int pos0, int B, int S) {
   const int e = blockIdx.x;
   const int b = e % B;
-  const long long l = e / B;
   const int p = pos == nullptr ? pos0 : pos[b];
   if (p < 0 || p >= S) return;
-#pragma unroll
-  for (int i = 0; i < kMaxStreams; ++i) {
-    if (i >= st.n) break;
-    const StackedStream x = st.s[i];
-    char* dst = x.cache + ((long long)e * S + p) * x.row_bytes;
-    const char* src = x.rows + l * x.layer_bytes + (long long)b * x.row_bytes;
-    switch (x.vec) {
-      case 16: copy_row<uint4>(dst, src, x.row_bytes); break;
-      case 8: copy_row<uint2>(dst, src, x.row_bytes); break;
-      case 4: copy_row<uint32_t>(dst, src, x.row_bytes); break;
-      case 2: copy_row<uint16_t>(dst, src, x.row_bytes); break;
-      default: copy_row<uint8_t>(dst, src, x.row_bytes); break;
-    }
-  }
+  write_row(s0, e, e / B, b, S, p);
+  if (n_streams > 1) write_row(s1, e, e / B, b, S, p);
 }
 
 }  // namespace
@@ -387,19 +396,16 @@ extern "C" int kv_write_stacked(int n_streams, void* cache0, const void* rows0,
                                 int L, int B, int S, void* stream) {
   if (n_streams < 1 || n_streams > kMaxStreams) return static_cast<int>(cudaErrorInvalidValue);
   if (L <= 0 || B <= 0) return 0;
-  StackedStreams st{};
-  st.n = n_streams;
-  st.s[0] = {static_cast<char*>(cache0), static_cast<const char*>(rows0), row_bytes0,
-             layer_bytes0, vec0};
-  st.s[1] = {static_cast<char*>(cache1), static_cast<const char*>(rows1), row_bytes1,
-             layer_bytes1, vec1};
-  for (int i = 0; i < n_streams; ++i) {
-    const int v = st.s[i].vec;
+  const StackedStream s0{static_cast<char*>(cache0), static_cast<const char*>(rows0), row_bytes0,
+                         layer_bytes0, vec0};
+  const StackedStream s1{static_cast<char*>(cache1), static_cast<const char*>(rows1), row_bytes1,
+                         layer_bytes1, vec1};
+  for (const int v : {vec0, vec1}) {
     if (v != 16 && v != 8 && v != 4 && v != 2 && v != 1) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   kv_write_stacked_kernel<<<L * B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      st, static_cast<const int*>(pos), pos0, B, S);
+      s0, s1, n_streams, static_cast<const int*>(pos), pos0, B, S);
   return static_cast<int>(cudaGetLastError());
 }

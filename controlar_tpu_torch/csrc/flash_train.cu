@@ -16,48 +16,65 @@
 // p is rounded to bf16 before the p.v and p^T.do products, ds before the
 // ds.k and ds^T.q products, as the TPU kernel rounds them for its MXU.
 //
-// Bound: operations. The forward does 4 B H T^2 D / 2 flops (causal): 27
-// GFLOP a layer at the GPT-XL t2i 512 px training step (B 8, T 1143, H 20,
-// D 64), 0.027 ms at the H100's 989 TFLOP/s of dense bf16, against 94 MB of
-// q, k, v and out (0.028 ms at 3.35 TB/s): the two are close, and the
-// backward's 2.5x the flops over about twice the bytes tips it to
-// operations. Every product runs on the tensor cores and the score tile
-// stays out of device memory:
-//   - mma.sync m16n8k16 bf16 products with fp32 accumulation; a warp owns
-//     16 rows (queries in fwd/dq, keys in dkv), four warps a block;
+// Bound: the forward does 4 B H T^2 D / 2 flops (causal): 27 GFLOP a layer
+// at the GPT-XL t2i 512 px training step (B 8, T 1143, H 20, D 64), 0.027
+// ms at the H100's 989 TFLOP/s of dense bf16, against 94 MB of q, k, v and
+// out (0.028 ms at 3.35 TB/s): the two are close, and the backward's 2.5x
+// the flops over about twice the bytes tips it to operations. Every product
+// runs on the tensor cores and the score tile stays out of device memory:
+//   - bf16 products with fp32 accumulation; the score accumulator of a warp's
+//     16 rows is, rounded, the A fragment of p (a wgmma accumulator row lives
+//     in the four lanes of a quad, as an mma.sync fragment's);
 //   - the other operand streams through shared memory in tiles of 64 keys
-//     (fwd, dq) or 64 queries (dkv), rows padded by 8 elements so that the
-//     fragment loads of 8 rows hit 32 distinct banks; the score tile never
-//     leaves the registers: the accumulator fragment of s is the A fragment
-//     of p;
+//     (fwd, dq) or 64 queries (dkv);
 //   - tiles past the causal diagonal are skipped: the forward and dq stop at
-//     the query tile's last key, dkv starts at the key tile's first query;
+//     the query tile's last key, dkv starts at the key tile's first query,
+//     and only the diagonal tile is masked (it is also the only one with
+//     keys past T, which the copies fill with zeros and the causal test
+//     hides from every row < T); the bias is added on every tile;
+//   - the heaviest blocks go first: blockIdx.y counts the forward's and dq's
+//     query tiles from the last (the most key tiles) and dk/dv's key tiles
+//     from the first (the most query tiles), over all (b, head) before the
+//     next;
 //   - no atomics: dq and dk/dv are separate kernels, each writing its own
-//     rows once, so the backward is deterministic.
-// The forward is the first, simple design: synchronous 8-byte loads into
-// shared memory between two barriers a tile, fragments by 32- and 16-bit
-// shared loads. The backward kernels (dq, dk/dv) took 0.377 and 0.447 ms in
-// that design at the XL layer, 11-12% of their bound and 1.2x SDPA's
-// backward; they now
+//     rows once, so every kernel is deterministic.
+// The forward works in log2 units: x = s scale log2(e) + bias log2(e), the
+// mask and the running max's start -1e9 log2(e), p = exp2(x - m), lse = m
+// ln 2 + log l. Two variants, chosen by D alone:
+//   - D 64 and 128 (GPT-B/L/XL heads; their 128- and 256-byte head strides
+//     are what a TMA tensor map takes): flash_train_fwd_tma_kernel. A
+//     producer warp issues TMA loads of the Q tile and of kStages stages of
+//     K and V tiles into 128-byte-swizzled shared memory, one box per 64
+//     columns (D 128: two), completing on full mbarriers; the consumer
+//     warpgroup (64 query rows) releases a stage on its empty mbarrier. Per
+//     tile S = Q.K^T is D / 16 wgmma m64n64k16 with both operands in shared
+//     memory, and P.V four wgmma m64nDk16 with p in registers and V a
+//     transposed (N-major) shared-memory operand. The bias comes from device
+//     memory (L1) while the S product runs. The tensor maps are encoded on
+//     the host for every call (activations move), through the driver's
+//     cuTensorMapEncodeTiled found with cudaGetDriverEntryPoint: the
+//     library links no driver library;
+//   - every other D (GPT-3B's 100, whose heads sit at 200-byte offsets):
+//     flash_train_fwd_kernel, the backward's design below on mma.sync, with
+//     K, V and the bias row in the cp.async ring.
+// The first forward (synchronous loads between two barriers a tile) took
+// 0.348 ms at the XL layer, 8% of its bound. The backward kernels (dq,
+// dk/dv) took 0.377 and 0.447 ms in that design; they and the cp.async
+// forward
 //   - stream their tiles with cp.async into a ring of 3 stages at D <= 64
 //     (2 above, for shared memory), one barrier a tile, the next tiles'
 //     copies in flight under the current tile's products: K, V and the bias
-//     row in dq; Q, dO, lse and delta in dk/dv. Rows past T and the columns
-//     that pad D = 100 to 112 are zero-filled by the copy (src-size 0); a
-//     query past T takes lse = +inf, so its p is 0 without a test;
+//     row in the forward and dq; Q, dO, lse and delta in dk/dv. Rows past T
+//     and the columns that pad D = 100 to 112 are zero-filled by the copy
+//     (src-size 0); a query past T takes lse = +inf in dk/dv, so its p is 0
+//     without a test; rows padded by 8 elements so that the fragment loads
+//     of 8 rows hit 32 distinct banks;
 //   - load every fragment with ldmatrix (x4: one instruction a 16 x 16 A
 //     fragment or two 16 x 8 B fragments), .trans for the k-major operands
-//     (K in ds.K, dO in p^T.dO, Q in ds^T.Q), which the first design
-//     gathered with four 16-bit loads a register;
-//   - apply the causal mask only on the diagonal tile; the bias comes from
-//     the staged row (dq) or registers (dk/dv);
-//   - take 64 queries a tile in dk/dv (half the barriers and reloads of the
-//     first design's 32), computed in slices of 32 above D = 64 for
-//     registers;
-//   - issue the heaviest blocks first: blockIdx.y counts dq's query tiles
-//     from the last (the most key tiles) and dk/dv's key tiles from the
-//     first (the most query tiles), over all (b, head) before the next.
-// wgmma and TMA are later work.
+//     (V in p.V, K in ds.K, dO in p^T.dO, Q in ds^T.Q);
+//   - take 64 queries a tile in dk/dv, computed in slices of 32 above D = 64
+//     for registers; a warp owns 16 rows (queries in fwd/dq, keys in dkv),
+//     four warps a block.
 //
 // D: any multiple of 4 up to 128 (64 for GPT-B/L/XL, 100 for GPT-3B),
 // padded in shared memory to 64, 112 or 128 with zeros; T need not be a
@@ -65,6 +82,7 @@
 //
 // Plain C interface, loaded with ctypes. Launches go on the caller's
 // stream; each entry returns cudaGetLastError() after its launch.
+#include <cuda.h>  // CUtensorMap and the tensor-map enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,7 +102,7 @@ constexpr int kKeyTile = 64;   // keys per shared tile (fwd, dq)
 constexpr int kQueryTile = 64; // queries per shared tile (dkv)
 static_assert(kRows == kKeyTile && kRows == kQueryTile, "tiles align with the diagonal");
 
-// stages of the backward kernels' cp.async ring, by padded head dimension
+// stages of the kernels' K / V rings (cp.async, TMA), by padded head dimension
 template <int DP>
 constexpr int kStages = DP <= 64 ? 3 : 2;
 
@@ -271,10 +289,10 @@ constexpr size_t fwd_smem() {
 // of the tile) becomes x = s scale log2(e) + bias log2(e), the causal mask
 // -1e9 log2(e) past the row on the diagonal tile (diag_k0: the tile's first
 // key, or -1 off the diagonal), and then p = exp2(x - m) with the running
-// max m; alpha rescales l and the output of the tiles before. bias: the
-// tile's 64 staged bias values, or null.
+// max m; alpha rescales l and the output of the tiles before. bias[nt]: the
+// bias of the lane's two columns of n-tile nt (zeros without a bias).
 template <int NT>
-__device__ __forceinline__ void softmax_tile(float (*s)[4], const float* bias, int t,
+__device__ __forceinline__ void softmax_tile(float (*s)[4], const float2 (&bias)[NT], int t,
                                              float scale_log2, int diag_k0, int r0, int r1,
                                              float& m0, float& m1, float& l0, float& l1,
                                              float& a0, float& a1) {
@@ -282,14 +300,9 @@ __device__ __forceinline__ void softmax_tile(float (*s)[4], const float* bias, i
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int cl = nt * 8 + 2 * t;
-    float2 bb = make_float2(0.f, 0.f);
-    if (bias) {
-      bb = *reinterpret_cast<const float2*>(bias + cl);
-      bb.x *= kLog2e;
-      bb.y *= kLog2e;
-    }
-    float x[4] = {fmaf(s[nt][0], scale_log2, bb.x), fmaf(s[nt][1], scale_log2, bb.y),
-                  fmaf(s[nt][2], scale_log2, bb.x), fmaf(s[nt][3], scale_log2, bb.y)};
+    const float b0 = bias[nt].x * kLog2e, b1 = bias[nt].y * kLog2e;
+    float x[4] = {fmaf(s[nt][0], scale_log2, b0), fmaf(s[nt][1], scale_log2, b1),
+                  fmaf(s[nt][2], scale_log2, b0), fmaf(s[nt][3], scale_log2, b1)};
     if (diag_k0 >= 0) {  // the only tile with keys past a row (or past T)
       const int c = diag_k0 + cl;
       if (c > r0) x[0] = kNegLog2;
@@ -417,9 +430,15 @@ flash_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
     mma_rows_nk<DP, NT>(s, Qs, wrow, Ks, 0, LD, lane);
+    float2 bias[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      bias[nt] = brow ? *reinterpret_cast<const float2*>(Bs + (j % NS) * kKeyTile + nt * 8 + 2 * t)
+                      : make_float2(0.f, 0.f);
+    }
     float a0, a1;
-    softmax_tile<NT>(s, brow ? Bs + (j % NS) * kKeyTile : nullptr, t, scale_log2,
-                     j == n_tiles - 1 ? j * kKeyTile : -1, r0, r1, m0, m1, l0, l1, a0, a1);
+    softmax_tile<NT>(s, bias, t, scale_log2, j == n_tiles - 1 ? j * kKeyTile : -1, r0, r1, m0,
+                     m1, l0, l1, a0, a1);
 #pragma unroll
     for (int dn = 0; dn < DP / 8; ++dn) {
       o[dn][0] *= a0;
@@ -430,6 +449,302 @@ flash_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma_acc_kn<DP, kKeyTile / 16>(o, s, Vs, 0, LD, lane);  // p . V
   }
   store_fwd<DP>(out, lse, o, b, h, q0 + wrow, g, t, m0, m1, l0, l1, T, H, D);
+}
+
+// ---- the forward at D 64 and 128: TMA copies, wgmma products ----
+
+constexpr int kTmaConsumers = 128;                    // one warpgroup: the 64 query rows
+constexpr int kTmaThreads = kTmaConsumers + 32;       // and a producer warp
+constexpr int kBoxCols = 64;                          // 64 bf16 = 128 bytes, the swizzle's span
+constexpr int kBoxBytes = kKeyTile * kBoxCols * 2;    // one box: 64 rows of 128 bytes
+static_assert(kRows == kKeyTile, "a box holds a query tile or a key tile");
+
+// Shared memory of the TMA forward: 1024 bytes of slack to align the tiles
+// (128-byte swizzle), the Q tile, kStages stages of the K and V tiles,
+// each DP / 64 boxes, then the mbarriers (Q, full and empty per stage).
+template <int DP>
+constexpr size_t tma_smem() {
+  return 1024 + (size_t)(1 + 2 * kStages<DP>) * (DP / kBoxCols) * kBoxBytes
+         + (size_t)(1 + 2 * kStages<DP>) * sizeof(uint64_t);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity; a wait
+// still open after ~2^35 cycles (about 20 s) traps, so that a broken ring
+// ends the launch with an error instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long t0 = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > (1LL << 35)) {
+      __trap();
+    }
+  }
+}
+
+// one box of a (B, T, H, D) tensor's map at (column c, head h, row r, batch
+// b) into shared memory, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c,
+                                         int h, int r, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(h), "r"(r), "r"(b)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled tile at p: lbo and
+// sbo in bytes (the stride between 64-column boxes of an N-major operand,
+// and between groups of 8 rows)
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16
+         | (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of an accumulator across wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    asm volatile("" : "+f"(r[i][0]), "+f"(r[i][1]), "+f"(r[i][2]), "+f"(r[i][3])::"memory");
+  }
+}
+
+// S (64 x 64, fp32) += A (64 x 16) . B (64 x 16)^T: the Q and K tiles, both
+// K-major in 128-byte-swizzled shared memory (descriptors da, db)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// O (64 x 64, fp32) += P (64 x 16, bf16 A fragments in registers) . V
+// (16 x 64), V N-major in 128-byte-swizzled shared memory (transposed B)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O (64 x 128, fp32) += P (64 x 16, bf16 A fragments in registers) . V
+// (16 x 128), V N-major in 128-byte-swizzled shared memory (transposed B)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The forward at D 64 and 128: a producer warp keeps TMA loads of the K and
+// V tiles in flight into a ring of kStages stages (full / empty
+// mbarriers); the consumer warpgroup owns the block's 64 query rows, warp w
+// rows 16 w .. 16 w + 15, and per key tile runs S = Q.K^T as DP / 16 wgmma
+// m64n64k16 from shared memory, the online softmax in registers (a wgmma
+// accumulator row lives in the four lanes of a quad, as an mma.sync
+// fragment's), and P.V as four wgmma m64nDPk16 with the bf16 p as A
+// fragments in registers and V a transposed shared-memory B operand. TMA
+// zero-fills the rows past T of the Q and the last K / V tile.
+template <int DP, typename OutT>
+__global__ void __launch_bounds__(kTmaThreads, DP <= 64 ? 3 : 2)
+flash_train_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const float* __restrict__ kbias, OutT* __restrict__ out,
+                           float* __restrict__ lse, int T, int H, int D, float scale_log2) {
+  constexpr int NT = kKeyTile / 8;
+  constexpr int NS = kStages<DP>;
+  constexpr int BOXES = DP / kBoxCols;     // boxes a tile
+  constexpr int TILE = BOXES * kBoxBytes;  // bytes a tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = sm;
+  unsigned char* KVs = sm + TILE;  // stage i: K at KVs + 2 i TILE, V after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(KVs + 2 * NS * TILE);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + NS;
+
+  // heaviest first: the last query tile (the most key tiles) of every (b, head)
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = q0 / kKeyTile + 1;  // key tiles up to the diagonal one
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kTmaConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kTmaConsumers / 32) {  // the producer: one lane issues every copy
+    if (lane == 0) {
+      mbar_expect_tx(q_full, TILE);
+#pragma unroll
+      for (int c = 0; c < BOXES; ++c) tma_load(Qs + c * kBoxBytes, &tq, q_full, c * kBoxCols, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % NS;
+        if (j >= NS) mbar_wait(empty + st, (j / NS - 1) & 1);  // stage st's last use is done
+        mbar_expect_tx(full + st, 2 * TILE);
+        unsigned char* Ks = KVs + 2 * st * TILE;
+#pragma unroll
+        for (int c = 0; c < BOXES; ++c) {
+          tma_load(Ks + c * kBoxBytes, &tk, full + st, c * kBoxCols, h, j * kKeyTile, b);
+          tma_load(Ks + TILE + c * kBoxBytes, &tv, full + st, c * kBoxCols, h, j * kKeyTile, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const float* brow = kbias ? kbias + (size_t)b * T : nullptr;
+  float o[DP / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DP / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  float m0 = kNegLog2, m1 = kNegLog2, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % NS, k0 = j * kKeyTile;
+    const unsigned char* Ks = KVs + 2 * st * TILE;
+    const unsigned char* Vs = Ks + TILE;
+    mbar_wait(full + st, (j / NS) & 1);
+
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    fence_regs(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {  // 16 columns a step: 32 bytes into a box's rows
+      const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      wgmma_ss_n64(s, wg_desc(Qs + off, 16, 1024), wg_desc(Ks + off, 16, 1024));
+    }
+    wg_commit();
+    float2 bias[NT];  // loaded while the product runs
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = k0 + nt * 8 + 2 * t;
+      bias[nt] = make_float2(brow && c < T ? __ldg(brow + c) : 0.f,
+                             brow && c + 1 < T ? __ldg(brow + c + 1) : 0.f);
+    }
+    wg_wait();
+    fence_regs(s);
+
+    float a0, a1;
+    softmax_tile<NT>(s, bias, t, scale_log2, j == n_tiles - 1 ? k0 : -1, r0, r1, m0, m1, l0,
+                     l1, a0, a1);
+#pragma unroll
+    for (int dn = 0; dn < DP / 8; ++dn) {
+      o[dn][0] *= a0;
+      o[dn][1] *= a0;
+      o[dn][2] *= a1;
+      o[dn][3] *= a1;
+    }
+    uint32_t p[kKeyTile / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kKeyTile / 16; ++ks) acc_to_a(s, ks, p[ks]);
+    fence_regs(o);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kKeyTile / 16; ++ks) {  // 16 keys a step: two groups of 8 rows
+      const uint64_t dv = wg_desc(Vs + ks * 16 * 128, kBoxBytes, 1024);
+      if constexpr (DP == 64) {
+        wgmma_rs_n64(o, p[ks], dv);
+      } else {
+        wgmma_rs_n128(o, p[ks], dv);
+      }
+    }
+    wg_commit();
+    wg_wait();
+    fence_regs(o);
+    mbar_arrive(empty + st);  // this thread is done with stage st
+  }
+  store_fwd<DP>(out, lse, o, b, h, q0 + warp * 16, g, t, m0, m1, l0, l1, T, H, D);
 }
 
 // Shared memory of the dq kernel: Q and dO tiles, then kStages stages of
@@ -674,18 +989,79 @@ cudaError_t prepare(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime
+// (cudaGetDriverEntryPoint): the library links no driver library.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a (B, T, H, D) bf16 tensor: dims innermost first (D, H,
+// T, B), boxes of 64 columns x 64 rows of one head and batch row, 128-byte
+// swizzle, zeros past T. The strides must be multiples of 16 bytes: D 64
+// and 128 (128- and 256-byte heads), not D 100 (200 bytes).
+bool encode_bthd(CUtensorMap* map, const void* x, int B, int T, int H, int D) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)T * H * D * 2};
+  const cuuint32_t box[4] = {kBoxCols, 1, kKeyTile, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kEncodeFailed = -1;  // flash_train_fwd's return when a tensor map cannot be encoded
+
+// The forward: the TMA / wgmma kernel at D 64 and 128, the cp.async kernel
+// at every other D (the variant is a function of D alone).
 template <int DP, typename OutT>
-cudaError_t fwd(const void* q, const void* k, const void* v, const float* kbias, void* out,
-                float* lse, int B, int T, int H, int D, cudaStream_t stream) {
-  const size_t smem = fwd_smem<DP>();
+int fwd(const void* q, const void* k, const void* v, const float* kbias, void* out, float* lse,
+        int B, int T, int H, int D, cudaStream_t stream) {
+  const dim3 grid(B * H, (T + kRows - 1) / kRows);  // blockIdx.y: query tiles, heaviest first
+  const float scale_log2 = kLog2e / sqrtf((float)D);
+  if constexpr (DP == 64 || DP == 128) {
+    if (D == DP) {
+      CUtensorMap tq, tk, tv;
+      if (!encode_bthd(&tq, q, B, T, H, D) || !encode_bthd(&tk, k, B, T, H, D)
+          || !encode_bthd(&tv, v, B, T, H, D)) {
+        return kEncodeFailed;
+      }
+      auto kern = flash_train_fwd_tma_kernel<DP, OutT>;
+      cudaError_t err = prepare(kern, tma_smem<DP>());
+      if (err != cudaSuccess) return (int)err;
+      kern<<<grid, kTmaThreads, tma_smem<DP>(), stream>>>(tq, tk, tv, kbias, (OutT*)out, lse, T,
+                                                          H, D, scale_log2);
+      return (int)cudaGetLastError();
+    }
+  }
   auto kern = flash_train_fwd_kernel<DP, OutT>;
-  cudaError_t err = prepare(kern, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (T + kRows - 1) / kRows);  // blockIdx.y: query tiles, heaviest first
-  kern<<<grid, kThreads, smem, stream>>>(
+  cudaError_t err = prepare(kern, fwd_smem<DP>());
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kThreads, fwd_smem<DP>(), stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, kbias, (OutT*)out, lse, T, H, D,
-      kLog2e / sqrtf((float)D));
-  return cudaGetLastError();
+      scale_log2);
+  return (int)cudaGetLastError();
 }
 
 template <int DP, typename OutT>
@@ -734,12 +1110,13 @@ int padded(int D) {
     default: return (int)cudaErrorInvalidValue;                         \
   }
 
-// q, k, v: (B, T, H, D) bf16; kbias: (B, T) f32 or null; out: (B, T, H, D)
-// bf16 (out_f32 = 0) or f32; lse: (B, H, T) f32.
+// q, k, v: (B, T, H, D) bf16, 16-byte aligned; kbias: (B, T) f32 or null;
+// out: (B, T, H, D) bf16 (out_f32 = 0) or f32; lse: (B, H, T) f32. Returns
+// a cudaError_t, or -1 when a tensor map could not be encoded (D 64, 128).
 extern "C" int flash_train_fwd(const void* q, const void* k, const void* v, const float* kbias,
                                void* out, float* lse, int out_f32, int B, int T, int H, int D,
                                cudaStream_t stream) {
-#define CALL(DP, OT) (int)fwd<DP, OT>(q, k, v, kbias, out, lse, B, T, H, D, stream)
+#define CALL(DP, OT) fwd<DP, OT>(q, k, v, kbias, out, lse, B, T, H, D, stream)
   DISPATCH(padded(D), out_f32, CALL)
 #undef CALL
 }

@@ -1,5 +1,6 @@
-"""KV-cache writes: the fused write of a layer's new k/v rows, and the
-per-slot row and block appends of one stream.
+"""KV-cache writes: the fused write of a layer's new k/v rows, the stacked
+cache's end-of-step write, and the per-slot row and block appends of one
+stream.
 
 `append_kv(cache, k, v, pos, kv_heads=..., split=...)` writes a layer's new
 rows k, v (B, T, KV*D) at rows pos[b] + t of every stream of the layer's
@@ -16,6 +17,13 @@ chunk call, once a layer; it computes what the JAX package's
 `decode._quantize_rows_for` followed by the Pallas `cache_append_rows` /
 `cache_append_block` of each stream computes, on unpadded rows and scales.
 
+The stacked cache's decode step writes each layer's rows with the same
+`append_kv` into the step's in-flight rows (`stacked_inflight`: per stream
+an (L, B, W) tensor, layer l seen as a (B, 1, W) cache by `inflight_layer`
+and written at row 0), and at the end of the step `append_stacked(cache,
+inflight, pos)` sets `cache[l, b, pos[b]] = inflight[l, b]` for every layer
+and stream (pos an int: every row at pos).
+
 `cache_append_rows(cache, rows, pos)` sets `cache[b, pos[b]] = rows[b]` in
 place for cache (B, S, W), rows (B, W) (cast to the cache's dtype, as the JAX
 package's `cache_append_rows` does) and pos (B,) int32, and returns `cache`.
@@ -23,14 +31,15 @@ package's `cache_append_rows` does) and pos (B,) int32, and returns `cache`.
 j]` for j < K, rows (B, K, W): the K rows of a speculative verify chunk.
 `cache_append_rows_stacked(cache, rows, pos)` sets `cache[l, b, pos[b]] =
 rows[l, b]` for every layer of a stacked cache (L, B, S, W), rows (L, B, W):
-all layers' rows of a per-slot decode step in one call. All three take any
-stream: bf16 `[k|v]` rows, int8 rows, nibble-packed int4 carriers and the
-unpadded f32 scales.
+the single-stream form of the end-of-step write, on no path since
+`append_stacked`. All three take any stream: bf16 `[k|v]` rows, int8 rows,
+nibble-packed int4 carriers and the unpadded f32 scales.
 
 On a CUDA tensor they launch `csrc/cache_append.cu`: `append_kv` one fused
-launch (`kv_write`) that quantizes and writes every stream, the others a
-copy of each element's contiguous K * W span at the widest aligned vector
-width. On a CPU tensor they take the plain versions: for `append_kv` the
+launch (`kv_write`) that quantizes and writes every stream,
+`append_stacked` one launch (`kv_write_stacked`) that copies every stream's
+rows, the others a copy of each element's contiguous K * W span at the
+widest aligned vector width. On a CPU tensor they take the plain versions: for `append_kv` the
 concatenation, the port's quantizer (`quant.quantize_kv_rows`, `_4`) and an
 indexed or slice assignment per stream; for the others one indexed
 assignment. Rows pos[b] .. pos[b] + T - 1 must lie in [0, S): the kernels

@@ -20,7 +20,12 @@ backward.
 
 Three kernels, hand-written CUDA in `csrc/flash_train.cu`, each behind a
 launcher with a launch count: `flash_train_fwd` (out, lse), `flash_train_dq`
-and `flash_train_dkv`. On a CPU tensor each launcher computes the same
+and `flash_train_dkv`. The forward has two variants, chosen by the head
+dimension alone (`fwd_variant`): at D 64 and 128 a TMA-fed wgmma kernel (a
+producer warp keeps the K / V tiles in flight into an mbarrier ring, one
+warpgroup of 64 query rows runs both products on `wgmma`), at every other
+D (GPT-3B's 100: its heads are 200 bytes apart, and a tensor map takes
+16-byte strides) a cp.async ring and `mma.sync`, as dq and dk/dv. On a CPU tensor each launcher computes the same
 function with the plain versions `flash_train_fwd_ref` / `flash_train_bwd_ref`,
 which repeat the kernels' numerics: q, k, v rounded to bf16; scores, the
 softmax statistics and every accumulator fp32; p rounded to bf16 before the
@@ -41,8 +46,14 @@ NEG = -1e9
 
 # The forward's launch plan, mirrored from csrc/flash_train.cu (a CPU test
 # reads the source's constants): blocks of ROWS query rows over key tiles of
-# KEY_TILE keys, the head dimension padded to 64, 112 or 128.
+# KEY_TILE keys, the head dimension padded to 64, 112 or 128; the query
+# tiles issued last first (the most key tiles first).
 ROWS = KEY_TILE = 64
+# head dimensions whose forward runs the TMA / wgmma kernel: a tensor map
+# needs 16-byte strides (D 64 and 128 heads are 128 and 256 bytes apart, D
+# 100 heads 200); every other D runs the cp.async kernel
+TMA_HEAD_DIMS = (64, 128)
+TMA_BOX_BYTES = 64 * 64 * 2  # a TMA box: 64 rows of 64 bf16 columns
 
 
 def padded_head_dim(d: int) -> int:
@@ -53,9 +64,35 @@ def padded_head_dim(d: int) -> int:
 
 
 def fwd_variant(d: int) -> str:
-    """The forward kernel that head dimension d runs: "cp.async"."""
+    """The forward kernel that head dimension d runs: "tma" or "cp.async"."""
     padded_head_dim(d)
-    return "cp.async"
+    return "tma" if d in TMA_HEAD_DIMS else "cp.async"
+
+
+def fwd_stages(d: int) -> int:
+    """Stages of the forward's K / V ring (either variant): 3 at a padded
+    head dimension <= 64, 2 above."""
+    return 3 if padded_head_dim(d) <= 64 else 2
+
+
+def fwd_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of the forward's block at head dimension d."""
+    dp, ns = padded_head_dim(d), fwd_stages(d)
+    if fwd_variant(d) == "tma":  # alignment slack, Q, K / V stages, mbarriers
+        return 1024 + (1 + 2 * ns) * (dp // 64) * TMA_BOX_BYTES + (1 + 2 * ns) * 8
+    ld = dp + 8  # rows padded by 8 elements: Q, then per stage K, V and the bias row
+    return ROWS * ld * 2 + ns * (2 * KEY_TILE * ld * 2 + KEY_TILE * 4)
+
+
+def fwd_grid(b: int, t: int, h: int) -> Tuple[int, int]:
+    """The forward's grid: (B * H, query tiles)."""
+    return b * h, -(-t // ROWS)
+
+
+def fwd_query_tile(block_y: int, n_tiles: int) -> int:
+    """The query tile of the blocks at blockIdx.y = block_y: the heaviest
+    (the last tile, with the most key tiles) first."""
+    return n_tiles - 1 - block_y
 
 
 def key_bias(key_valid: Optional[Tensor]) -> Optional[Tensor]:
@@ -141,6 +178,9 @@ def _entry(name: str, n_ptr: int):
     return f
 
 
+_ENCODE_FAILED = -1  # csrc/flash_train.cu's kEncodeFailed
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
@@ -173,9 +213,12 @@ def flash_train_fwd(q: Tensor, k: Tensor, v: Tensor,
     q16, k16, v16 = _bf16(q), _bf16(k), _bf16(v)
     kb = None if kbias is None else kbias.contiguous()
     f = _entry("flash_train_fwd", 6)
-    _raise_on(f(q16.data_ptr(), k16.data_ptr(), v16.data_ptr(), _ptr(kb),
-                out.data_ptr(), lse.data_ptr(), int(out.dtype == torch.float32), b, t, h, d,
-                torch.cuda.current_stream(q.device).cuda_stream), "flash_train_fwd")
+    err = f(q16.data_ptr(), k16.data_ptr(), v16.data_ptr(), _ptr(kb), out.data_ptr(),
+            lse.data_ptr(), int(out.dtype == torch.float32), b, t, h, d,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err == _ENCODE_FAILED:
+        raise RuntimeError("flash_train_fwd: cuTensorMapEncodeTiled refused the q, k, v maps")
+    _raise_on(err, "flash_train_fwd")
     flash_train_fwd.launches += 1
     return out, lse
 

@@ -62,6 +62,7 @@ from controlar_tpu_torch.cells import (
 # the port's hand-written kernels, by the names of their __global__ functions
 PORT_KERNELS = ("flash_decode_kernel", "flash_decode_q8_kernel", "flash_decode_q4_kernel",
                 "w4_matmul_kernel", "w4_ffn_kernel", "cache_append_kernel", "kv_write_kernel",
+                "kv_write_stacked_kernel",
                 "chunk_kernel<chunk::Bf16Kv", "chunk_kernel<chunk::Int8Kv",
                 "chunk_kernel<chunk::Int4Kv")
 

@@ -27,7 +27,8 @@ import torch
 from controlar_tpu_torch.cells import TRAIN_CELLS, FixedBatchLoader, build_train_cell
 from controlar_tpu_torch.trace_decode import _device_summary
 
-TRAIN_KERNELS = ("flash_train_fwd_kernel", "flash_train_dq_kernel", "flash_train_dkv_kernel")
+TRAIN_KERNELS = ("flash_train_fwd_kernel", "flash_train_fwd_tma_kernel", "flash_train_dq_kernel",
+                 "flash_train_dkv_kernel")
 WARM = 2
 
 
