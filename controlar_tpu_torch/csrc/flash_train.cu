@@ -291,12 +291,21 @@ constexpr size_t fwd_smem() {
 // key, or -1 off the diagonal), and then p = exp2(x - m) with the running
 // max m; alpha rescales l and the output of the tiles before. bias[nt]: the
 // bias of the lane's two columns of n-tile nt (zeros without a bias).
+// 2^x by the special function unit (ex2.approx, subnormal results 0): p and
+// alpha are rounded far coarser after it (p to bf16)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 template <int NT>
 __device__ __forceinline__ void softmax_tile(float (*s)[4], const float2 (&bias)[NT], int t,
                                              float scale_log2, int diag_k0, int r0, int r1,
                                              float& m0, float& m1, float& l0, float& l1,
                                              float& a0, float& a1) {
-  float mx0 = m0, mx1 = m1;
+  static_assert(NT % 4 == 0, "four partial maxima and sums a row");
+  float mx0[4], mx1[4];  // partial maxima: short chains, reduced in a fixed order
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int cl = nt * 8 + 2 * t;
@@ -312,31 +321,35 @@ __device__ __forceinline__ void softmax_tile(float (*s)[4], const float2 (&bias)
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[nt][e] = x[e];
-    mx0 = fmaxf(mx0, fmaxf(x[0], x[1]));
-    mx1 = fmaxf(mx1, fmaxf(x[2], x[3]));
+    const float y0 = fmaxf(x[0], x[1]), y1 = fmaxf(x[2], x[3]);
+    mx0[nt % 4] = nt < 4 ? y0 : fmaxf(mx0[nt % 4], y0);
+    mx1[nt % 4] = nt < 4 ? y1 : fmaxf(mx1[nt % 4], y1);
   }
+  float n0 = fmaxf(fmaxf(m0, fmaxf(mx0[0], mx0[1])), fmaxf(mx0[2], mx0[3]));
+  float n1 = fmaxf(fmaxf(m1, fmaxf(mx1[0], mx1[1])), fmaxf(mx1[2], mx1[3]));
   // the four lanes of a quad hold one row's columns
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  a0 = exp2f(m0 - mx0);
-  a1 = exp2f(m1 - mx1);
-  m0 = mx0;
-  m1 = mx1;
-  float sum0 = 0.f, sum1 = 0.f;
+  n0 = fmaxf(n0, __shfl_xor_sync(0xffffffffu, n0, 1));
+  n0 = fmaxf(n0, __shfl_xor_sync(0xffffffffu, n0, 2));
+  n1 = fmaxf(n1, __shfl_xor_sync(0xffffffffu, n1, 1));
+  n1 = fmaxf(n1, __shfl_xor_sync(0xffffffffu, n1, 2));
+  a0 = ex2(m0 - n0);
+  a1 = ex2(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+  float sum0[4], sum1[4];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
-    s[nt][0] = exp2f(s[nt][0] - m0);
-    s[nt][1] = exp2f(s[nt][1] - m0);
-    s[nt][2] = exp2f(s[nt][2] - m1);
-    s[nt][3] = exp2f(s[nt][3] - m1);
-    sum0 += s[nt][0] + s[nt][1];
-    sum1 += s[nt][2] + s[nt][3];
+    s[nt][0] = ex2(s[nt][0] - m0);
+    s[nt][1] = ex2(s[nt][1] - m0);
+    s[nt][2] = ex2(s[nt][2] - m1);
+    s[nt][3] = ex2(s[nt][3] - m1);
+    const float y0 = s[nt][0] + s[nt][1], y1 = s[nt][2] + s[nt][3];
+    sum0[nt % 4] = nt < 4 ? y0 : sum0[nt % 4] + y0;
+    sum1[nt % 4] = nt < 4 ? y1 : sum1[nt % 4] + y1;
   }
   // per-lane partial sums; every lane of a quad rescales by the same alpha
-  l0 = l0 * a0 + sum0;
-  l1 = l1 * a1 + sum1;
+  l0 = l0 * a0 + ((sum0[0] + sum0[1]) + (sum0[2] + sum0[3]));
+  l1 = l1 * a1 + ((sum1[0] + sum1[1]) + (sum1[2] + sum1[3]));
 }
 
 // The epilogue of a warp's 16 rows: out = o / l (rows < T), lse = m ln 2 +
@@ -543,7 +556,9 @@ __device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
 
 // S (64 x 64, fp32) += A (64 x 16) . B (64 x 16)^T: the Q and K tiles, both
 // K-major in 128-byte-swizzled shared memory (descriptors da, db)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da, uint64_t db) {
+// (scale_d 0: S = A . B^T, the accumulator's contents ignored)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da, uint64_t db,
+                                             int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -558,7 +573,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da, uint
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // O (64 x 64, fp32) += P (64 x 16, bf16 A fragments in registers) . V
@@ -686,6 +701,9 @@ flash_train_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int dn = 0; dn < DP / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
   float m0 = kNegLog2, m1 = kNegLog2, l0 = 0.f, l1 = 0.f;
+  float s[NT][4];  // each tile's first product overwrites it
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 
   mbar_wait(q_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
@@ -694,15 +712,12 @@ flash_train_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq,
     const unsigned char* Vs = Ks + TILE;
     mbar_wait(full + st, (j / NS) & 1);
 
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
     fence_regs(s);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {  // 16 columns a step: 32 bytes into a box's rows
       const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-      wgmma_ss_n64(s, wg_desc(Qs + off, 16, 1024), wg_desc(Ks + off, 16, 1024));
+      wgmma_ss_n64(s, wg_desc(Qs + off, 16, 1024), wg_desc(Ks + off, 16, 1024), kk > 0);
     }
     wg_commit();
     float2 bias[NT];  // loaded while the product runs
