@@ -43,13 +43,17 @@
 // ln 2 + log l. Two variants, chosen by D alone:
 //   - D 64 and 128 (GPT-B/L/XL heads; their 128- and 256-byte head strides
 //     are what a TMA tensor map takes): flash_train_fwd_tma_kernel. A
-//     producer warp issues TMA loads of the Q tile and of kStages stages of
-//     K and V tiles into 128-byte-swizzled shared memory, one box per 64
-//     columns (D 128: two), completing on full mbarriers; the consumer
-//     warpgroup (64 query rows) releases a stage on its empty mbarrier. Per
-//     tile S = Q.K^T is D / 16 wgmma m64n64k16 with both operands in shared
-//     memory, and P.V four wgmma m64nDk16 with p in registers and V a
-//     transposed (N-major) shared-memory operand. The bias comes from device
+//     block is one warpgroup of 64 query rows; its thread 0 issues TMA
+//     loads of the Q tile and of the K and V tiles into a ring of
+//     kTmaStages stages of 128-byte-swizzled shared memory, one box per 64
+//     columns (D 128: two), completing on full mbarriers, and refills a
+//     stage once the warpgroup's empty mbarrier says every thread is done
+//     with it. Per tile S = Q.K^T is D / 16 wgmma m64n64k16 with both
+//     operands in shared memory, and P.V four wgmma m64nDk16 with p in
+//     registers and V a transposed (N-major) shared-memory operand. Four
+//     blocks a SM at D 64 hide each other's latencies; a producer warp of
+//     its own (a fifth of a block's threads and registers) held a SM to
+//     three and was 12% slower at the XL layer. The bias comes from device
 //     memory (L1) while the S product runs. The tensor maps are encoded on
 //     the host for every call (activations move), through the driver's
 //     cuTensorMapEncodeTiled found with cudaGetDriverEntryPoint: the
@@ -466,19 +470,19 @@ flash_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---- the forward at D 64 and 128: TMA copies, wgmma products ----
 
-constexpr int kTmaConsumers = 128;                    // one warpgroup: the 64 query rows
-constexpr int kTmaThreads = kTmaConsumers + 32;       // and a producer warp
-constexpr int kBoxCols = 64;                          // 64 bf16 = 128 bytes, the swizzle's span
-constexpr int kBoxBytes = kKeyTile * kBoxCols * 2;    // one box: 64 rows of 128 bytes
+constexpr int kTmaThreads = 128;                    // one warpgroup: the 64 query rows
+constexpr int kTmaStages = 2;                       // 42 KB a block at D 64 (four a SM), 83 at 128
+constexpr int kBoxCols = 64;                        // 64 bf16 = 128 bytes, the swizzle's span
+constexpr int kBoxBytes = kKeyTile * kBoxCols * 2;  // one box: 64 rows of 128 bytes
 static_assert(kRows == kKeyTile, "a box holds a query tile or a key tile");
 
 // Shared memory of the TMA forward: 1024 bytes of slack to align the tiles
-// (128-byte swizzle), the Q tile, kStages stages of the K and V tiles,
+// (128-byte swizzle), the Q tile, kTmaStages stages of the K and V tiles,
 // each DP / 64 boxes, then the mbarriers (Q, full and empty per stage).
 template <int DP>
 constexpr size_t tma_smem() {
-  return 1024 + (size_t)(1 + 2 * kStages<DP>) * (DP / kBoxCols) * kBoxBytes
-         + (size_t)(1 + 2 * kStages<DP>) * sizeof(uint64_t);
+  return 1024 + (size_t)(1 + 2 * kTmaStages) * (DP / kBoxCols) * kBoxBytes
+         + (size_t)(1 + 2 * kTmaStages) * sizeof(uint64_t);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -628,24 +632,24 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// The forward at D 64 and 128: a producer warp keeps TMA loads of the K and
-// V tiles in flight into a ring of kStages stages (full / empty
-// mbarriers); the consumer warpgroup owns the block's 64 query rows, warp w
-// rows 16 w .. 16 w + 15, and per key tile runs S = Q.K^T as DP / 16 wgmma
+// The forward at D 64 and 128: the block's warpgroup owns its 64 query rows,
+// warp w rows 16 w .. 16 w + 15; thread 0 keeps TMA loads of the K and V
+// tiles in flight into a ring of kTmaStages stages (full / empty
+// mbarriers), and per key tile the warpgroup runs S = Q.K^T as DP / 16 wgmma
 // m64n64k16 from shared memory, the online softmax in registers (a wgmma
 // accumulator row lives in the four lanes of a quad, as an mma.sync
 // fragment's), and P.V as four wgmma m64nDPk16 with the bf16 p as A
 // fragments in registers and V a transposed shared-memory B operand. TMA
 // zero-fills the rows past T of the Q and the last K / V tile.
 template <int DP, typename OutT>
-__global__ void __launch_bounds__(kTmaThreads, DP <= 64 ? 3 : 2)
+__global__ void __launch_bounds__(kTmaThreads, DP <= 64 ? 4 : 2)
 flash_train_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const float* __restrict__ kbias, OutT* __restrict__ out,
                            float* __restrict__ lse, int T, int H, int D, float scale_log2) {
   constexpr int NT = kKeyTile / 8;
-  constexpr int NS = kStages<DP>;
+  constexpr int NS = kTmaStages;
   constexpr int BOXES = DP / kBoxCols;     // boxes a tile
   constexpr int TILE = BOXES * kBoxBytes;  // bytes a tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -668,30 +672,28 @@ flash_train_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_init(q_full, 1);
     for (int i = 0; i < NS; ++i) {
       mbar_init(full + i, 1);
-      mbar_init(empty + i, kTmaConsumers);
+      mbar_init(empty + i, kTmaThreads);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == kTmaConsumers / 32) {  // the producer: one lane issues every copy
-    if (lane == 0) {
-      mbar_expect_tx(q_full, TILE);
+  // key tile j's K and V into stage j % NS (thread 0)
+  auto load_tile = [&](int j) {
+    const int st = j % NS;
+    mbar_expect_tx(full + st, 2 * TILE);
+    unsigned char* Ks = KVs + 2 * st * TILE;
 #pragma unroll
-      for (int c = 0; c < BOXES; ++c) tma_load(Qs + c * kBoxBytes, &tq, q_full, c * kBoxCols, h, q0, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int st = j % NS;
-        if (j >= NS) mbar_wait(empty + st, (j / NS - 1) & 1);  // stage st's last use is done
-        mbar_expect_tx(full + st, 2 * TILE);
-        unsigned char* Ks = KVs + 2 * st * TILE;
-#pragma unroll
-        for (int c = 0; c < BOXES; ++c) {
-          tma_load(Ks + c * kBoxBytes, &tk, full + st, c * kBoxCols, h, j * kKeyTile, b);
-          tma_load(Ks + TILE + c * kBoxBytes, &tv, full + st, c * kBoxCols, h, j * kKeyTile, b);
-        }
-      }
+    for (int c = 0; c < BOXES; ++c) {
+      tma_load(Ks + c * kBoxBytes, &tk, full + st, c * kBoxCols, h, j * kKeyTile, b);
+      tma_load(Ks + TILE + c * kBoxBytes, &tv, full + st, c * kBoxCols, h, j * kKeyTile, b);
     }
-    return;
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, TILE);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c) tma_load(Qs + c * kBoxBytes, &tq, q_full, c * kBoxCols, h, q0, b);
+    for (int j = 0; j < NS && j < n_tiles; ++j) load_tile(j);
   }
 
   const int g = lane / 4, t = lane % 4;
@@ -758,6 +760,11 @@ flash_train_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq,
     wg_wait();
     fence_regs(o);
     mbar_arrive(empty + st);  // this thread is done with stage st
+    if (threadIdx.x == 0 && j + NS < n_tiles) {  // refill it once every thread is
+      mbar_wait(empty + st, (j / NS) & 1);
+      load_tile(j + NS);
+    }
+    __syncwarp();
   }
   store_fwd<DP>(out, lse, o, b, h, q0 + warp * 16, g, t, m0, m1, l0, l1, T, H, D);
 }

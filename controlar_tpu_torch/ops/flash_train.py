@@ -22,14 +22,15 @@ Three kernels, hand-written CUDA in `csrc/flash_train.cu`, each behind a
 launcher with a launch count: `flash_train_fwd` (out, lse), `flash_train_dq`
 and `flash_train_dkv`. The forward has two variants, chosen by the head
 dimension alone (`fwd_variant`): at D 64 and 128 a TMA-fed wgmma kernel (a
-producer warp keeps the K / V tiles in flight into an mbarrier ring, one
-warpgroup of 64 query rows runs both products on `wgmma`), at every other
-D (GPT-3B's 100: its heads are 200 bytes apart, and a tensor map takes
-16-byte strides) a cp.async ring and `mma.sync`, as dq and dk/dv. On a CPU tensor each launcher computes the same
-function with the plain versions `flash_train_fwd_ref` / `flash_train_bwd_ref`,
-which repeat the kernels' numerics: q, k, v rounded to bf16; scores, the
-softmax statistics and every accumulator fp32; p rounded to bf16 before the
-p.v and p^T.dO products, ds before the ds.k and ds^T.q products.
+block is one warpgroup of 64 query rows, whose thread 0 keeps the K / V
+tiles in flight into an mbarrier ring, and both products run on `wgmma`),
+at every other D (GPT-3B's 100: its heads are 200 bytes apart, and a
+tensor map takes 16-byte strides) a cp.async ring and `mma.sync`, as dq and
+dk/dv. On a CPU tensor each launcher computes the same function with the
+plain versions `flash_train_fwd_ref` / `flash_train_bwd_ref`, which repeat
+the kernels' numerics: q, k, v rounded to bf16; scores, the softmax
+statistics and every accumulator fp32; p rounded to bf16 before the p.v and
+p^T.dO products, ds before the ds.k and ds^T.q products.
 """
 from __future__ import annotations
 
@@ -70,8 +71,11 @@ def fwd_variant(d: int) -> str:
 
 
 def fwd_stages(d: int) -> int:
-    """Stages of the forward's K / V ring (either variant): 3 at a padded
-    head dimension <= 64, 2 above."""
+    """Stages of the forward's K / V ring: 2 in the TMA variant (four blocks
+    a SM at D 64); 3 in the cp.async one at a padded head dimension <= 64,
+    2 above."""
+    if fwd_variant(d) == "tma":
+        return 2
     return 3 if padded_head_dim(d) <= 64 else 2
 
 
@@ -151,8 +155,7 @@ def _check(q: Tensor, k: Tensor, v: Tensor, kbias: Optional[Tensor]) -> None:
     b, t, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {q.shape} {k.shape} {v.shape}")
-    if d % 4 or d > 128:
-        raise ValueError(f"head dim {d}: the kernels take multiples of 4 up to 128")
+    padded_head_dim(d)
     if kbias is not None and (kbias.shape != (b, t) or kbias.dtype != torch.float32):
         raise ValueError(f"kbias must be (B, T) float32, got {kbias.shape} {kbias.dtype}")
     for x in (q, k, v, kbias):

@@ -5,11 +5,11 @@ torch.
 
 - The launch plan (`ops.flash_train`'s mirror of the source): blocks of 64
   query rows over key tiles of 64, issued from the last query tile (the
-  most key tiles) to the first over a (B * H, query tiles) grid; 3 stages
-  of the K / V ring at a padded head dimension <= 64, 2 above; the shared
-  memory of a block within the card's 227 KB at every D, and three TMA
-  blocks a SM at D 64; the TMA variant at D 64 and 128 only (16-byte head
-  strides), each read against the source's constants.
+  most key tiles) to the first over a (B * H, query tiles) grid; the K / V
+  ring's stages (TMA: 2; cp.async: 3 at a padded head dimension <= 64, 2
+  above); the shared memory of a block within the card's 227 KB at every
+  D, and four TMA blocks a SM at D 64; the TMA variant at D 64 and 128
+  only (16-byte head strides), each read against the source's constants.
 - `_tiled_fwd` does what both variants do: per block of 64 query rows the
   key tiles of 64 up to the diagonal one; per tile s = q.k in fp32, x = s
   scale log2(e) + bias log2(e) on every tile, the causal mask -1e9 log2(e)
@@ -75,7 +75,9 @@ def test_tiles_and_stages_are_the_kernels_own():
     (small, large) = map(int, re.findall(
         r"constexpr int kStages = DP <= 64 \? (\d+) : (\d+);", src)[0])
     for d in range(4, 129, 4):
-        assert ft.fwd_stages(d) == (small if ft.padded_head_dim(d) <= 64 else large)
+        want = (_constant("kTmaStages") if ft.fwd_variant(d) == "tma"
+                else small if ft.padded_head_dim(d) <= 64 else large)
+        assert ft.fwd_stages(d) == want
 
 
 def test_the_tma_variant_takes_d_64_and_128_only():
@@ -101,9 +103,9 @@ def test_shared_memory_fits_the_card(d):
     smem = ft.fwd_smem_bytes(d)
     assert smem <= SMEM_PER_BLOCK
     if ft.fwd_variant(d) == "tma":
-        # the launch bounds ask for three blocks a SM at D 64, two at 128
-        blocks = 3 if d == 64 else 2
-        assert re.search(r"__launch_bounds__\(kTmaThreads, DP <= 64 \? 3 : 2\)",
+        # the launch bounds ask for four blocks a SM at D 64, two at 128
+        blocks = 4 if d == 64 else 2
+        assert re.search(r"__launch_bounds__\(kTmaThreads, DP <= 64 \? 4 : 2\)",
                          SOURCE.read_text())
         assert blocks * (smem + 1024) <= SMEM_PER_SM
 
