@@ -1353,6 +1353,25 @@ def _stacked_write_checks(gen):
     return append_stacked.launches - launches
 
 
+def _stacked_library(dsts, srcs, pos):
+    """The one-call library yardstick of a stacked write with one stream:
+    the bare index_put_ `dst[:, arange(B), pos] = src` (a slice copy at an
+    int pos), without the plain version's range check; None where there are
+    two streams (rows and scales), which no one call writes."""
+    if len(dsts) != 1:
+        return None
+    (dst,), (src,) = dsts, srcs
+    if isinstance(pos, int):
+        slots, at = slice(None), pos
+    else:
+        slots, at = torch.arange(dst.shape[1], device=dst.device), pos.long()
+
+    def write():
+        dst[:, slots, at] = src
+
+    return write
+
+
 def _stacked_write_row(label, name, kind, pos, flush, seed):
     """One timed stacked step's writes: the end-of-step append_stacked, its
     plain version and the old end (stack + a write per stream), each with
@@ -1376,11 +1395,13 @@ def _stacked_write_row(label, name, kind, pos, flush, seed):
     bound, by = _roofline(nbytes, 0, FP32_FLOPS)
     end = lambda: append_stacked(cache, inflight, pos)  # noqa: E731
     old_end = lambda: _old_stacked_end(cache, old_rows, pos)  # noqa: E731
+    lib = _stacked_library(stream_list(cache), stream_list(inflight), pos)
     return dict(case=label, kind=kind, layers=n_layer, rows=b, kv_heads=kvh,
                 streams=len(stream_list(cache)), int_pos=not isinstance(pos, torch.Tensor),
                 ms=time_ms(end, flush=flush), old_ms=time_ms(old_end, flush=flush),
                 plain_ms=time_ms(lambda: append_stacked_ref(cache, inflight, pos), flush=flush),
-                library_ms=None, bound_ms=bound, bound_by=by, host_us=host_us(end),
+                library_ms=None if lib is None else time_ms(lib, flush=flush),
+                bound_ms=bound, bound_by=by, host_us=host_us(end),
                 old_host_us=host_us(old_end),
                 step_ms=time_ms(lambda: _new_stacked_write(cache, new, pos, kvh, split),
                                 flush=flush),
@@ -1399,9 +1420,9 @@ def phase_kernel_append_stacked():
     (cache_append_rows_stacked, on no path since the fused write) against its
     plain version, bit for bit, on every stream of the stacked cache at the
     serve_c2i shape, positions 0 and S - 1 among per-slot ones; timed at the
-    bf16 stream, the plain version (one indexed assignment) also its one-call
-    library yardstick. Returns {"append_stacked": (serve_c2i_stacked row,
-    0.0), "cache_append_rows_stacked": (row, 0.0, launches of its checks)}."""
+    bf16 stream, the bare index_put_ its one-call library yardstick.
+    Returns {"append_stacked": (serve_c2i_stacked row, 0.0),
+    "cache_append_rows_stacked": (row, 0.0, launches of its checks)}."""
     from controlar_tpu_torch.ops.cache_append import (
         cache_append_rows_stacked as kern,
         cache_append_rows_stacked_ref as plain,
@@ -1440,11 +1461,12 @@ def phase_kernel_append_stacked():
     cache, rows, pos = timed
     nbytes = 2 * rows.numel() * rows.element_size() + pos.numel() * 4  # rows in and out
     bound, by = _roofline(nbytes, 0, FP32_FLOPS)
-    plain_ms = time_ms(lambda: plain(cache, rows, pos), flush=flush)
     row = dict(case="gpt_b_bf16", layers=n_layer, rows=b,
                row_bytes=rows.shape[2] * rows.element_size(), s=s,
                ms=time_ms(lambda: kern(cache, rows, pos), flush=flush),
-               plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound, bound_by=by)
+               plain_ms=time_ms(lambda: plain(cache, rows, pos), flush=flush),
+               library_ms=time_ms(_stacked_library([cache], [rows], pos), flush=flush),
+               bound_ms=bound, bound_by=by)
     emit("kernel_append_stacked", ok=True, name="append_stacked", bit_exact=True,
          cases=[c[0] for c in STACKED_WRITE_CASES], kinds=STACKED_WRITE_KINDS,
          launches=fused_launches, timings=fused,
@@ -1463,6 +1485,9 @@ def phase_kernel_append_stacked():
 # O(1) at these inputs; a dropped key tile or a misapplied bias moves them
 # by O(0.1).
 TRAIN_ATOL, TRAIN_RTOL = 2e-2, 2e-2
+# lse = m + log l is fp32 on both sides, the sums in another order; |lse| is
+# O(5), and one dropped key tile of the XL layer's 18 moves it by about 0.06
+TRAIN_LSE_ATOL, TRAIN_LSE_RTOL = 1e-3, 1e-4
 
 
 def _train_cases():
@@ -1554,15 +1579,17 @@ def phase_kernel_train():
         torch.cuda.synchronize()
         rowmask = valid[:, :, None, None]
         lse_rows = valid[:, None, :].expand(b, h, t)
+        train_tol, lse_tol = (TRAIN_ATOL, TRAIN_RTOL), (TRAIN_LSE_ATOL, TRAIN_LSE_RTOL)
         checks = {  # fully masked rows are junk: out and lse compared on valid rows
-            "flash_train_fwd": [(out * rowmask, out_ref * rowmask),
-                                (lse.where(lse_rows, 0.0), lse_ref.where(lse_rows, 0.0))],
-            "flash_train_dq": [(dq, dq_ref)],
-            "flash_train_dkv": [(dk, dk_ref), (dv, dv_ref)],
+            "flash_train_fwd": [(out * rowmask, out_ref * rowmask, train_tol),
+                                (lse.where(lse_rows, 0.0), lse_ref.where(lse_rows, 0.0),
+                                 lse_tol)],
+            "flash_train_dq": [(dq, dq_ref, train_tol)],
+            "flash_train_dkv": [(dk, dk_ref, train_tol), (dv, dv_ref, train_tol)],
         }
         for kern, pairs in checks.items():
-            for got, want in pairs:
-                err, ok = _within(got, want, TRAIN_ATOL, TRAIN_RTOL)
+            for got, want, (atol, rtol) in pairs:
+                err, ok = _within(got, want, atol, rtol)
                 check(ok, "kernel_train", f"{kern} {name}: max_abs_err {err} over the limit")
                 errs[kern] = max(errs[kern], err)
         lib_fwd, lib_bwd = _sdpa_train(q, k, v, valid)
@@ -1598,6 +1625,8 @@ def phase_kernel_train():
              rtol=TRAIN_RTOL, library="SDPA, boolean mask" + (
                  "; library_causal_ms: SDPA is_causal=True, at the case without a bias"
                  if kern == "flash_train_fwd" else ", autograd backward (dq, dk, dv)"),
+             **({"lse_atol": TRAIN_LSE_ATOL, "lse_rtol": TRAIN_LSE_RTOL}
+                if kern == "flash_train_fwd" else {}),
              timings=rows[kern])
     return {kern: (rows[kern][0], errs[kern]) for kern in phases}
 

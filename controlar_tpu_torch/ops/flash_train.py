@@ -45,16 +45,10 @@ from controlar_tpu_torch import _build
 
 NEG = -1e9
 
-# The forward's launch plan, mirrored from csrc/flash_train.cu (a CPU test
-# reads the source's constants): blocks of ROWS query rows over key tiles of
-# KEY_TILE keys, the head dimension padded to 64, 112 or 128; the query
-# tiles issued last first (the most key tiles first).
-ROWS = KEY_TILE = 64
 # head dimensions whose forward runs the TMA / wgmma kernel: a tensor map
 # needs 16-byte strides (D 64 and 128 heads are 128 and 256 bytes apart, D
 # 100 heads 200); every other D runs the cp.async kernel
 TMA_HEAD_DIMS = (64, 128)
-TMA_BOX_BYTES = 64 * 64 * 2  # a TMA box: 64 rows of 64 bf16 columns
 
 
 def padded_head_dim(d: int) -> int:
@@ -68,35 +62,6 @@ def fwd_variant(d: int) -> str:
     """The forward kernel that head dimension d runs: "tma" or "cp.async"."""
     padded_head_dim(d)
     return "tma" if d in TMA_HEAD_DIMS else "cp.async"
-
-
-def fwd_stages(d: int) -> int:
-    """Stages of the forward's K / V ring: 2 in the TMA variant (four blocks
-    a SM at D 64); 3 in the cp.async one at a padded head dimension <= 64,
-    2 above."""
-    if fwd_variant(d) == "tma":
-        return 2
-    return 3 if padded_head_dim(d) <= 64 else 2
-
-
-def fwd_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of the forward's block at head dimension d."""
-    dp, ns = padded_head_dim(d), fwd_stages(d)
-    if fwd_variant(d) == "tma":  # alignment slack, Q, K / V stages, mbarriers
-        return 1024 + (1 + 2 * ns) * (dp // 64) * TMA_BOX_BYTES + (1 + 2 * ns) * 8
-    ld = dp + 8  # rows padded by 8 elements: Q, then per stage K, V and the bias row
-    return ROWS * ld * 2 + ns * (2 * KEY_TILE * ld * 2 + KEY_TILE * 4)
-
-
-def fwd_grid(b: int, t: int, h: int) -> Tuple[int, int]:
-    """The forward's grid: (B * H, query tiles)."""
-    return b * h, -(-t // ROWS)
-
-
-def fwd_query_tile(block_y: int, n_tiles: int) -> int:
-    """The query tile of the blocks at blockIdx.y = block_y: the heaviest
-    (the last tile, with the most key tiles) first."""
-    return n_tiles - 1 - block_y
 
 
 def key_bias(key_valid: Optional[Tensor]) -> Optional[Tensor]:

@@ -3,7 +3,7 @@ its TMA / wgmma variant at D 64 and 128 and its cp.async variant at every
 other D) on the CPU: its launch plan, and its arithmetic written out here in
 torch.
 
-- The launch plan (`ops.flash_train`'s mirror of the source): blocks of 64
+- The launch plan (mirrored here from the source): blocks of 64
   query rows over key tiles of 64, issued from the last query tile (the
   most key tiles) to the first over a (B * H, query tiles) grid; the K / V
   ring's stages (TMA: 2; cp.async: 3 at a padded head dimension <= 64, 2
@@ -50,6 +50,42 @@ LSE_ATOL = 1e-4  # fp32 statistics in another order, |lse| ~ 5
 # rounds p against the running max of its 16-key tiles.
 PALLAS_ATOL, PALLAS_RTOL = 5e-3, 1e-2
 
+# The forward's launch plan, mirrored from the source (the tests below read
+# its constants): blocks of ROWS query rows over key tiles of KEY_TILE keys,
+# the head dimension padded as `ft.padded_head_dim` says; the query tiles
+# issued last first (the most key tiles first).
+ROWS = KEY_TILE = 64
+TMA_BOX_BYTES = 64 * 64 * 2  # a TMA box: 64 rows of 64 bf16 columns
+
+
+def fwd_stages(d):
+    """Stages of the forward's K / V ring: 2 in the TMA variant (four blocks
+    a SM at D 64); 3 in the cp.async one at a padded head dimension <= 64,
+    2 above."""
+    if ft.fwd_variant(d) == "tma":
+        return 2
+    return 3 if ft.padded_head_dim(d) <= 64 else 2
+
+
+def fwd_smem_bytes(d):
+    """Dynamic shared memory of the forward's block at head dimension d."""
+    dp, ns = ft.padded_head_dim(d), fwd_stages(d)
+    if ft.fwd_variant(d) == "tma":  # alignment slack, Q, K / V stages, mbarriers
+        return 1024 + (1 + 2 * ns) * (dp // 64) * TMA_BOX_BYTES + (1 + 2 * ns) * 8
+    ld = dp + 8  # rows padded by 8 elements: Q, then per stage K, V and the bias row
+    return ROWS * ld * 2 + ns * (2 * KEY_TILE * ld * 2 + KEY_TILE * 4)
+
+
+def fwd_grid(b, t, h):
+    """The forward's grid: (B * H, query tiles)."""
+    return b * h, -(-t // ROWS)
+
+
+def fwd_query_tile(block_y, n_tiles):
+    """The query tile of the blocks at blockIdx.y = block_y: the heaviest
+    (the last tile, with the most key tiles) first."""
+    return n_tiles - 1 - block_y
+
 CASES = [  # b, t, h, d, left padding of each batch row (None: causal only)
     (2, 150, 2, 64, (5, 70)),
     (3, 64, 1, 64, None),
@@ -70,14 +106,14 @@ def _constant(name):
 
 def test_tiles_and_stages_are_the_kernels_own():
     src = SOURCE.read_text()
-    assert ft.ROWS == _constant("kRows") and ft.KEY_TILE == _constant("kKeyTile") == 64
-    assert ft.TMA_BOX_BYTES == _constant("kBoxCols") * ft.KEY_TILE * 2
+    assert ROWS == _constant("kRows") and KEY_TILE == _constant("kKeyTile") == 64
+    assert TMA_BOX_BYTES == _constant("kBoxCols") * KEY_TILE * 2
     (small, large) = map(int, re.findall(
         r"constexpr int kStages = DP <= 64 \? (\d+) : (\d+);", src)[0])
     for d in range(4, 129, 4):
         want = (_constant("kTmaStages") if ft.fwd_variant(d) == "tma"
                 else small if ft.padded_head_dim(d) <= 64 else large)
-        assert ft.fwd_stages(d) == want
+        assert fwd_stages(d) == want
 
 
 def test_the_tma_variant_takes_d_64_and_128_only():
@@ -100,7 +136,7 @@ def test_the_tma_variant_takes_d_64_and_128_only():
 
 @pytest.mark.parametrize("d", list(range(4, 129, 4)))
 def test_shared_memory_fits_the_card(d):
-    smem = ft.fwd_smem_bytes(d)
+    smem = fwd_smem_bytes(d)
     assert smem <= SMEM_PER_BLOCK
     if ft.fwd_variant(d) == "tma":
         # the launch bounds ask for four blocks a SM at D 64, two at 128
@@ -113,9 +149,9 @@ def test_shared_memory_fits_the_card(d):
 @pytest.mark.parametrize("t", [1, 63, 64, 65, 375, 576, 1143])
 def test_grid_issues_the_heaviest_query_tiles_first(t):
     b, h = 3, 5
-    assert ft.fwd_grid(b, t, h) == (b * h, math.ceil(t / 64))
-    n = ft.fwd_grid(b, t, h)[1]
-    order = [ft.fwd_query_tile(y, n) for y in range(n)]
+    assert fwd_grid(b, t, h) == (b * h, math.ceil(t / 64))
+    n = fwd_grid(b, t, h)[1]
+    order = [fwd_query_tile(y, n) for y in range(n)]
     assert sorted(order) == list(range(n))  # every query tile once
     key_tiles = [qt + 1 for qt in order]  # tiles up to the diagonal one
     assert key_tiles == sorted(key_tiles, reverse=True)
@@ -128,7 +164,7 @@ def _tiled_fwd(q, k, v, kbias):
     (B, H, T) f32). T is padded with zeros to whole tiles, as the copies
     fill the rows past T; only the diagonal tile is masked."""
     b, t, h, d = q.shape
-    tp = -(-t // ft.ROWS) * ft.ROWS
+    tp = -(-t // ROWS) * ROWS
     pad = (0, 0, 0, 0, 0, tp - t)
     qf, kf, vf = (torch.nn.functional.pad(x.to(torch.bfloat16).float(), pad).permute(0, 2, 1, 3)
                   for x in (q, k, v))  # (B, H, Tp, D)
@@ -137,15 +173,15 @@ def _tiled_fwd(q, k, v, kbias):
     scale2 = torch.tensor(LOG2E, dtype=torch.float32) / math.sqrt(d)
     out = torch.zeros(b, h, tp, d)
     lse = torch.zeros(b, h, tp)
-    n_q = ft.fwd_grid(b, t, h)[1]
+    n_q = fwd_grid(b, t, h)[1]
     for y in range(n_q):
-        qt = ft.fwd_query_tile(y, n_q)
-        rows = slice(qt * ft.ROWS, (qt + 1) * ft.ROWS)
-        m = torch.full((b, h, ft.ROWS), NEG2)
-        l = torch.zeros(b, h, ft.ROWS)
-        acc = torch.zeros(b, h, ft.ROWS, d)
+        qt = fwd_query_tile(y, n_q)
+        rows = slice(qt * ROWS, (qt + 1) * ROWS)
+        m = torch.full((b, h, ROWS), NEG2)
+        l = torch.zeros(b, h, ROWS)
+        acc = torch.zeros(b, h, ROWS, d)
         for j in range(qt + 1):  # key tiles up to the diagonal one
-            cols = slice(j * ft.KEY_TILE, (j + 1) * ft.KEY_TILE)
+            cols = slice(j * KEY_TILE, (j + 1) * KEY_TILE)
             s = qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2)
             x = s * scale2 + (bias[:, None, None, cols] * LOG2E)
             if j == qt:
