@@ -63,8 +63,18 @@ ending the run with a non-zero exit when it fails:
   train_reference  small t2i and c2i control models: loss and gradients
                 under the six remat policies on the card (equal, forward
                 launches exact), then control train steps card against CPU;
+                then c2i steps on a frozen small HED and lineart, card
+                against CPU;
+  condition_reference  small HED, lineart, DPT and MiDaS through the
+                pipeline's condition maps, card against CPU (fp32), and
+                hed_nms bit for bit;
+  condition     the condition networks at full width (HED, lineart at the
+                annotators' widths, DPT-Large, MiDaS DPT-Hybrid), batch 8 at
+                512 px: ms of a call and peak memory;
   c2i           GPT-B class-to-image at 384 px through ControlARPipeline:
                 Canny -> DINOv2-small -> CFG decode -> VQ-16, batch 8;
+  c2i_depth     the c2i cell with depth control: the MiDaS DPT-Hybrid
+                detector at full width on the 384 px images, stage seconds;
   t2i           GPT-XL text-to-image at 512 px with left-padded captions;
   c2i_w8kv8     c2i with W8A16 weights and the int8 KV cache;
   c2i_3b_w4kv4  GPT-3B c2i with W4A16 split-rope weights and the int4 cache;
@@ -2017,13 +2027,14 @@ def _control_model(cfg, acfg):
     return model
 
 
-def _loss_and_grads(model, cfg, acfg, batch, remat):
+def _loss_and_grads(model, cfg, acfg, batch, remat, condition_type="canny", frozen=None):
     """The control step's fp32 loss and gradients (no update)."""
     from controlar_tpu_torch.train import optimizer as topt
     from controlar_tpu_torch.train.control_step import make_control_train_step
 
-    fn = make_control_train_step(cfg, acfg, topt.make_optimizer(lr=TRAIN_REF_LR), "canny",
-                                 compute_dtype=torch.float32, remat_policy=remat)
+    fn = make_control_train_step(cfg, acfg, topt.make_optimizer(lr=TRAIN_REF_LR),
+                                 condition_type, frozen=frozen, compute_dtype=torch.float32,
+                                 remat_policy=remat)
     params = {n: p for n, p in model.named_parameters() if p.requires_grad}
     loss = fn.loss_fn(model, batch, (0, 0))
     grads = torch.autograd.grad(loss, list(params.values()))
@@ -2036,24 +2047,30 @@ def _fwd_per_layer(remat: str) -> int:
     return 1 if remat in ("attn", "qkv_attn", "none") else 2
 
 
+def _control_pair(kind: str):
+    """The small setup of `kind` as (gpt config, adapter config, models,
+    batches), each keyed "cpu" and "cuda", the same weights on both."""
+    cfg, acfg, host = _small_control(kind)
+    cpu_model = _control_model(cfg, acfg)
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to("cuda")}
+    batches = {d: {k: torch.from_numpy(v).to(d) for k, v in host.items()} for d in models}
+    return cfg, acfg, models, batches
+
+
 def phase_train_reference():
     """Small t2i and c2i control models: the loss and gradients under all six
     remat policies on the card (each equal to "none" bit for bit, forward
     launches exact), then TRAIN_REF_STEPS control train steps on the card
     (kernels) and on the CPU (plain versions) from the same weights: loss,
-    first-step gradients and parameters after the steps."""
+    first-step gradients and parameters after the steps; then the same card
+    against CPU comparison of c2i steps whose condition is a frozen small HED
+    and lineart network."""
     from controlar_tpu_torch.ops import flash_train as ft
     from controlar_tpu_torch.remat import REMAT_POLICIES
-    from controlar_tpu_torch.train import optimizer as topt
-    from controlar_tpu_torch.train import step as tstep
-    from controlar_tpu_torch.train.control_step import make_control_train_step
 
     report = {}
     for kind in ("t2i", "c2i"):
-        cfg, acfg, host = _small_control(kind)
-        cpu_model = _control_model(cfg, acfg)
-        models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to("cuda")}
-        batches = {d: {k: torch.from_numpy(v).to(d) for k, v in host.items()} for d in models}
+        cfg, acfg, models, batches = _control_pair(kind)
         # the six remat policies on the card, with cuDNN's deterministic
         # algorithms: its default weight-gradient algorithm for the adapter's
         # patch projection differs from run to run by ~1e-12
@@ -2076,38 +2093,196 @@ def phase_train_reference():
                      for r, (l, gs) in grads.items()}
         check(all(identical.values()), "train_reference",
               f"{kind}: remat policies differ from 'none': {identical}")
-        # card vs CPU: first-step gradients, then the steps
-        cpu_loss, cpu_grads = _loss_and_grads(models["cpu"], cfg, acfg, batches["cpu"], "full")
-        loss_err = abs(base_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
-        floor = 1e-4 * max(g.abs().max().item() for g in cpu_grads.values())
-        grad_errs = {n: (base_grads[n].cpu() - g).abs().max().item()
-                     / max(g.abs().max().item(), floor) for n, g in cpu_grads.items()}
-        grad_err = max(grad_errs.values())
-        worst = sorted(grad_errs, key=grad_errs.get)[-3:]
-        check(loss_err <= TRAIN_REF_TOL["loss"] and grad_err <= TRAIN_REF_TOL["grad"],
-              "train_reference", f"{kind}: loss rel err {loss_err}, grad rel err {grad_err} "
-              f"(worst {[(n, grad_errs[n]) for n in worst]})")
-        losses, final = {}, {}
-        for dev, model in models.items():
-            tx = topt.make_optimizer(lr=TRAIN_REF_LR)
-            fn = make_control_train_step(cfg, acfg, tx, "canny", compute_dtype=torch.float32)
-            state = tstep.init_train_state(model, tx)
-            losses[dev] = []
-            for _ in range(TRAIN_REF_STEPS):
-                state, m = fn(model, state, batches[dev], 0)
-                losses[dev].append(m["loss"].item())
-            final[dev] = {n: p.detach().cpu() for n, p in model.named_parameters()}
-        param_err = max((final["cuda"][n] - p).abs().max().item() for n, p in final["cpu"].items())
-        step_loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
-        check(step_loss_err <= TRAIN_REF_TOL["loss"]
-              and param_err <= 2 * TRAIN_REF_LR * TRAIN_REF_STEPS, "train_reference",
-              f"{kind}: step loss rel err {step_loss_err}, param max abs err {param_err}")
-        report[kind] = dict(loss_rel_err=loss_err, grad_rel_err=grad_err,
-                            step_losses=losses, step_loss_rel_err=step_loss_err,
-                            param_max_abs_err=param_err, remat_bit_identical=identical,
-                            launches_fwd_dq_dkv=launches)
+        report[kind] = dict(**_train_card_vs_cpu(kind, cfg, acfg, models, batches,
+                                                 (base_loss, base_grads)),
+                            remat_bit_identical=identical, launches_fwd_dq_dkv=launches)
+    # the frozen condition networks: small HED and lineart, c2i
+    for ct in ("hed", "lineart"):
+        cfg, acfg, models, batches = _control_pair("c2i")
+        net = _small_condition_nets()[ct]
+        frozen = {"cpu": {ct: net}, "cuda": {ct: copy.deepcopy(net).to("cuda")}}
+        report[ct] = _train_card_vs_cpu(ct, cfg, acfg, models, batches, None, ct, frozen)
     emit("train_reference", ok=True, lr=TRAIN_REF_LR, steps=TRAIN_REF_STEPS,
          tol=TRAIN_REF_TOL, param_tol=2 * TRAIN_REF_LR * TRAIN_REF_STEPS, **report)
+
+
+def _train_card_vs_cpu(label, cfg, acfg, models, batches, card_loss_grads,
+                       condition_type="canny", frozen=None) -> dict:
+    """First-step loss and gradients, then TRAIN_REF_STEPS control train steps,
+    on the card (kernels) and on the CPU (plain versions) from the same
+    weights. card_loss_grads: the card's first-step (loss, grads) under
+    remat "none" when already computed."""
+    from controlar_tpu_torch.train import optimizer as topt
+    from controlar_tpu_torch.train import step as tstep
+    from controlar_tpu_torch.train.control_step import make_control_train_step
+
+    frozen = frozen or {"cpu": None, "cuda": None}
+    base_loss, base_grads = card_loss_grads or _loss_and_grads(
+        models["cuda"], cfg, acfg, batches["cuda"], "full", condition_type, frozen["cuda"])
+    cpu_loss, cpu_grads = _loss_and_grads(models["cpu"], cfg, acfg, batches["cpu"], "full",
+                                          condition_type, frozen["cpu"])
+    loss_err = abs(base_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    floor = 1e-4 * max(g.abs().max().item() for g in cpu_grads.values())
+    grad_errs = {n: (base_grads[n].cpu() - g).abs().max().item()
+                 / max(g.abs().max().item(), floor) for n, g in cpu_grads.items()}
+    grad_err = max(grad_errs.values())
+    worst = sorted(grad_errs, key=grad_errs.get)[-3:]
+    check(loss_err <= TRAIN_REF_TOL["loss"] and grad_err <= TRAIN_REF_TOL["grad"],
+          "train_reference", f"{label}: loss rel err {loss_err}, grad rel err {grad_err} "
+          f"(worst {[(n, grad_errs[n]) for n in worst]})")
+    losses, final = {}, {}
+    for dev, model in models.items():
+        tx = topt.make_optimizer(lr=TRAIN_REF_LR)
+        fn = make_control_train_step(cfg, acfg, tx, condition_type, frozen=frozen[dev],
+                                     compute_dtype=torch.float32)
+        state = tstep.init_train_state(model, tx)
+        losses[dev] = []
+        for _ in range(TRAIN_REF_STEPS):
+            state, m = fn(model, state, batches[dev], 0)
+            losses[dev].append(m["loss"].item())
+        final[dev] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    param_err = max((final["cuda"][n] - p).abs().max().item() for n, p in final["cpu"].items())
+    step_loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    check(step_loss_err <= TRAIN_REF_TOL["loss"]
+          and param_err <= 2 * TRAIN_REF_LR * TRAIN_REF_STEPS, "train_reference",
+          f"{label}: step loss rel err {step_loss_err}, param max abs err {param_err}")
+    return dict(loss_rel_err=loss_err, grad_rel_err=grad_err, step_losses=losses,
+                step_loss_rel_err=step_loss_err, param_max_abs_err=param_err)
+
+
+# Condition networks card vs CPU: fp32 on both (TF32 off), sums in another
+# order through ~10-20 convolution and attention layers; relative to the
+# output's largest magnitude. A wrong padding, flip or resize moves it by
+# more than 1e-2.
+COND_REF_TOL = 1e-3
+COND_BATCH, COND_PX, COND_TIMED = 8, 512, 3
+
+
+def _small_condition_nets():
+    """Small HED (channels 8..32), lineart (ngf 8), DPT (width 64, 4 layers)
+    and MiDaS (trunk layers (1, 1, 1), a 3-layer ViT of width 64) on the CPU,
+    random weights from seeds, with their configurations."""
+    from controlar_tpu_torch.models import control_nets as cn
+    from controlar_tpu_torch.models import dpt as tdpt
+    from controlar_tpu_torch.models import midas as tmidas
+
+    dcfg = tdpt.DPTConfig(hidden_size=64, n_layer=4, n_head=2, mlp_dim=128, pos_grid=4,
+                          out_indices=(0, 1, 2, 3), neck_hidden_sizes=(16, 32, 64, 64),
+                          fusion_hidden_size=32)
+    mcfg = tmidas.MidasHybridConfig(stem_width=32, layers=(1, 1, 1), hidden_size=64,
+                                    n_layer=3, n_head=2, mlp_dim=128, pos_grid=4,
+                                    vit_hooks=(1, 2), features=32,
+                                    layer_channels=(256, 512, 64, 64))
+    return {"hed": cn.init_hed(seed=1, device="cpu", channels=(8, 16, 32, 32, 32)),
+            "lineart": cn.init_lineart(seed=2, device="cpu", ngf=8),
+            "dpt": tdpt.init_dpt(dcfg, seed=3, device="cpu"), "dpt_cfg": dcfg,
+            "midas": tmidas.init_midas(mcfg, seed=4, device="cpu"), "midas_cfg": mcfg}
+
+
+def _condition_call(name: str, nets: dict):
+    """-> f(uint8 images (B, H, W, 3) on a device) -> the pipeline's 0..255
+    condition map, through `pipeline.condition_map` with the network `name`
+    of `nets` (DPT and MiDaS as the depth control)."""
+    from controlar_tpu_torch.pipeline import condition_map
+
+    if name in ("hed", "lineart"):
+        return lambda x: condition_map(name, x, **{name: nets[name]})
+    return lambda x: condition_map("depth", x, **{name: nets[name],
+                                                  f"{name}_cfg": nets[f"{name}_cfg"]})
+
+
+def phase_condition_reference():
+    """The small condition networks on the card against the same modules on
+    the CPU (the path the tests hold to the JAX package), fp32 with TF32
+    off, through the pipeline's condition maps: HED and lineart on 64 x 96
+    images, DPT on them resized to 96 x 96 (a resized position grid), MiDaS
+    at 64 x 96 (its own size, a rectangular grid); the raw MiDaS and DPT
+    depth too; then hed_nms on the HED map, bit for bit."""
+    from controlar_tpu_torch.cells import condition_images
+    from controlar_tpu_torch.models import control_nets as cn
+    from controlar_tpu_torch.models import dpt as tdpt
+    from controlar_tpu_torch.models import midas as tmidas
+
+    img = torch.from_numpy(condition_images(2, 96, seed=9)[:, :64])
+    nets = {"cpu": _small_condition_nets()}
+    nets["cuda"] = {k: (copy.deepcopy(v).to("cuda") if isinstance(v, torch.nn.Module) else v)
+                    for k, v in nets["cpu"].items()}
+    dcfg, mcfg = nets["cpu"]["dpt_cfg"], nets["cpu"]["midas_cfg"]
+    calls = {name: {d: _condition_call(name, nets[d]) for d in nets}
+             for name in ("hed", "lineart", "dpt", "midas")}
+    calls["dpt_depth"] = {d: (lambda x, d=d: tdpt.dpt_depth(
+        nets[d]["dpt"], dcfg, tdpt.preprocess_depth_input(x, 96))) for d in nets}
+    calls["midas_depth"] = {d: (lambda x, d=d: tmidas.midas_hybrid_depth(
+        nets[d]["midas"], mcfg, x.float() / 127.5 - 1.0)) for d in nets}
+    errs = {}
+    with torch.inference_mode():
+        for name, fns in calls.items():
+            ref = fns["cpu"](img)
+            out = fns["cuda"](img.cuda()).cpu()
+            check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+                  "condition_reference", f"{name}: shape {tuple(out.shape)} or non-finite")
+            errs[name] = (out - ref).abs().max().item() / max(ref.abs().max().item(), 1e-12)
+            if name == "hed":
+                hed_map = ref
+    for name, err in errs.items():
+        check(err <= COND_REF_TOL, "condition_reference",
+              f"{name}: card vs CPU max_abs_err / max|ref| {err} > {COND_REF_TOL}")
+    # hed_nms of one map on both devices: the same uint8 map
+    nms_cpu = cn.hed_nms(hed_map, 64.0, 2.0)
+    nms_cuda = cn.hed_nms(hed_map.cuda(), 64.0, 2.0).cpu()
+    check(torch.equal(nms_cuda, nms_cpu) and 0 < float((nms_cuda == 255).float().mean()) < 1,
+          "condition_reference", "hed_nms differs between card and CPU (or is constant)")
+    emit("condition_reference", ok=True, rel_err=errs, tol=COND_REF_TOL, hed_nms_bit_exact=True,
+         hed_nms_edge_share=float((nms_cuda == 255).float().mean()), image=[2, 64, 96],
+         dpt_input=[96, 96])
+
+
+def phase_condition() -> dict:
+    """Each condition network at full width through the pipeline's condition
+    maps, batch COND_BATCH at COND_PX px, random weights from seeds, fp32,
+    TF32 off: HED and lineart at the annotators' widths, DPT at DPT_LARGE
+    (ViT-L/16 on a 32 x 32 grid, resized positions), MiDaS at MIDAS_HYBRID at
+    the image's own size. A warm call, then COND_TIMED synchronised calls
+    (host clock); ms is their median. Peak memory over the timed calls."""
+    from controlar_tpu_torch.cells import condition_images
+    from controlar_tpu_torch.models import control_nets as cn
+    from controlar_tpu_torch.models import dpt as tdpt
+    from controlar_tpu_torch.models import midas as tmidas
+
+    x = torch.from_numpy(condition_images(COND_BATCH, COND_PX, seed=11)).cuda()
+    builders = {
+        "hed": lambda: {"hed": cn.init_hed(seed=21)},
+        "lineart": lambda: {"lineart": cn.init_lineart(seed=22)},
+        "dpt": lambda: {"dpt": tdpt.init_dpt(tdpt.DPT_LARGE, seed=23), "dpt_cfg": tdpt.DPT_LARGE},
+        "midas": lambda: {"midas": tmidas.init_midas(tmidas.MIDAS_HYBRID, seed=24),
+                          "midas_cfg": tmidas.MIDAS_HYBRID},
+    }
+    rows = {}
+    for name, build in builders.items():
+        nets = build()
+        call = _condition_call(name, nets)
+        with torch.inference_mode():
+            call(x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            seconds = []
+            for _ in range(COND_TIMED):
+                t0 = time.perf_counter()
+                out = call(x)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+        check(out.shape == (COND_BATCH, COND_PX, COND_PX) and bool(torch.isfinite(out).all())
+              and float(out.min()) >= 0 and float(out.max()) <= 255 + 1e-3
+              and float(out.std()) > 0, "condition", f"{name}: output {tuple(out.shape)} "
+              f"range [{float(out.min())}, {float(out.max())}]")
+        rows[name] = dict(ms=statistics.median(seconds) * 1e3,
+                          seconds=seconds, peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                          params_m=sum(p.numel() for p in nets[name].parameters()) / 1e6)
+        del nets, call, out
+        torch.cuda.empty_cache()
+    emit("condition", ok=True, batch=COND_BATCH, image_px=COND_PX, dtype="float32", tf32=False,
+         timed_calls=COND_TIMED, **rows)
+    return rows
 
 
 def _palm_flops(trainer) -> float:
@@ -2220,9 +2395,11 @@ def phase_cell(name: str, runs: int) -> dict:
     wrappers = {k: v[0] for k, v in _kernels().items()}
     for fn in wrappers.values():
         fn.launches = 0
+    stages = []  # each timed call's stage seconds (the pipeline's `timings`)
     for run in range(runs):
+        stages.append({})
         t0 = time.perf_counter()
-        outs.append(pipe.generate(**kw, seed=1 + run))
+        outs.append(pipe.generate(**kw, seed=1 + run, timings=stages[-1]))
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
     launches = {k: fn.launches for k, fn in wrappers.items()}
@@ -2237,6 +2414,7 @@ def phase_cell(name: str, runs: int) -> dict:
     # finite: ControlARPipeline.generate raises on a non-finite decoded image
     med = statistics.median(seconds)
     emit(name, ok=True, model=CELLS[name]["size"], quant=CELLS[name].get("quant"),
+         condition_type=pipe.condition_type, stage_seconds=stages,
          cache_dtype=str(kw.get("cache_dtype") or torch.bfloat16), image_px=px,
          tokens=cfg.block_size, batch=BATCH, cfg_scale=kw["cfg_scale"], top_k=kw["top_k"],
          runs=runs, build_s=build_s, seconds=seconds, median_s=med, images_per_s=BATCH / med,
@@ -2576,7 +2754,7 @@ def phase_serve(name: str, order) -> dict:
 
 # one timed call each, where a stacked cell times the same flat call again
 # (one call each keeps the script well inside its time limit on a slow host)
-CELL_RUNS = (("c2i", 1), ("t2i", 1), ("c2i_w8kv8", 1), ("c2i_3b_w4kv4", 1))
+CELL_RUNS = (("c2i", 1), ("c2i_depth", 1), ("t2i", 1), ("c2i_w8kv8", 1), ("c2i_3b_w4kv4", 1))
 STACKED_RUNS = ("c2i_stacked", "c2i_w8kv8_stacked", "c2i_3b_w4kv4_stacked")
 SERVE_RUNS = (("serve_c2i", ("sync", "overlap", "overlap", "sync")),  # cell, timed runs
               ("serve_c2i_w8kv8", ("sync",)), ("serve_c2i_stacked", ("sync", "overlap")))
@@ -2648,6 +2826,8 @@ def main() -> int:
     phase_serve_reference()
     phase_spec_reference()
     phase_train_reference()
+    phase_condition_reference()
+    phase_condition()
     launches = collections.Counter()
     for name, runs in CELL_RUNS:
         launches.update(phase_cell(name, runs))

@@ -12,10 +12,15 @@ their pipelines here, so both drive the same configuration.
                 384 px, CFG 4.0, W4A16 split-rope weights with fused w13, an
                 int8 head and the int4 KV cache: the JAX package's
                 `bench.py` extra_gpt3b_w4
+  c2i_depth     c2i with depth control: the MiDaS DPT-Hybrid detector at its
+                released width (`models/midas.MIDAS_HYBRID`, random weights
+                from a seed) on the 384 px images, the depth control type
+                both published ControlAR checkpoints (c2i, t2i) carry
 
-All: batch 8 (16 rows with CFG), top_k 2000, Canny on synthetic images,
-DINOv2-small adapter, VQ-16 decoder, bf16 GPT (quantized after it is made,
-layer by layer, on the device), fp32 adapter and decoder.
+All: batch 8 (16 rows with CFG), top_k 2000, Canny (but c2i_depth) on
+synthetic images, DINOv2-small adapter, VQ-16 decoder, bf16 GPT (quantized
+after it is made, layer by layer, on the device), fp32 adapter, decoder and
+condition network.
 
 The serving cells run `serve.ServeEngine` over the GPT of a pipeline cell,
 with the traffic of the JAX package's `bench.py` extra_serve:
@@ -71,6 +76,7 @@ import torch
 
 from controlar_tpu_torch.config import gpt_config, vq_config
 from controlar_tpu_torch.models import gpt as gpt_model
+from controlar_tpu_torch.models import midas as midas_model
 from controlar_tpu_torch.models import vit as vit_model
 from controlar_tpu_torch.models import vq as vq_model
 from controlar_tpu_torch.pipeline import ControlARPipeline
@@ -85,6 +91,7 @@ CELLS = {
     "c2i_w8kv8": dict(size="GPT-B", **_C2I, quant="int8", cache_dtype=torch.int8),
     "c2i_3b_w4kv4": dict(size="GPT-3B", **_C2I, quant="w4", split_rope=True,
                          cache_dtype="int4"),
+    "c2i_depth": dict(size="GPT-B", **_C2I, condition_type="depth"),
 }
 BATCH = 8
 TOP_K = 2000
@@ -123,6 +130,10 @@ def build_cell(name: str, seed: int = 0, device="cuda", cells=CELLS, **pipe_kw):
     vcfg = vq_config("VQ-16")
     if "quant" in cell:
         quantize_gpt(gpt, cfg, mode=cell["quant"], split_rope=cell.get("split_rope", False))
+    if cell.get("condition_type") == "depth":
+        pipe_kw = dict(pipe_kw, condition_type="depth", midas_cfg=midas_model.MIDAS_HYBRID,
+                       midas=midas_model.init_midas(midas_model.MIDAS_HYBRID, seed=seed + 4,
+                                                    device=device))
     pipe = ControlARPipeline(
         gpt_cfg=cfg,
         gpt=gpt,

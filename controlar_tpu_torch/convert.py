@@ -4,7 +4,8 @@ Each function takes the JAX parameters as nested dicts and lists of numpy
 arrays (per-layer weights stacked on a leading (L, ...) axis, or a list of
 per-layer dicts) and returns the port's module, loaded with
 `load_state_dict(strict=True)`. Linears stored (in, out) become torch's
-(out, in); convolutions stored HWIO become OIHW.
+(out, in); convolutions stored HWIO become OIHW, and transposed ones
+(stored flipped, HWIO) torch's unflipped (C_in, C_out, KH, KW).
 
 `gpt_from_jax` also takes the JAX package's quantized trees (from
 `quantize_gpt_params`, stacked or not, and `quantize_gpt_params_w4`): a
@@ -22,7 +23,10 @@ import torch
 
 from controlar_tpu_torch import quant
 from controlar_tpu_torch.config import GPTConfig, VQConfig
+from controlar_tpu_torch.models import control_nets
+from controlar_tpu_torch.models import dpt as dpt_model
 from controlar_tpu_torch.models import gpt as gpt_model
+from controlar_tpu_torch.models import midas as midas_model
 from controlar_tpu_torch.models import vit as vit_model
 from controlar_tpu_torch.models import vq as vq_model
 
@@ -156,21 +160,73 @@ def _flatten(tree, prefix: str, out: Dict[str, Any]) -> None:
         out[prefix[:-1]] = tree
 
 
+def _tree_sd(tree) -> Dict[str, torch.Tensor]:
+    """A JAX tree -> a state dict: each {"w", "b"} pair becomes `.weight`
+    (HWIO -> OIHW when 4-D, (in, out) -> (out, in) when 2-D) and `.bias`;
+    other leaves (norm scale / bias, tables) keep their names and layouts."""
+    flat: Dict[str, Any] = {}
+    _flatten(tree, "", flat)
+    sd = {}
+    for key, a in flat.items():
+        path, _, leaf = key.rpartition(".")
+        if leaf == "w":
+            sd[f"{path}.weight"] = _conv(a) if np.ndim(a) == 4 else _lin(a)
+        elif leaf == "b":
+            sd[f"{path}.bias"] = _t(a)
+        else:
+            sd[key] = _t(a)
+    return sd
+
+
+def _conv_t(a) -> torch.Tensor:
+    """The JAX package's transposed-conv kernel (flipped HWIO) -> torch's
+    ConvTranspose2d weight (C_in, C_out, KH, KW), unflipped."""
+    return _t(a).permute(2, 3, 0, 1).flip(2, 3).contiguous()
+
+
+def _build(make, sd, dtype, device) -> torch.nn.Module:
+    with torch.device("meta"):
+        model = make()
+    return _load(model, sd, dtype, torch.device(device))
+
+
 def vq_from_jax(params: Tree, cfg: VQConfig, dtype: torch.dtype = torch.float32,
                 device="cpu") -> vq_model.VQModel:
     """The decoding half: post_quant_conv, codebook and decoder (the
     encoder's parameters are not read)."""
-    flat: Dict[str, Any] = {}
-    _flatten({k: params[k] for k in ("post_quant_conv", "codebook", "decoder")}, "", flat)
-    sd = {}
-    for key, a in flat.items():
-        path, leaf = key.rsplit(".", 1) if "." in key else ("", key)
-        if leaf == "w":
-            sd[f"{path}.weight"] = _conv(a)
-        elif leaf == "b":
-            sd[f"{path}.bias"] = _t(a)
-        else:  # norm scale / bias, codebook
-            sd[key] = _t(a)
-    with torch.device("meta"):
-        model = vq_model.VQModel(cfg)
-    return _load(model, sd, dtype, torch.device(device))
+    sd = _tree_sd({k: params[k] for k in ("post_quant_conv", "codebook", "decoder")})
+    return _build(lambda: vq_model.VQModel(cfg), sd, dtype, device)
+
+
+def hed_from_jax(params: Tree, device="cpu") -> control_nets.HED:
+    sd = _tree_sd(params)
+    sd["norm"] = sd["norm"].reshape(3)
+    channels = [np.shape(b["projection"]["w"])[2] for b in params["blocks"]]
+    return _build(lambda: control_nets.HED(channels), sd, torch.float32, device)
+
+
+def lineart_from_jax(params: Tree, device="cpu") -> control_nets.Lineart:
+    sd = _tree_sd(params)
+    for i, blk in enumerate(params["model3"]):
+        sd[f"model3.{i}.weight"] = _conv_t(blk["w"])
+    ngf = np.shape(params["model0"]["w"])[3]
+    return _build(lambda: control_nets.Lineart(ngf, len(params["model2"])), sd, torch.float32,
+                  device)
+
+
+def dpt_from_jax(params: Tree, cfg: dpt_model.DPTConfig, device="cpu") -> dpt_model.DPT:
+    sd = _tree_sd({k: v for k, v in params.items() if k != "layers"})
+    for l in range(cfg.n_layer):
+        sd.update(_tree_sd({"layers": {str(l): _layer(params["layers"], l)}}))
+    for i, f in enumerate(cfg.reassemble_factors):
+        if f > 1:
+            sd[f"reassemble.{i}.resize.weight"] = _conv_t(params["reassemble"][i]["resize"]["w"])
+    return _build(lambda: dpt_model.DPT(cfg), sd, torch.float32, device)
+
+
+def midas_from_jax(params: Tree, cfg: midas_model.MidasHybridConfig,
+                   device="cpu") -> midas_model.MidasHybrid:
+    sd = _tree_sd({k: v for k, v in params.items() if k != "layer_rn"})
+    for i, w in enumerate(params["layer_rn"]):
+        sd[f"layer_rn.{i}.weight"] = _conv(w)
+    return _build(lambda: midas_model.MidasHybrid(cfg), sd, torch.float32, device)

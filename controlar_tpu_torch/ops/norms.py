@@ -37,3 +37,12 @@ def group_norm(
     var = (xf - mean).pow(2).mean(dim=(1, 2, 4), keepdim=True)
     xn = (xf - mean) * torch.rsqrt(var + eps)
     return xn.reshape(b, h, w, c).to(x.dtype) * scale + bias
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm2d without affine parameters over NHWC input: per (B, C)
+    statistics over (H, W) in fp32, biased variance, cast back."""
+    xf = x.float()
+    mean = xf.mean(dim=(1, 2), keepdim=True)
+    var = (xf - mean).pow(2).mean(dim=(1, 2), keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)

@@ -3,6 +3,8 @@
 Run on the card without the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -1837,3 +1839,113 @@ def test_serve_stacked_slot_isolation_on_the_card(dev, cache):
     assert ca.cache_append_rows.launches == ca.cache_append_rows_stacked.launches == 0
     np.testing.assert_array_equal(solo[0].tokens, duo[0].tokens)
     assert not np.array_equal(duo[0].tokens, duo[1].tokens)
+
+
+# ---------------------------------------------------------------------------
+# The condition networks (no kernel of their own: library convolutions and
+# matmuls, fp32) on the card against the same modules on the CPU, TF32 off.
+# ---------------------------------------------------------------------------
+
+COND_TOL = 1e-3  # relative to the output's largest magnitude
+
+
+@pytest.fixture
+def fp32_exact(dev):
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield dev
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+_SMALL_DPT = dict(hidden_size=64, n_layer=4, n_head=2, mlp_dim=128, pos_grid=4,
+                  out_indices=(0, 1, 2, 3), neck_hidden_sizes=(16, 32, 64, 64),
+                  fusion_hidden_size=32)
+_SMALL_MIDAS = dict(stem_width=32, layers=(1, 1, 1), hidden_size=64, n_layer=3, n_head=2,
+                    mlp_dim=128, pos_grid=4, vit_hooks=(1, 2), features=32,
+                    layer_channels=(256, 512, 64, 64))
+
+
+def _small_condition(name):
+    """(small module on the CPU, f(module, uint8 images) -> 0..255 map)."""
+    from controlar_tpu_torch.models import control_nets as cn
+    from controlar_tpu_torch.models import dpt as tdpt
+    from controlar_tpu_torch.models import midas as tmidas
+    from controlar_tpu_torch.pipeline import condition_map
+
+    if name == "hed":
+        return (cn.init_hed(seed=1, device="cpu", channels=(8, 16, 32, 32, 32)),
+                lambda m, x: condition_map("hed", x, hed=m))
+    if name == "lineart":
+        return (cn.init_lineart(seed=2, device="cpu", ngf=8),
+                lambda m, x: condition_map("lineart", x, lineart=m))
+    if name == "dpt":
+        cfg = tdpt.DPTConfig(**_SMALL_DPT)
+        return (tdpt.init_dpt(cfg, seed=3, device="cpu"),
+                lambda m, x: condition_map("depth", x, dpt=m, dpt_cfg=cfg))
+    cfg = tmidas.MidasHybridConfig(**_SMALL_MIDAS)
+    return (tmidas.init_midas(cfg, seed=4, device="cpu"),
+            lambda m, x: condition_map("depth", x, midas=m, midas_cfg=cfg))
+
+
+@pytest.mark.parametrize("name", ["hed", "lineart", "dpt", "midas"])
+@pytest.mark.parametrize("hw", [(64, 64), (64, 96)])
+def test_condition_network_card_matches_cpu(fp32_exact, name, hw):
+    from controlar_tpu_torch.cells import condition_images
+
+    img = torch.from_numpy(condition_images(2, 96, seed=9)[:, :hw[0], :hw[1]].copy())
+    model, fn = _small_condition(name)
+    with torch.inference_mode():
+        want = fn(model, img)
+        got = fn(copy.deepcopy(model).to(fp32_exact), img.to(fp32_exact)).cpu()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= COND_TOL * want.abs().max().item()
+
+
+def test_hed_nms_card_matches_cpu(dev):
+    from controlar_tpu_torch.models.control_nets import hed_nms
+
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 255, (2, 48, 64)).astype(np.float32))
+    for s, t in ((2.0, 64.0), (1.0, 100.0)):
+        torch.testing.assert_close(hed_nms(x.to(dev), t, s).cpu(), hed_nms(x, t, s),
+                                   rtol=0, atol=0)
+
+
+def test_c2i_depth_pipeline_on_the_card(fp32_exact):
+    """The c2i_depth cell's path at a small size: the MiDaS condition card
+    against CPU, then generate on the card through the decode kernels."""
+    from controlar_tpu_torch.cells import condition_images
+    from controlar_tpu_torch.config import GPTConfig, VQConfig
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.models import vit as tvit
+    from controlar_tpu_torch.models import midas as tmidas
+    from controlar_tpu_torch.models import vq as tvq
+    from controlar_tpu_torch.ops import flash_decode as fd
+    from controlar_tpu_torch.pipeline import ControlARPipeline
+
+    img = 64
+    cfg = GPTConfig(model_type="c2i", dim=128, n_layer=3, n_head=2, vocab_size=64,
+                    num_classes=10, block_size=(img // 16) ** 2)
+    vcfg = VQConfig(codebook_size=64, z_channels=32, ch=32, decoder_ch_mult=(1, 1, 1, 1, 2))
+    acfg = tvit.ViTConfig(hidden_size=384, n_layer=1, n_head=6, pos_grid=4)
+    midas, _ = _small_condition("midas")
+
+    def pipe(device):
+        return ControlARPipeline(
+            gpt_cfg=cfg, gpt=tgpt.init_gpt(cfg, seed=0, dtype=torch.bfloat16, device=device),
+            vq_cfg=vcfg, vq=tvq.init_vq(vcfg, seed=1, device=device), adapter_cfg=acfg,
+            adapter=tvit.init_vit(acfg, seed=2, device=device), condition_type="depth",
+            midas=copy.deepcopy(midas).to(device),
+            midas_cfg=tmidas.MidasHybridConfig(**_SMALL_MIDAS), device=device)
+
+    images = condition_images(2, img, seed=5)
+    cond_cpu = pipe("cpu").extract_condition(images)
+    card = pipe(fp32_exact)
+    cond = card.extract_condition(images).cpu()
+    assert (cond - cond_cpu).abs().max().item() <= 2 * COND_TOL
+    fd.flash_decode_attention.launches = 0
+    timings = {}
+    out = card.generate(labels=np.array([1, 2]), condition_images=images, top_k=4,
+                        timings=timings)
+    assert out.shape == (2, img, img, 3) and out.dtype == np.uint8
+    assert fd.flash_decode_attention.launches == cfg.n_layer * (cfg.block_size - 1)
+    assert list(timings) == ["condition", "adapter", "tokens", "vq_decode"]

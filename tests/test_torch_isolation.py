@@ -129,3 +129,79 @@ def test_trainer_raises_without_a_card_unless_cpu_is_asked(tmp_path):
     assert state.step == 0 and all(p.device.type == "cpu" for p in state.params.values())
     with pytest.raises(NotImplementedError, match="mesh"):  # one card until parallel/ is ported
         Trainer(TrainerConfig(**{**tcfg.__dict__, "fsdp_axis": 2}), device="cpu")
+
+
+def test_port_imports_no_transformers_timm_or_cv2():
+    """The card's machine has none of them: no module of the port names one,
+    and importing every module loads none."""
+    for path in sorted(PKG.rglob("*.py")):
+        text = path.read_text()
+        assert not re.search(r"^\s*(import|from)\s+(transformers|timm|cv2)\b", text, re.M), path
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import controlar_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'controlar_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('transformers', 'timm', 'cv2'))\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+# the condition networks' builders and loaders, the SSIM metric and the
+# consistency evaluation: name -> call(**device_kw); the loaders get an empty
+# state dict, so only their refusal is checked here
+_TINY = {"ngf": 4, "channels": (4, 4, 4, 4, 4)}
+CONDITION_ENTRY_POINTS = ("init_hed", "init_lineart", "init_dpt", "init_midas",
+                          "hed_from_state_dict", "lineart_from_state_dict",
+                          "dpt_from_state_dict", "midas_from_state_dict", "SSIM",
+                          "reextract", "consistency_eval")
+
+
+def _condition_call(name):
+    from controlar_tpu_torch import convert_ref
+    from controlar_tpu_torch.eval import consistency, metrics
+    from controlar_tpu_torch.models import control_nets, dpt, midas
+
+    if name == "init_hed":
+        return lambda **d: control_nets.init_hed(channels=_TINY["channels"], **d)
+    if name == "init_lineart":
+        return lambda **d: control_nets.init_lineart(ngf=_TINY["ngf"], **d)
+    if name == "init_dpt":
+        return lambda **d: dpt.init_dpt(dpt.DPTConfig(
+            hidden_size=32, n_layer=1, n_head=2, mlp_dim=64, out_indices=(0,),
+            neck_hidden_sizes=(8,), reassemble_factors=(1,), fusion_hidden_size=8), **d)
+    if name == "init_midas":
+        return lambda **d: midas.init_midas(midas.MidasHybridConfig(
+            stem_width=32, layers=(1, 1, 1), hidden_size=32, n_layer=1, n_head=2, mlp_dim=64,
+            vit_hooks=(0, 0), features=16, layer_channels=(256, 512, 32, 32)), **d)
+    if name.endswith("_from_state_dict"):
+        return lambda **d: getattr(convert_ref, name)({}, **d)
+    if name == "SSIM":
+        return lambda **d: metrics.SSIM(**d)
+    if name == "reextract":
+        return lambda **d: consistency.reextract("canny", np.zeros((1, 16, 16, 3), np.uint8),
+                                                 **d)
+    cfg, model = _tiny()
+    vcfg = VQConfig(codebook_size=16, z_channels=8, ch=8, decoder_ch_mult=(1, 1))
+    acfg = tvit.ViTConfig(hidden_size=384, n_layer=1, n_head=2, pos_grid=2)
+    pipe = ControlARPipeline(gpt_cfg=cfg, gpt=model, vq_cfg=vcfg, vq=tvq.init_vq(vcfg),
+                             adapter_cfg=acfg, adapter=tvit.init_vit(acfg), device="cpu")
+    return lambda **d: consistency.consistency_eval(pipe, [], "canny", **d)
+
+
+@pytest.mark.parametrize("name", CONDITION_ENTRY_POINTS)
+def test_condition_entry_points_raise_without_a_card_unless_cpu_is_asked(name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    call = _condition_call(name)
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()
+    if not name.endswith("_from_state_dict"):
+        out = call(device="cpu")
+        if isinstance(out, torch.nn.Module):
+            assert all(p.device.type == "cpu" and not p.requires_grad
+                       for p in out.parameters())

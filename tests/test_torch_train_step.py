@@ -279,8 +279,13 @@ def test_t2i_masks_and_condition_match_jax():
         want = jcs.extract_condition_on_device({k: jnp.asarray(v) for k, v in batch.items()},
                                                "canny")
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        tcs.extract_condition_on_device({"control_image": torch.zeros(1, 32, 32, 3)}, "hed")
+    # hed and lineart need their frozen network (tests/test_torch_consistency.py
+    # holds them to the JAX package); an unknown type raises
+    for ct in ("hed", "lineart"):
+        with pytest.raises(ValueError, match=ct):
+            tcs.extract_condition_on_device({"control_image": torch.zeros(1, 32, 32, 3)}, ct)
+    with pytest.raises(ValueError):
+        tcs.extract_condition_on_device({"control_image": torch.zeros(1, 32, 32, 3)}, "seg")
 
 
 def test_dropout_statistics():
