@@ -154,7 +154,6 @@ def test_port_imports_no_transformers_timm_or_cv2():
 # the condition networks' builders and loaders, the SSIM metric and the
 # consistency evaluation: name -> call(**device_kw); the loaders get an empty
 # state dict, so only their refusal is checked here
-_TINY = {"ngf": 4, "channels": (4, 4, 4, 4, 4)}
 CONDITION_ENTRY_POINTS = ("init_hed", "init_lineart", "init_dpt", "init_midas",
                           "hed_from_state_dict", "lineart_from_state_dict",
                           "dpt_from_state_dict", "midas_from_state_dict", "SSIM",
@@ -167,9 +166,9 @@ def _condition_call(name):
     from controlar_tpu_torch.models import control_nets, dpt, midas
 
     if name == "init_hed":
-        return lambda **d: control_nets.init_hed(channels=_TINY["channels"], **d)
+        return lambda **d: control_nets.init_hed(channels=(4, 4, 4, 4, 4), **d)
     if name == "init_lineart":
-        return lambda **d: control_nets.init_lineart(ngf=_TINY["ngf"], **d)
+        return lambda **d: control_nets.init_lineart(ngf=4, **d)
     if name == "init_dpt":
         return lambda **d: dpt.init_dpt(dpt.DPTConfig(
             hidden_size=32, n_layer=1, n_head=2, mlp_dim=64, out_indices=(0,),
