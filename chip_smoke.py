@@ -113,6 +113,7 @@ Exits non-zero, printing no result, when there is no CUDA device.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import json
 import statistics
@@ -2150,11 +2151,12 @@ def _train_card_vs_cpu(label, cfg, acfg, models, batches, card_loss_grads,
                 step_loss_rel_err=step_loss_err, param_max_abs_err=param_err)
 
 
-# Condition networks card vs CPU: fp32 on both (TF32 off), sums in another
-# order through ~10-20 convolution and attention layers; relative to the
-# output's largest magnitude. A wrong padding, flip or resize moves it by
-# more than 1e-2.
-COND_REF_TOL = 1e-3
+# Condition networks card vs CPU, relative to the output's largest
+# magnitude. Both sides run the same module code, so what this tells apart
+# is the card's arithmetic: fp32 with TF32 off sums in another order and
+# read 2.4e-7 to 4.3e-6 on an H100; the same calls with TF32 on read
+# 2.7e-4 (lineart) to 2.9e-3 (DPT), printed as tf32_rel_err each run.
+COND_REF_TOL = 1e-4
 COND_BATCH, COND_PX, COND_TIMED = 8, 512, 3
 
 
@@ -2181,14 +2183,25 @@ def _small_condition_nets():
 
 def _condition_call(name: str, nets: dict):
     """-> f(uint8 images (B, H, W, 3) on a device) -> the pipeline's 0..255
-    condition map, through `pipeline.condition_map` with the network `name`
+    condition map, through `control_nets.condition_map` with the network `name`
     of `nets` (DPT and MiDaS as the depth control)."""
-    from controlar_tpu_torch.pipeline import condition_map
+    from controlar_tpu_torch.models.control_nets import condition_map
 
     if name in ("hed", "lineart"):
         return lambda x: condition_map(name, x, **{name: nets[name]})
     return lambda x: condition_map("depth", x, **{name: nets[name],
                                                   f"{name}_cfg": nets[f"{name}_cfg"]})
+
+
+@contextlib.contextmanager
+def _tf32(on: bool):
+    """TF32 for cuDNN convolutions and cuBLAS matmuls set to `on` inside."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def phase_condition_reference():
@@ -2214,7 +2227,7 @@ def phase_condition_reference():
         nets[d]["dpt"], dcfg, tdpt.preprocess_depth_input(x, 96))) for d in nets}
     calls["midas_depth"] = {d: (lambda x, d=d: tmidas.midas_hybrid_depth(
         nets[d]["midas"], mcfg, x.float() / 127.5 - 1.0)) for d in nets}
-    errs = {}
+    errs, tf32_errs = {}, {}
     with torch.inference_mode():
         for name, fns in calls.items():
             ref = fns["cpu"](img)
@@ -2222,6 +2235,10 @@ def phase_condition_reference():
             check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
                   "condition_reference", f"{name}: shape {tuple(out.shape)} or non-finite")
             errs[name] = (out - ref).abs().max().item() / max(ref.abs().max().item(), 1e-12)
+            # the same call with TF32 on: what the limit must tell apart
+            with _tf32(True):
+                out = fns["cuda"](img.cuda()).cpu()
+            tf32_errs[name] = (out - ref).abs().max().item() / max(ref.abs().max().item(), 1e-12)
             if name == "hed":
                 hed_map = ref
     for name, err in errs.items():
@@ -2232,7 +2249,8 @@ def phase_condition_reference():
     nms_cuda = cn.hed_nms(hed_map.cuda(), 64.0, 2.0).cpu()
     check(torch.equal(nms_cuda, nms_cpu) and 0 < float((nms_cuda == 255).float().mean()) < 1,
           "condition_reference", "hed_nms differs between card and CPU (or is constant)")
-    emit("condition_reference", ok=True, rel_err=errs, tol=COND_REF_TOL, hed_nms_bit_exact=True,
+    emit("condition_reference", ok=True, rel_err=errs, tf32_rel_err=tf32_errs, tol=COND_REF_TOL,
+         hed_nms_bit_exact=True,
          hed_nms_edge_share=float((nms_cuda == 255).float().mean()), image=[2, 64, 96],
          dpt_input=[96, 96])
 

@@ -11,7 +11,7 @@ import torch
 
 from controlar_tpu_torch import resolve_device
 from controlar_tpu_torch.eval.metrics import RMSE, SSIM, F1score
-from controlar_tpu_torch.pipeline import condition_map
+from controlar_tpu_torch.models.control_nets import condition_map
 
 
 def make_metric(condition_type: str, device="cuda"):

@@ -11,6 +11,9 @@
   floats; output (B, H, W) in 0..1.
 - `hed_nms`: Gaussian blur, 4-direction non-maximum suppression and a
   threshold over an edge map (scribble-style thinning), bit-exact uint8.
+- `condition_map`: a raw image to the control map of any control type
+  (Canny, HED, lineart, depth through DPT or MiDaS), the one rule the
+  pipeline, the control train step and the consistency eval share.
 
 Parameters follow the JAX package's trees (`blocks.i.convs.j`, `model0` ...
 `model4`); `convert_ref` loads the published checkpoints' key layouts.
@@ -24,7 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from controlar_tpu_torch.models import dpt as dpt_model
+from controlar_tpu_torch.models import midas as midas_model
 from controlar_tpu_torch.models.init import init_random
+from controlar_tpu_torch.ops.canny import canny
 from controlar_tpu_torch.ops.conv import (
     Conv,
     conv2d,
@@ -167,3 +173,34 @@ def hed_nms(x: torch.Tensor, t: float, s: float) -> torch.Tensor:
     y = torch.where(is_max, x_blur, 0.0)
     z = torch.where(y > t, 255, 0).to(torch.uint8)
     return z[0] if squeeze else z
+
+
+def condition_map(condition_type: str, x: torch.Tensor, *, hed=None, lineart=None,
+                  depth_fn=None, midas=None, midas_cfg=None, dpt=None, dpt_cfg=None,
+                  canny_low: int = 100, canny_high: int = 200) -> torch.Tensor:
+    """RGB uint8 images (B, H, W, 3) on the device -> the control map (B, H,
+    W) in 0..255: Canny (uint8), HED, lineart (x 255) or depth. Depth takes
+    `depth_fn` ((B, H, W, 3) uint8 -> (B, H, W) 0..255) when given, else the
+    MiDaS detector at the image's own size, else DPT on the image resized
+    to H x H. The networks run in fp32."""
+    if condition_type == "canny":
+        return canny(x, canny_low, canny_high)
+    if condition_type in ("hed", "lineart"):
+        net = hed if condition_type == "hed" else lineart
+        if net is None:
+            raise ValueError(f"condition type {condition_type!r} needs its network")
+        if condition_type == "hed":
+            return hed_forward(net, x.float())
+        return lineart_forward(net, x.float()) * 255.0
+    if condition_type == "depth":
+        if depth_fn is not None:
+            return torch.as_tensor(np.asarray(depth_fn(x.cpu().numpy())), device=x.device)
+        if midas is not None:
+            return midas_model.midas_depth_condition(midas, midas_cfg or midas_model.MIDAS_HYBRID,
+                                                     x)
+        if dpt is None:
+            raise ValueError("depth needs depth_fn, a MiDaS or a DPT model")
+        pre = dpt_model.preprocess_depth_input(x, size=x.shape[1])
+        depth = dpt_model.dpt_depth(dpt, dpt_cfg or dpt_model.DPT_LARGE, pre)
+        return dpt_model.depth_to_condition(depth)
+    raise ValueError(f"condition type {condition_type!r}")

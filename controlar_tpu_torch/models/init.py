@@ -11,9 +11,8 @@ from controlar_tpu_torch import resolve_device
 
 
 def init_random(make: Callable[[], nn.Module], seed: int, device,
-                weight_std: Optional[float] = None,
-                dtype: torch.dtype = torch.float32) -> nn.Module:
-    """Build `make()` on the meta device and fill it on `device`: each
+                weight_std: Optional[float] = None) -> nn.Module:
+    """Build `make()` in fp32 on the meta device and fill it on `device`: each
     `weight` normal with std `weight_std` (None: 1 / sqrt(fan_in), fan_in
     the weight's size over its first dimension), biases zero, norm scales
     one, every other parameter (class token, position table, input shift)
@@ -21,7 +20,7 @@ def init_random(make: Callable[[], nn.Module], seed: int, device,
     Raises if `device` is a card and none is present."""
     device = resolve_device(device)
     with torch.device("meta"):
-        model = make().to(dtype)
+        model = make().float()
     model = model.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():

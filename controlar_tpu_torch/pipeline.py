@@ -21,7 +21,6 @@ from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.models import midas as midas_model
 from controlar_tpu_torch.models import vit as vit_model
 from controlar_tpu_torch.models import vq as vq_model
-from controlar_tpu_torch.ops.canny import canny
 from controlar_tpu_torch.ops.resize import to_patch14
 from controlar_tpu_torch.quant import quantize_gpt
 
@@ -29,36 +28,6 @@ from controlar_tpu_torch.quant import quantize_gpt
 def normalize_condition(x: torch.Tensor) -> torch.Tensor:
     """uint8-range control map -> [-1, 1]."""
     return 2.0 * (x.float() / 255.0 - 0.5)
-
-
-def condition_map(condition_type: str, x: torch.Tensor, *, hed=None, lineart=None,
-                  depth_fn=None, midas=None, midas_cfg=None, dpt=None, dpt_cfg=None,
-                  canny_low: int = 100, canny_high: int = 200) -> torch.Tensor:
-    """RGB uint8 images (B, H, W, 3) on the device -> the control map (B, H,
-    W) in 0..255: Canny (uint8), HED, lineart (x 255) or depth. Depth takes
-    `depth_fn` ((B, H, W, 3) uint8 -> (B, H, W) 0..255) when given, else the
-    MiDaS detector at the image's own size, else DPT on the image resized
-    to H x H. The networks run in fp32."""
-    if condition_type == "canny":
-        return canny(x, canny_low, canny_high)
-    if condition_type in ("hed", "lineart"):
-        net = hed if condition_type == "hed" else lineart
-        if net is None:
-            raise ValueError(f"condition type {condition_type!r} needs its network")
-        if condition_type == "hed":
-            return control_nets.hed_forward(net, x.float())
-        return control_nets.lineart_forward(net, x.float()) * 255.0
-    if condition_type == "depth":
-        if depth_fn is not None:
-            return torch.as_tensor(np.asarray(depth_fn(x.cpu().numpy())), device=x.device)
-        if midas is not None:
-            return midas_model.midas_depth_condition(midas, midas_cfg or midas_model.MIDAS_HYBRID,
-                                                     x)
-        if dpt is None:
-            raise ValueError("depth needs depth_fn, a MiDaS or a DPT model")
-        pre = dpt_model.preprocess_depth_input(x, size=x.shape[1])
-        return dpt_model.depth_to_condition(dpt_model.dpt_depth(dpt, dpt_cfg or dpt_model.DPT_LARGE, pre))
-    raise ValueError(f"condition type {condition_type!r}")
 
 
 def to_uint8_image(x: torch.Tensor) -> np.ndarray:
@@ -104,17 +73,17 @@ class ControlARPipeline:
     def extract_condition(self, images_u8, *, canny_low: int = 100,
                           canny_high: int = 200, preprocess: bool = True) -> torch.Tensor:
         """RGB uint8 (B, H, W, 3) -> normalised 3-channel control map
-        (`condition_map` of the pipeline's type and networks).
+        (`control_nets.condition_map` of the pipeline's type and networks).
         preprocess=False (and 'seg') treats the input as a rendered map."""
         x = torch.as_tensor(np.asarray(images_u8), device=self.device)
         ct = self.condition_type
         if not preprocess or ct == "seg":
             cond = x.float().mean(-1)
         else:
-            cond = condition_map(ct, x, hed=self.hed, lineart=self.lineart,
-                                 depth_fn=self.depth_fn, midas=self.midas,
-                                 midas_cfg=self.midas_cfg, dpt=self.dpt, dpt_cfg=self.dpt_cfg,
-                                 canny_low=canny_low, canny_high=canny_high).float()
+            cond = control_nets.condition_map(
+                ct, x, hed=self.hed, lineart=self.lineart, depth_fn=self.depth_fn,
+                midas=self.midas, midas_cfg=self.midas_cfg, dpt=self.dpt, dpt_cfg=self.dpt_cfg,
+                canny_low=canny_low, canny_high=canny_high).float()
         return normalize_condition(cond[..., None].expand(*cond.shape, 3))
 
     @torch.inference_mode()

@@ -2,11 +2,10 @@
 condition extraction on the device -> the trained DINOv2 adapter -> control
 fusion -> CE loss.
 
-- the condition map is computed on the device from the raw image (Canny,
-  `ops/canny.py`; HED or lineart through the frozen networks of
-  `models/control_nets.py`, `frozen["hed"]` / `frozen["lineart"]`, which
-  take no gradient and no optimizer state) or read from a pre-extracted
-  `control_map`;
+- the condition map is computed on the device from the raw image by
+  `control_nets.condition_map` (Canny; HED or lineart through the frozen
+  networks `frozen["hed"]` / `frozen["lineart"]`, which take no gradient
+  and no optimizer state) or read from a pre-extracted `control_map`;
 - the adapter is among the optimized parameters;
 - the t2i caption mask is the compact per-key column mask `t2i_key_valid`
   (the flash kernels' form); `build_t2i_attn_mask` is its materialised form
@@ -24,7 +23,6 @@ from controlar_tpu_torch.config import GPTConfig
 from controlar_tpu_torch.models import control_nets
 from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.models import vit as vit_model
-from controlar_tpu_torch.ops.canny import canny
 from controlar_tpu_torch.ops.resize import to_patch14
 from controlar_tpu_torch.train.optimizer import AdamW
 from controlar_tpu_torch.train.step import (
@@ -53,18 +51,9 @@ def extract_condition_on_device(batch: Dict[str, torch.Tensor], condition_type: 
         cm = batch["control_map"].float()
         cond = cm if cm.dim() == 4 else cm[..., None].expand(*cm.shape, 3)
         return 2.0 * (cond / 255.0 - 0.5)
-    image = batch["control_image"]
-    if condition_type in ("hed", "lineart") and (frozen or {}).get(condition_type) is None:
-        raise ValueError(f"condition type {condition_type!r} needs frozen[{condition_type!r}]")
     with torch.no_grad():
-        if condition_type == "canny":
-            m = canny(image, 100, 200).float()
-        elif condition_type == "hed":
-            m = control_nets.hed_forward(frozen["hed"], image.float())
-        elif condition_type == "lineart":
-            m = control_nets.lineart_forward(frozen["lineart"], image.float()) * 255.0
-        else:
-            raise ValueError(condition_type)
+        m = control_nets.condition_map(condition_type, batch["control_image"],
+                                       **(frozen or {})).float()
     cond = m[..., None].expand(*m.shape, 3)
     return 2.0 * (cond / 255.0 - 0.5)
 

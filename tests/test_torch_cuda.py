@@ -1846,7 +1846,10 @@ def test_serve_stacked_slot_isolation_on_the_card(dev, cache):
 # matmuls, fp32) on the card against the same modules on the CPU, TF32 off.
 # ---------------------------------------------------------------------------
 
-COND_TOL = 1e-3  # relative to the output's largest magnitude
+# relative to the output's largest magnitude: fp32 card vs CPU reads at
+# most 4.3e-6 on an H100, TF32 on at least 2.7e-4 (chip_smoke.py
+# condition_reference)
+COND_TOL = 1e-4
 
 
 @pytest.fixture
@@ -1870,7 +1873,7 @@ def _small_condition(name):
     from controlar_tpu_torch.models import control_nets as cn
     from controlar_tpu_torch.models import dpt as tdpt
     from controlar_tpu_torch.models import midas as tmidas
-    from controlar_tpu_torch.pipeline import condition_map
+    from controlar_tpu_torch.models.control_nets import condition_map
 
     if name == "hed":
         return (cn.init_hed(seed=1, device="cpu", channels=(8, 16, 32, 32, 32)),
