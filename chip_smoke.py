@@ -71,6 +71,19 @@ ending the run with a non-zero exit when it fails:
   condition     the condition networks at full width (HED, lineart at the
                 annotators' widths, DPT-Large, MiDaS DPT-Hybrid), batch 8 at
                 512 px: ms of a call and peak memory;
+  checkpoint    GPT-B c2i, the VQ-16 with its encoder and DINOv2-small from
+                seeds, written in the reference layouts ({"model": sd,
+                "args": Namespace} .pt, .safetensors in fp32 and bf16) and
+                read back through the port's loaders onto the card, bit for
+                bit; the VQ's encode and decode_code card against CPU; a
+                pipeline of the loaded modules greedy token for token
+                against one built from the seeds; ms and GB per file;
+  quality       GPT-B c2i toy-trained on the card (basic task, 150 AdamW
+                steps, the training kernels), loss under 2.0; the quant
+                report on the trained bf16 model in five modes (int8 and
+                int8+kv8 gated at teacher-forced agreement 0.99), each
+                mode's kernels launched; greedy speculative decode with an
+                int8 self-draft, above 2 accepted tokens a cycle;
   c2i           GPT-B class-to-image at 384 px through ControlARPipeline:
                 Canny -> DINOv2-small -> CFG decode -> VQ-16, batch 8;
   c2i_depth     the c2i cell with depth control: the MiDaS DPT-Hybrid
@@ -2303,6 +2316,278 @@ def phase_condition() -> dict:
     return rows
 
 
+# The checkpoint phase: full-width models made from seeds, written in the
+# reference layouts and read back through the loaders.
+CKPT_SEEDS = {"gpt": 0, "vq": 1, "adapter": 2}
+CKPT_VQ_PX, CKPT_VQ_BATCH = 128, 2
+CKPT_TIE_GAP = 1e-5   # fp32 distances |z|^2 + |e|^2 - 2 z.e of unit vectors: a tie
+CKPT_GREEDY_TOKENS = 16
+
+
+def _ckpt_models(dtype, device):
+    """The c2i cell's GPT-B (576 tokens), the VQ-16 with its encoder and
+    DINOv2-small, from CKPT_SEEDS."""
+    from controlar_tpu_torch.config import gpt_config, vq_config
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.models import vit as tvit
+    from controlar_tpu_torch.models import vq as tvq
+
+    cfg = gpt_config("GPT-B", model_type="c2i", cls_token_num=1, block_size=576,
+                     vocab_size=16384, num_classes=1000)
+    vcfg = vq_config("VQ-16")
+    return cfg, vcfg, {
+        "gpt": tgpt.init_gpt(cfg, seed=CKPT_SEEDS["gpt"], dtype=dtype, device=device),
+        "vq": tvq.init_vq(vcfg, seed=CKPT_SEEDS["vq"], device=device),
+        "adapter": tvit.init_vit(tvit.DINOV2_SMALL, seed=CKPT_SEEDS["adapter"], device=device)}
+
+
+def _vq_card_vs_cpu(vq_card, vq_cpu, vcfg) -> dict:
+    """encode then decode_code on the card against the same model on the CPU
+    (fp32): latents, quantized z and images within REF_TOL, code indices
+    equal or ties (their two codes' distances within CKPT_TIE_GAP)."""
+    from controlar_tpu_torch.cells import condition_images
+    from controlar_tpu_torch.models import vq as tvq
+
+    x = torch.from_numpy(condition_images(CKPT_VQ_BATCH, CKPT_VQ_PX, seed=13)).float() / 127.5 - 1
+    out = {}
+    with torch.inference_mode():
+        for dev, vq in (("cuda", vq_card), ("cpu", vq_cpu)):
+            h = tvq._conv(vq.quant_conv, tvq.encoder_forward(vq.encoder, vcfg, x.to(dev)))
+            z_q, idx = tvq.encode(vq, vcfg, x.to(dev), device=dev)
+            out[dev] = dict(h=h.cpu(), z_q=z_q.cpu(), idx=idx.cpu())
+        cpu, card = out["cpu"], out["cuda"]
+        h_err = (card["h"] - cpu["h"]).abs().max().item()
+        h_scale = max(cpu["h"].abs().max().item(), 1.0)
+        differ = card["idx"] != cpu["idx"]
+        gaps = []
+        if differ.any():
+            zn = torch.nn.functional.normalize(cpu["h"][differ], dim=-1)
+            emb = tvq._codebook(vq_cpu, vcfg)
+            d = (zn * zn).sum(-1, keepdim=True) + (emb * emb).sum(-1) - 2 * zn @ emb.T
+            rows = torch.arange(len(zn))
+            gaps = (d[rows, card["idx"][differ]] - d[rows, cpu["idx"][differ]]).abs().tolist()
+        same = ~differ
+        zq_err = (card["z_q"][same] - cpu["z_q"][same]).abs().max().item()
+        img_card = tvq.decode_code(vq_card, vcfg, cpu["idx"].cuda()).cpu()
+        img_cpu = tvq.decode_code(vq_cpu, vcfg, cpu["idx"])
+    img_err = (img_card - img_cpu).abs().max().item()
+    check(h_err <= REF_TOL * h_scale and zq_err <= REF_TOL and img_err <= REF_TOL
+          and all(g <= CKPT_TIE_GAP for g in gaps), "checkpoint",
+          f"VQ card vs CPU: latents {h_err} (scale {h_scale}), z_q {zq_err}, image {img_err}, "
+          f"index gaps {gaps}")
+    return dict(vq_encode_latent_max_abs_err=h_err, vq_latent_scale=h_scale,
+                vq_z_q_max_abs_err=zq_err, vq_image_max_abs_err=img_err,
+                vq_codes=int(differ.numel()), vq_index_ties=len(gaps),
+                vq_tie_gaps=gaps, vq_image_shape=list(img_card.shape))
+
+
+def phase_checkpoint() -> collections.Counter:
+    """Full-width GPT-B c2i, VQ-16 (encoder included) and DINOv2-small from
+    seeds, fp32 on the card, written in the reference layouts (`convert_ref`:
+    {"model": sd, "args": Namespace} .pt, and .safetensors in fp32 and bf16)
+    to a temporary directory, then read with `checkpoint.load_gpt_checkpoint`,
+    `load_vq_checkpoint` and `load_adapter_checkpoint` onto the card in the
+    file's dtype: each parameter bit for bit its source. Then the loaded VQ's
+    encode and decode_code against the same model on the CPU, and a c2i
+    `ControlARPipeline` of the loaded bf16 GPT, VQ and adapter against one
+    built from the seeds: greedy first CKPT_GREEDY_TOKENS tokens (CFG 4.0)
+    of the pipeline's control features, equal. Returns the launches of the
+    greedy calls."""
+    import argparse
+    import tempfile
+
+    from controlar_tpu_torch import checkpoint as ck
+    from controlar_tpu_torch import convert_ref as cr
+    from controlar_tpu_torch import generate as tgen
+    from controlar_tpu_torch.cells import BATCH, condition_images
+    from controlar_tpu_torch.models import vit as tvit
+    from controlar_tpu_torch.pipeline import ControlARPipeline
+
+    t_phase = time.perf_counter()
+    cfg, vcfg, src = _ckpt_models(torch.float32, "cuda")
+    acfg = tvit.DINOV2_SMALL
+    layouts = {"gpt": cr.gpt_reference_state_dict(src["gpt"]),
+               "vq": cr.vq_reference_state_dict(src["vq"]),
+               "adapter": cr.vit_hf_state_dict(src["adapter"], acfg)}
+    # keys of a ControlAR checkpoint that the GPT loader skips
+    layouts["gpt"]["condition_embeddings.weight"] = torch.zeros(8, 8)
+    loaders = {"gpt": lambda p, dt: ck.load_gpt_checkpoint(p, cfg, dt, "cuda"),
+               "vq": lambda p, dt: ck.load_vq_checkpoint(p, vcfg, dt, "cuda"),
+               "adapter": lambda p, dt: ck.load_adapter_checkpoint(p, acfg, "dinov2", dt,
+                                                                   "cuda")}
+    files, loaded = {}, {}
+    with tempfile.TemporaryDirectory(prefix="controlar_ckpt_") as tmp:
+        for name, sd in layouts.items():
+            sd = {k: v.cpu() for k, v in sd.items()}
+            paths = {"pt": (f"{tmp}/{name}.pt", torch.float32),
+                     "st_fp32": (f"{tmp}/{name}_fp32.safetensors", torch.float32),
+                     "st_bf16": (f"{tmp}/{name}_bf16.safetensors", torch.bfloat16)}
+            torch.save({"model": sd, "args": argparse.Namespace(model=name, seed=0)},
+                       paths["pt"][0])
+            ck.save_safetensors(sd, paths["st_fp32"][0])
+            ck.save_safetensors({k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                                 for k, v in sd.items()}, paths["st_bf16"][0])
+            del sd
+            for kind, (path, dtype) in paths.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model = loaders[name](path, dtype)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                want = src[name].state_dict()
+                got = model.state_dict()
+                check(set(got) == set(want) and all(
+                    got[k].dtype == dtype and torch.equal(got[k], want[k].to(dtype))
+                    for k in want), "checkpoint", f"{name} {kind}: loaded parameters differ "
+                      "from their source")
+                gb = Path(path).stat().st_size / 1e9
+                files[f"{name}_{kind}"] = dict(load_ms=ms, gb=gb, gb_per_s=gb / ms * 1e3)
+                if kind == "st_bf16" and name == "gpt" or kind == "pt" and name != "gpt":
+                    loaded[name] = model
+                del model
+    vq_cpu = src["vq"].cpu()
+    rows = _vq_card_vs_cpu(loaded["vq"], vq_cpu, vcfg)
+    del src, vq_cpu
+
+    seeded = _ckpt_models(torch.bfloat16, "cuda")[2]
+    images = condition_images(BATCH, 384, seed=7)
+    labels = np.arange(BATCH) * 100
+    wrappers = {k: v[0] for k, v in _kernels().items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    tokens = {}
+    for label, mods in (("loaded", loaded), ("seeded", seeded)):
+        pipe = ControlARPipeline(gpt_cfg=cfg, gpt=mods["gpt"], vq_cfg=vcfg, vq=mods["vq"],
+                                 adapter_cfg=acfg, adapter=mods["adapter"], device="cuda")
+        feats = pipe.control_features(pipe.extract_condition(images))
+        tokens[label] = tgen.generate(pipe.gpt, cfg, labels=labels, adapter_features=feats,
+                                      max_new_tokens=CKPT_GREEDY_TOKENS, cfg_scale=4.0,
+                                      sample_logits=False, device="cuda").cpu()
+    launches = collections.Counter({k: fn.launches for k, fn in wrappers.items()})
+    check(torch.equal(tokens["loaded"], tokens["seeded"]), "checkpoint",
+          f"greedy tokens of the loaded pipeline {tokens['loaded'][:, :8].tolist()} differ from "
+          f"the seeded one's {tokens['seeded'][:, :8].tolist()}")
+    want = {"flash_decode_attention": 2 * cfg.n_layer * (CKPT_GREEDY_TOKENS - 1),
+            "append_kv": 2 * cfg.n_layer * (CKPT_GREEDY_TOKENS - 1)}
+    for k, got in launches.items():
+        check(got == want.get(k, 0), "checkpoint", f"{k} launches {got} != {want.get(k, 0)}")
+    del loaded, seeded
+    torch.cuda.empty_cache()
+    emit("checkpoint", ok=True, seconds=time.perf_counter() - t_phase, model="GPT-B c2i 384 px",
+         vq="VQ-16 (encoder included)", adapter="DINOv2-small", files=files,
+         bit_exact=True, **rows, greedy_tokens=CKPT_GREEDY_TOKENS,
+         greedy_first_row=tokens["loaded"][0].tolist(),
+         launches={k: v for k, v in launches.items() if v})
+    return launches
+
+
+# The quality phase: GPT-B c2i toy-trained on the card, then the quant report
+# and an int8 self-draft on the trained weights.
+QUALITY_STEPS, QUALITY_BATCH, QUALITY_BLOCK = 150, 16, 256
+QUALITY_TOKENS, QUALITY_ROWS, QUALITY_SPEC_K = 256, 4, 4
+QUALITY_LOSS_MAX = 2.0     # init ~9.7, the task's optimum ~1.3
+QUALITY_TF_MIN = 0.99      # docs/quant_stress.md's ship threshold, int8 modes
+QUALITY_ACCEPT_MIN = 2.0   # random weights accept ~1.0 a cycle
+# the decode (rollouts), chunk (teacher forcing) and W4 kernels each part
+# of the report must launch; every other attention kernel must not
+_QUALITY_KERNELS = {
+    "bf16": ("flash_decode_attention", "flash_chunk_attention", "append_kv"),
+    "int8": ("flash_decode_attention", "flash_chunk_attention", "append_kv"),
+    "int8+kv8": ("flash_decode_attention_q8", "flash_chunk_attention_q8", "append_kv"),
+    "w4": ("flash_decode_attention", "flash_chunk_attention", "append_kv", "w4_matmul",
+           "w4_ffn"),
+    "w4+kv8": ("flash_decode_attention_q8", "flash_chunk_attention_q8", "append_kv",
+               "w4_matmul", "w4_ffn"),
+    "w4+kv4": ("flash_decode_attention_q4", "flash_chunk_attention_q4", "append_kv",
+               "w4_matmul", "w4_ffn"),
+    "spec": ("flash_decode_attention", "flash_chunk_attention", "append_kv"),
+}
+
+
+def phase_quality() -> collections.Counter:
+    """`toy_train.train` on the basic task (GPT-B c2i, block QUALITY_BLOCK,
+    batch QUALITY_BATCH, AdamW, the training kernels; launches exact), the
+    last logged loss under QUALITY_LOSS_MAX; then on the bf16 model
+    `measure_quant_agreement` in the five modes (QUALITY_TOKENS tokens,
+    QUALITY_ROWS rows), int8 and int8+kv8 gated at teacher-forced agreement
+    >= QUALITY_TF_MIN (W4 printed), each part's kernels launched and no
+    other attention kernel; then greedy speculative decode with an int8 copy
+    as the draft (k = QUALITY_SPEC_K), accepted tokens a cycle above
+    QUALITY_ACCEPT_MIN. Returns the launches."""
+    from controlar_tpu_torch import toy_train
+    from controlar_tpu_torch.eval.quant_report import MODES, measure_quant_agreement
+
+    t_phase = time.perf_counter()
+    cfg = toy_train.toy_config("GPT-B", QUALITY_BLOCK)
+    wrappers = {k: v[0] for k, v in _kernels().items()}
+    total = collections.Counter()
+
+    def take() -> dict:
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        for fn in wrappers.values():
+            fn.launches = 0
+        total.update(got)
+        return got
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = toy_train.train(cfg, steps=QUALITY_STEPS, batch=QUALITY_BATCH, device="cuda",
+                          log=lambda msg: None)
+    train_s = time.perf_counter() - t0
+    got = take()
+    per_step = {"flash_train_fwd": cfg.n_layer * _fwd_per_layer("full"),
+                "flash_train_dq": cfg.n_layer, "flash_train_dkv": cfg.n_layer}
+    for k, n in got.items():
+        check(n == QUALITY_STEPS * per_step.get(k, 0), "quality",
+              f"training: {k} launches {n} != {QUALITY_STEPS * per_step.get(k, 0)}")
+    losses = res["losses"]
+    check(bool(np.isfinite(losses).all()) and losses[-1] < QUALITY_LOSS_MAX, "quality",
+          f"toy training did not converge: losses {losses}")
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms_per_step = res["ms_per_step"]
+    model = res["model"].to(torch.bfloat16)
+    del res
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    by_part = {}
+    rep = measure_quant_agreement(model, cfg, modes=MODES, max_new_tokens=QUALITY_TOKENS,
+                                  labels=np.arange(QUALITY_ROWS) % 16, device="cuda",
+                                  on_mode=lambda m: by_part.__setitem__(m, take()))
+    report_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec = toy_train.spec_acceptance(model, cfg, QUALITY_SPEC_K, QUALITY_TOKENS,
+                                     torch.arange(QUALITY_ROWS, device="cuda") % 16, "cuda")
+    spec_s = time.perf_counter() - t0
+    by_part["spec"] = take()
+    attention = [k for k in wrappers if k.startswith(("flash_decode_attention",
+                                                      "flash_chunk_attention"))]
+    for part, need in _QUALITY_KERNELS.items():
+        got = by_part[part]
+        for k in need:
+            check(got[k] > 0, "quality", f"{part}: {k} was not launched ({got})")
+        for k in attention:
+            check(k in need or got[k] == 0, "quality", f"{part}: {k} launched {got[k]} times")
+    for mode in ("int8", "int8+kv8"):
+        tf = rep[mode]["teacher_forced_agreement"]
+        check(tf >= QUALITY_TF_MIN, "quality",
+              f"{mode}: teacher-forced agreement {tf} < {QUALITY_TF_MIN}")
+    check(spec["accepted_per_cycle"] > QUALITY_ACCEPT_MIN, "quality",
+          f"int8 self-draft accepted {spec['accepted_per_cycle']} a cycle")
+    del model
+    torch.cuda.empty_cache()
+    emit("quality", ok=True, seconds=time.perf_counter() - t_phase, model="GPT-B c2i",
+         task="basic", block_size=QUALITY_BLOCK, batch=QUALITY_BATCH, steps=QUALITY_STEPS,
+         optimizer="adamw", train_s=train_s, ms_per_step=ms_per_step, losses=losses,
+         train_peak_mem_gb=train_peak, report_tokens=QUALITY_TOKENS, report_rows=QUALITY_ROWS,
+         report_s=report_s, quant_report=rep, spec_k=QUALITY_SPEC_K, spec_s=spec_s,
+         spec=spec, launches_by_part={p: {k: v for k, v in d.items() if v}
+                                      for p, d in by_part.items()})
+    return total
+
+
 def _palm_flops(trainer) -> float:
     """Model FLOPs of one step by scripts/bench_train.py's PaLM convention:
     B * sum over the GPT and the adapter of 6 N T + 12 L T^2 d, N the
@@ -2847,6 +3132,10 @@ def main() -> int:
     phase_condition_reference()
     phase_condition()
     launches = collections.Counter()
+    launches.update(phase_checkpoint())
+    torch.cuda.empty_cache()
+    launches.update(phase_quality())
+    torch.cuda.empty_cache()
     for name, runs in CELL_RUNS:
         launches.update(phase_cell(name, runs))
         torch.cuda.empty_cache()
@@ -2876,7 +3165,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"controlar_tpu_torch/csrc/{source}",
             "replaces": replaces,
             **({"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}),
-            # the timed runs of the cells, or for a kernel on no path its phase's checks
+            # the checkpoint and quality phases and the timed runs of the cells, or for a
+            # kernel on no path its phase's checks
             "launches": launches[name] if on_path else off_path_launches[name],
             "on_path": on_path, **({} if on_path else {"why_no_path": OFF_PATH[name]}),
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -1,18 +1,41 @@
-"""Training checkpoints: the state saved with `torch.save`, one
-`step_XXXXXXXX` directory per checkpoint, as the JAX package names them.
+"""Checkpoints: the port's training state, and the loaders of released and
+native weights (the JAX package's `checkpoint.py`).
 
-A checkpoint holds the step, the fp32 parameters, the optimizer's count and
-moments and the EMA; restoring it into a state built the same way continues
-the run bit for bit. Loading released GPT weights (`load_gpt_checkpoint`)
-waits for checkpoints in the repository.
+Training state is saved with `torch.save`, one `step_XXXXXXXX` directory
+per checkpoint, as the JAX package names them. A checkpoint holds the step,
+the fp32 parameters, the optimizer's count and moments and the EMA;
+restoring it into a state built the same way continues the run bit for bit.
+
+Weights load from:
+- the reference's `.pt` / `.pth` (a state dict, or one under "model",
+  "module" or "state_dict"), read with `torch.load(weights_only=True)`;
+  argparse.Namespace, which the reference saves as "args" beside the
+  model, is allowed; any other object (which unpickling could run code
+  for) is refused;
+- `.safetensors`, through the reader below (the 8-byte header length, the
+  JSON header, the raw buffer), so no `safetensors` package is needed;
+- native checkpoints: the JAX package's `.npz` dumps (`tools.py`) and the
+  port's own step directories, or a results directory holding them (the
+  latest step wins). The JAX package's orbax directories cannot be read
+  without orbax; they raise an error that names the format.
+`load_gpt_checkpoint`, `load_vq_checkpoint` and `load_adapter_checkpoint`
+return the port's module on the asked device and dtype.
 """
 from __future__ import annotations
 
+import argparse
+import json
 import os
-from typing import Optional
+import struct
+from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
+from controlar_tpu_torch import convert, convert_ref, resolve_device, tools
+from controlar_tpu_torch.models import gpt as gpt_model
+from controlar_tpu_torch.models import vit as vit_model
+from controlar_tpu_torch.models import vq as vq_model
 from controlar_tpu_torch.train.optimizer import AdamState
 from controlar_tpu_torch.train.step import TrainState
 
@@ -64,9 +87,198 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.join(ckpt_dir, steps[-1]) if steps else None
 
 
-def load_gpt_checkpoint(path: str, cfg):
-    """Released GPT weights (the reference's .pt / .safetensors, or a native
-    checkpoint) for `TrainerConfig.gpt_ckpt`."""
-    raise NotImplementedError(
-        "loading GPT checkpoints is not ported yet (no released checkpoint is in the "
-        "repository to hold it to)")
+# ---------------------------------------------------------------------------
+# Files: .pt / .pth and .safetensors
+# ---------------------------------------------------------------------------
+
+_ST_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+              "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+              "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A .safetensors file -> {name: CPU tensor} in the file's dtypes."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        buf = bytearray(f.read())
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _ST_DTYPES:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}, which this reader "
+                             f"does not take ({sorted(_ST_DTYPES)})")
+        dtype, shape = _ST_DTYPES[info["dtype"]], info["shape"]
+        begin, end = info["data_offsets"]
+        count = int(np.prod(shape, dtype=np.int64))
+        if (not 0 <= begin <= end <= len(buf)
+                or end - begin != count * torch.empty((), dtype=dtype).element_size()):
+            raise ValueError(f"{path}: {name} has bytes [{begin}, {end}) of {len(buf)} for "
+                             f"shape {shape}")
+        t = (torch.frombuffer(buf, dtype=dtype, count=count, offset=begin) if count
+             else torch.empty(0, dtype=dtype))
+        out[name] = t.reshape(shape)
+    return out
+
+
+def save_safetensors(sd: Mapping[str, torch.Tensor], path: str) -> None:
+    """Write {name: tensor} as .safetensors (the header padded with spaces to
+    8 bytes, tensors in the given order); any reader of the format takes it."""
+    header: Dict[str, Any] = {}
+    blobs, offset = [], 0
+    for name, t in sd.items():
+        t = t.detach().cpu().contiguous()
+        data = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for data in blobs:
+            f.write(data)
+
+
+def unwrap_state_dict(ckpt: Mapping) -> Mapping:
+    """The reference's checkpoint containers: the state dict under "model",
+    "module" or "state_dict", else the mapping itself."""
+    for key in ("model", "module", "state_dict"):
+        if key in ckpt and isinstance(ckpt[key], Mapping):
+            return ckpt[key]
+    return ckpt
+
+
+def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
+    """A .pt / .pth or .safetensors file -> a flat state dict of CPU tensors
+    (the reference's wrappers removed)."""
+    if path.endswith(".safetensors"):
+        return load_safetensors(path)
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = unwrap_state_dict(ckpt) if isinstance(ckpt, Mapping) else ckpt
+    return {k: v.detach() if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+            for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# Native checkpoints
+# ---------------------------------------------------------------------------
+
+def _step_dir(path: str) -> str:
+    """A step_XXXXXXXX directory, or the latest one in a results directory
+    (or its `checkpoints`)."""
+    p = os.path.abspath(path)
+    if not os.path.basename(p).startswith("step_"):
+        sub = os.path.join(p, "checkpoints")
+        if os.path.isdir(sub):
+            p = sub
+        latest = latest_checkpoint(p)
+        if latest:
+            p = latest
+    return p
+
+
+def load_native_checkpoint(path: str) -> Dict[str, Any]:
+    """A .npz parameter dump (either package's `export_params_npz`: the
+    nested tree of tensors), or the port's training checkpoint (a
+    step_XXXXXXXX directory, or a results directory holding them; the
+    latest step wins): its saved dict {step, params, ..., ema_params}."""
+    if path.endswith(".npz"):
+        return tools.import_params_npz(path)
+    p = _step_dir(path)
+    f = os.path.join(p, _FILE)
+    if not os.path.isfile(f):
+        raise ValueError(
+            f"{p} holds no {_FILE}: an orbax checkpoint directory of the JAX package cannot be "
+            "read without orbax; export its parameters with the JAX package's "
+            "tools.export_params_npz and load the .npz")
+    return torch.load(f, map_location="cpu", weights_only=True)
+
+
+def _is_native(path: str) -> bool:
+    return path.endswith(".npz") or os.path.isdir(path)
+
+
+def _is_flat(tree: Mapping) -> bool:
+    """The port's flat state dict (dotted names), not the JAX package's tree."""
+    return all(isinstance(v, torch.Tensor) for v in tree.values())
+
+
+def _strip(tree: Mapping, prefix: str) -> Dict[str, Any]:
+    if _is_flat(tree) and any(k.startswith(prefix) for k in tree):
+        return {k[len(prefix):]: v for k, v in tree.items() if k.startswith(prefix)}
+    return dict(tree)
+
+
+def native_params(tree: Mapping, module: str) -> Dict[str, Any]:
+    """A module's parameters in a native checkpoint: the EMA when there is
+    one, else the params, else the tree itself; under `module` (the JAX
+    package's control state) or `module.` (the port's `ControlModel`) when
+    present."""
+    params = tree.get("ema_params") or tree.get("params") or tree
+    if module in params and isinstance(params[module], Mapping):
+        return params[module]
+    return _strip(params, module + ".")
+
+
+def native_gpt_params(tree: Mapping) -> Dict[str, Any]:
+    """The GPT's parameters of a native checkpoint (`native_params`)."""
+    return native_params(tree, "gpt")
+
+
+def load_gpt_checkpoint(path: str, cfg, dtype: torch.dtype = torch.float32, device="cuda",
+                        fill_from: Optional[gpt_model.GPT] = None) -> gpt_model.GPT:
+    """GPT weights -> the port's GPT on `device` in `dtype`: a reference
+    .pt / .safetensors (`convert_ref.gpt_from_state_dict`; a base LlamaGen
+    checkpoint's control modules from `fill_from`, else from
+    `init_gpt(cfg, 0)`), a JAX .npz dump (`convert.gpt_from_jax`) or a port
+    step directory."""
+    device = resolve_device(device)
+    if not _is_native(path):
+        return convert_ref.gpt_from_state_dict(load_torch_file(path), cfg, dtype, device,
+                                               fill_from)
+    params = native_gpt_params(load_native_checkpoint(path))
+    if _is_flat(params):
+        return convert._build(lambda: gpt_model.GPT(cfg), params, dtype, device)
+    return convert.gpt_from_jax(params, cfg, dtype, device)
+
+
+def load_vq_checkpoint(path: str, cfg, dtype: torch.dtype = torch.float32,
+                       device="cuda") -> vq_model.VQModel:
+    """VQ weights, encoder included -> the port's VQModel: a reference .pt /
+    .safetensors, a JAX .npz dump (the EMA first, then vq_params, then
+    params, as the JAX package reads its VQ training state) or a port step
+    directory."""
+    device = resolve_device(device)
+    if not _is_native(path):
+        return convert_ref.vq_from_state_dict(load_torch_file(path), cfg, dtype, device)
+    tree = load_native_checkpoint(path)
+    for key in ("ema_params", "vq_params", "params"):
+        if isinstance(tree.get(key), Mapping):
+            tree = tree[key]
+            break
+    if _is_flat(tree):
+        return convert._build(lambda: vq_model.VQModel(cfg), tree, dtype, device)
+    return convert.vq_from_jax(tree, cfg, dtype, device)
+
+
+def load_adapter_checkpoint(path: str, cfg: vit_model.ViTConfig = vit_model.DINOV2_SMALL,
+                            flavor: str = "dinov2", dtype: torch.dtype = torch.float32,
+                            device="cuda") -> vit_model.ViT:
+    """The adapter backbone from an HF state dict file (.pt / .bin /
+    .safetensors; `convert_ref.vit_from_hf_state_dict`), a JAX .npz dump
+    (its parameters, or a control state's "adapter") or a port step
+    directory (its `ControlModel`'s "adapter." parameters)."""
+    device = resolve_device(device)
+    if not _is_native(path):
+        return convert_ref.vit_from_hf_state_dict(load_torch_file(path), cfg, flavor, dtype,
+                                                  device)
+    params = native_params(load_native_checkpoint(path), "adapter")
+    if _is_flat(params):
+        return convert._build(lambda: vit_model.ViT(cfg), params, dtype, device)
+    return convert.vit_from_jax(params, cfg, dtype, device)

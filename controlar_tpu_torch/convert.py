@@ -1,11 +1,12 @@
 """Carry the JAX package's parameter pytrees into the port's modules.
 
 Each function takes the JAX parameters as nested dicts and lists of numpy
-arrays (per-layer weights stacked on a leading (L, ...) axis, or a list of
-per-layer dicts) and returns the port's module, loaded with
-`load_state_dict(strict=True)`. Linears stored (in, out) become torch's
-(out, in); convolutions stored HWIO become OIHW, and transposed ones
-(stored flipped, HWIO) torch's unflipped (C_in, C_out, KH, KW).
+arrays or CPU tensors (`tools.import_params_npz`; per-layer weights stacked
+on a leading (L, ...) axis, or a list of per-layer dicts) and returns the
+port's module, loaded with `load_state_dict(strict=True)`. Linears stored
+(in, out) become torch's (out, in); convolutions stored HWIO become OIHW,
+and transposed ones (stored flipped, HWIO) torch's unflipped (C_in, C_out,
+KH, KW).
 
 `gpt_from_jax` also takes the JAX package's quantized trees (from
 `quantize_gpt_params`, stacked or not, and `quantize_gpt_params_w4`): a
@@ -34,6 +35,8 @@ Tree = Dict[str, Any]
 
 
 def _t(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a leaf of `tools.import_params_npz` (bf16 included)
+        return a.detach().to("cpu", torch.float32)
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
@@ -65,8 +68,8 @@ def _quantized(w) -> Optional[torch.nn.Module]:
         return None
     s = _t(w["s"])
     if "q4" in w:
-        return quant.W4Linear(torch.from_numpy(np.array(w["q4"], dtype=np.int8)), s)
-    return quant.W8Linear(torch.from_numpy(np.array(w["q"], dtype=np.int8)), s)
+        return quant.W4Linear(torch.as_tensor(np.asarray(w["q4"], dtype=np.int8)), s)
+    return quant.W8Linear(torch.as_tensor(np.asarray(w["q"], dtype=np.int8)), s)
 
 
 def gpt_from_jax(params: Tree, cfg: GPTConfig, dtype: torch.dtype = torch.float32,
@@ -170,7 +173,7 @@ def _tree_sd(tree) -> Dict[str, torch.Tensor]:
     for key, a in flat.items():
         path, _, leaf = key.rpartition(".")
         if leaf == "w":
-            sd[f"{path}.weight"] = _conv(a) if np.ndim(a) == 4 else _lin(a)
+            sd[f"{path}.weight"] = _conv(a) if _t(a).dim() == 4 else _lin(a)
         elif leaf == "b":
             sd[f"{path}.bias"] = _t(a)
         else:
@@ -192,9 +195,10 @@ def _build(make, sd, dtype, device) -> torch.nn.Module:
 
 def vq_from_jax(params: Tree, cfg: VQConfig, dtype: torch.dtype = torch.float32,
                 device="cpu") -> vq_model.VQModel:
-    """The decoding half: post_quant_conv, codebook and decoder (the
-    encoder's parameters are not read)."""
-    sd = _tree_sd({k: params[k] for k in ("post_quant_conv", "codebook", "decoder")})
+    """The tokenizer: encoder, quant_conv, codebook, post_quant_conv and
+    decoder."""
+    keys = ("encoder", "quant_conv", "post_quant_conv", "codebook", "decoder")
+    sd = _tree_sd({k: params[k] for k in keys})
     return _build(lambda: vq_model.VQModel(cfg), sd, dtype, device)
 
 

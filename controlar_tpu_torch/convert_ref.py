@@ -1,8 +1,17 @@
-"""Load the condition networks' published checkpoints into the port's
-modules. Each takes a state dict in the checkpoint's own key layout (torch
-tensors or numpy arrays) and keeps torch's weight layouts; keys the port
-does not use are ignored, a key it needs and does not find raises.
+"""Load published checkpoints into the port's modules. Each loader takes a
+state dict in the checkpoint's own key layout (torch tensors or numpy
+arrays) and keeps torch's weight layouts; keys the port does not use are
+ignored, a key it needs and does not find raises.
 
+- GPT: the reference LlamaGen / ControlAR `.pt` / `.safetensors`
+  (`layers.{i}.attention.wqkv`, `feed_forward.w1`, `cls_embedding.
+  embedding_table`, `cap_proj.*`; `adapter.*`, `condition_embeddings` and
+  `condition_norm` are not read). A base LlamaGen checkpoint has no
+  `adapter_mlp`, `condition_mlp` or `condition_layers`: those come from the
+  GPT given as `fill_from`, else from the port's own `init_gpt(cfg, 0)`;
+- the DINOv2 / ViT adapter: HF `Dinov2Model` (`facebook/dinov2-small`) or
+  `ViTModel`, the patch projection kept OIHW;
+- VQ: the reference VQModel `.pt` (`{"model": sd}`), encoder included;
 - HED: ControlNet's annotator `ControlNetHED.pth` (ControlNetHED_Apache2);
 - lineart: the annotator's `sk_model.pth` (a pix2pix generator);
 - DPT: HF `DPTForDepthEstimation` (`Intel/dpt-large`);
@@ -11,43 +20,193 @@ does not use are ignored, a key it needs and does not find raises.
   backbone`, the readouts under `pretrained.act_postprocess{3,4}`, the
   fusion and head under `scratch`).
 
-Widths are read from the state dict (HED channels, lineart ngf); the DPT
-and MiDaS configurations are given.
+Each layout is a table of regex rules that rewrite a port parameter's name
+into the checkpoint's key (`_RULES` below); `reference_state_dict` reads the
+same table the other way, from a port module to a state dict in the
+checkpoint's layout. Widths are read from the state dict (HED channels,
+lineart ngf); the other configurations are given.
 """
 from __future__ import annotations
 
 import re
-from typing import Callable, Mapping, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from controlar_tpu_torch import resolve_device
+from controlar_tpu_torch.config import GPTConfig, VQConfig
 from controlar_tpu_torch.models import control_nets
 from controlar_tpu_torch.models import dpt as dpt_model
+from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.models import midas as midas_model
+from controlar_tpu_torch.models import vit as vit_model
+from controlar_tpu_torch.models import vq as vq_model
 
 Rules = Sequence[Tuple[str, str]]
 
 
+def _ref_key(name: str, rules: Rules) -> str:
+    for pattern, repl in rules:
+        name = re.sub(pattern, repl, name)
+    return name
+
+
+def _tensor(v) -> torch.Tensor:
+    return v.detach() if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+
+
 def _load_renamed(make: Callable[[], torch.nn.Module], sd: Mapping, rules: Rules,
-                  device) -> torch.nn.Module:
-    """Build `make()` on `device` and fill each parameter from
+                  device, dtype: torch.dtype = torch.float32,
+                  fallback: Optional[Callable[[str], torch.Tensor]] = None) -> torch.nn.Module:
+    """Build `make()` on `device` in `dtype` and fill each parameter from
     sd[its name rewritten by `rules`] (regex substitutions in order),
     reshaped to the parameter's shape (class tokens, position tables and
-    the HED shift are stored with extra unit axes)."""
+    the HED shift are stored with extra unit axes). A key that sd lacks is
+    taken from fallback(parameter name) when given. The values are cast
+    once, so a checkpoint loaded in its own dtype is copied bit for bit."""
     device = resolve_device(device)
     with torch.device("meta"):
         model = make()
     out = {}
     for name, p in model.state_dict().items():
-        key = name
-        for pattern, repl in rules:
-            key = re.sub(pattern, repl, key)
-        out[name] = torch.from_numpy(np.array(sd[key], dtype=np.float32)).reshape(p.shape)
-    model = model.to_empty(device=device)
+        key = _ref_key(name, rules)
+        v = fallback(name) if fallback is not None and key not in sd else sd[key]
+        out[name] = _tensor(v).to(dtype).reshape(p.shape)
+    model = model.to(dtype).to_empty(device=device)
     model.load_state_dict(out, strict=True)
-    return model.float().eval().requires_grad_(False)
+    return model.eval().requires_grad_(False)
+
+
+def reference_state_dict(model: torch.nn.Module, rules: Rules,
+                         shapes: Optional[Dict[str, Tuple[int, ...]]] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """The module's parameters under the checkpoint's keys (`rules` read
+    from the module's side), reshaped to `shapes[key]` where the checkpoint
+    stores extra unit axes; the tensors are the module's own (detached)."""
+    shapes = shapes or {}
+    out = {}
+    for name, t in model.state_dict().items():
+        key = _ref_key(name, rules)
+        out[key] = t.detach().reshape(shapes.get(key, t.shape))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# GPT (reference `autoregressive/models/gpt*.py` layout)
+# ---------------------------------------------------------------------------
+
+GPT_RULES = [
+    (r"^cls_embedding\.embedding\.", "cls_embedding.embedding_table."),
+    (r"^cls_embedding\.(fc\d)\.", r"cls_embedding.cap_proj.\1."),
+    (r"^condition_mlp\.", "condition_mlp.cap_proj."),
+    (r"^layers\.(\d+)\.(attention_norm|ffn_norm)$", r"layers.\1.\2.weight"),
+    (r"^layers\.(\d+)\.(wqkv|wo)\.", r"layers.\1.attention.\2."),
+    (r"^layers\.(\d+)\.(w1|w2|w3)\.", r"layers.\1.feed_forward.\2."),
+    (r"^norm$", "norm.weight"),
+]
+# the ControlAR modules a base LlamaGen checkpoint lacks
+CONTROL_MODULES = ("adapter_mlp.", "condition_mlp.", "condition_layers.")
+
+
+def gpt_from_state_dict(sd: Mapping, cfg: GPTConfig, dtype: torch.dtype = torch.float32,
+                        device="cuda",
+                        fill_from: Optional[gpt_model.GPT] = None) -> gpt_model.GPT:
+    """A GPT from a reference state dict; the control modules it lacks (a
+    base LlamaGen checkpoint) come from `fill_from` when given, else from
+    `init_gpt(cfg, 0)`."""
+    device = resolve_device(device)
+    fresh = {}
+
+    def fallback(name: str) -> torch.Tensor:
+        if not name.startswith(CONTROL_MODULES):
+            raise KeyError(f"{_ref_key(name, GPT_RULES)} (parameter {name}) is not in the "
+                           "state dict")
+        if not fresh:
+            src = fill_from if fill_from is not None else gpt_model.init_gpt(cfg, seed=0)
+            fresh.update(src.state_dict())
+        return fresh[name]
+
+    return _load_renamed(lambda: gpt_model.GPT(cfg), sd, GPT_RULES, device, dtype, fallback)
+
+
+def gpt_reference_state_dict(model: gpt_model.GPT) -> Dict[str, torch.Tensor]:
+    return reference_state_dict(model, GPT_RULES)
+
+
+# ---------------------------------------------------------------------------
+# DINOv2 / ViT adapter (HF `Dinov2Model` / `ViTModel` layout)
+# ---------------------------------------------------------------------------
+
+_QKV = {"q": "query", "k": "key", "v": "value"}
+_VIT_COMMON = [
+    (r"^cls_token$", "embeddings.cls_token"),
+    (r"^pos_embed$", "embeddings.position_embeddings"),
+    (r"^patch_proj\.", "embeddings.patch_embeddings.projection."),
+    (r"^final_norm\.scale$", "layernorm.weight"),
+    (r"^final_norm\.bias$", "layernorm.bias"),
+    (r"^layers\.(\d+)\.([qkv])\.",
+     lambda m: f"encoder.layer.{m[1]}.attention.attention.{_QKV[m[2]]}."),
+    (r"^layers\.(\d+)\.out\.", r"encoder.layer.\1.attention.output.dense."),
+]
+VIT_RULES = {
+    "dinov2": _VIT_COMMON + [
+        (r"^layers\.(\d+)\.(norm\d)\.scale$", r"encoder.layer.\1.\2.weight"),
+        (r"^layers\.(\d+)\.(norm\d)\.bias$", r"encoder.layer.\1.\2.bias"),
+        (r"^layers\.(\d+)\.(fc\d)\.", r"encoder.layer.\1.mlp.\2."),
+        (r"^layers\.(\d+)\.ls(\d)$", r"encoder.layer.\1.layer_scale\2.lambda1"),
+    ],
+    "vit": _VIT_COMMON + [
+        (r"^layers\.(\d+)\.norm1\.scale$", r"encoder.layer.\1.layernorm_before.weight"),
+        (r"^layers\.(\d+)\.norm1\.bias$", r"encoder.layer.\1.layernorm_before.bias"),
+        (r"^layers\.(\d+)\.norm2\.scale$", r"encoder.layer.\1.layernorm_after.weight"),
+        (r"^layers\.(\d+)\.norm2\.bias$", r"encoder.layer.\1.layernorm_after.bias"),
+        (r"^layers\.(\d+)\.fc1\.", r"encoder.layer.\1.intermediate.dense."),
+        (r"^layers\.(\d+)\.fc2\.", r"encoder.layer.\1.output.dense."),
+    ],
+}
+
+
+def _vit_rules(flavor: str) -> Rules:
+    if flavor not in VIT_RULES:
+        raise ValueError(f"flavor must be 'dinov2' or 'vit', got {flavor!r}")
+    return VIT_RULES[flavor]
+
+
+def vit_from_hf_state_dict(sd: Mapping, cfg: vit_model.ViTConfig = vit_model.DINOV2_SMALL,
+                           flavor: str = "dinov2", dtype: torch.dtype = torch.float32,
+                           device="cuda") -> vit_model.ViT:
+    """The adapter backbone from an HF state dict."""
+    return _load_renamed(lambda: vit_model.ViT(cfg), sd, _vit_rules(flavor), device, dtype)
+
+
+def vit_hf_state_dict(model: vit_model.ViT, cfg: vit_model.ViTConfig,
+                      flavor: str = "dinov2") -> Dict[str, torch.Tensor]:
+    c = cfg.hidden_size
+    return reference_state_dict(model, _vit_rules(flavor), {
+        "embeddings.cls_token": (1, 1, c),
+        "embeddings.position_embeddings": (1, cfg.pos_grid ** 2 + 1, c)})
+
+
+# ---------------------------------------------------------------------------
+# VQ tokenizer (reference `tokenizer/tokenizer_image/vq_model.py` layout)
+# ---------------------------------------------------------------------------
+
+VQ_RULES = [
+    (r"^(encoder|decoder)\.levels\.", r"\1.conv_blocks."),
+    (r"\.scale$", ".weight"),
+    (r"^codebook$", "quantize.embedding.weight"),
+]
+
+
+def vq_from_state_dict(sd: Mapping, cfg: VQConfig, dtype: torch.dtype = torch.float32,
+                       device="cuda") -> vq_model.VQModel:
+    """The tokenizer, encoder included, from a reference state dict."""
+    return _load_renamed(lambda: vq_model.VQModel(cfg), sd, VQ_RULES, device, dtype)
+
+
+def vq_reference_state_dict(model: vq_model.VQModel) -> Dict[str, torch.Tensor]:
+    return reference_state_dict(model, VQ_RULES)
 
 
 def hed_from_state_dict(sd: Mapping, device="cuda") -> control_nets.HED:

@@ -107,49 +107,74 @@ class AdamW:
         """Clip, update the moments and the parameters; -> (new state, the
         gradients' global norm before clipping). grads holds a tensor for
         every parameter. The parameters, the gradients and (fp32) moments
-        are updated in place."""
+        are updated in place. After the global norm, the update runs over
+        groups of at most CHUNK_ELEMENTS elements, so its fp32 temporaries
+        stay a bounded size whatever the model's (each value is the same as
+        in one pass: every operation is elementwise)."""
         names = list(params)
-        p = [params[n] for n in names]
-        g = [grads[n].float() for n in names]
-        norm = global_norm(g)
+        norm = global_norm([grads[n].float() for n in names])
         # g * keep + (g / norm * max) * (1 - keep) with keep 0 or 1 selects
         # exactly, without a host sync on the norm
         keep = (norm < self.max_grad_norm).float()
-        clipped = torch._foreach_div(g, norm)
-        torch._foreach_mul_(clipped, self.max_grad_norm)
-        torch._foreach_mul_(clipped, 1.0 - keep)
-        torch._foreach_mul_(g, keep)
-        torch._foreach_add_(g, clipped)
-        del clipped
-        mu = [state.mu[n].float() for n in names]
-        nu = [state.nu[n].float() for n in names]
-        torch._foreach_mul_(mu, self.beta1)
-        torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - self.beta1))
-        torch._foreach_mul_(nu, self.beta2)
-        torch._foreach_mul_(g, g)
-        torch._foreach_mul_(g, 1.0 - self.beta2)
-        torch._foreach_add_(nu, g)
-        del g
         count = state.count + 1
         bc1 = float(np.float32(1) - np.float32(self.beta1) ** np.int32(count))
         bc2 = float(np.float32(1) - np.float32(self.beta2) ** np.int32(count))
-        upd = torch._foreach_div(mu, bc1)
-        denom = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        torch._foreach_div_(upd, denom)
-        del denom
-        if self.weight_decay:
-            decay = decay_mask(params)
-            idx = [i for i, n in enumerate(names) if decay[n]]
-            torch._foreach_add_([upd[i] for i in idx],
-                                torch._foreach_mul([p[i] for i in idx], self.weight_decay))
         lr = self.lr_schedule(state.count) if self.lr_schedule is not None else self.lr
-        torch._foreach_mul_(upd, -lr)
-        torch._foreach_add_(p, upd)
+        decay = decay_mask(params) if self.weight_decay else {}
         dtype = self.state_dtype
-        return AdamState(count, {n: m.to(dtype or m.dtype) for n, m in zip(names, mu)},
-                         {n: v.to(dtype or v.dtype) for n, v in zip(names, nu)}), norm
+        new_mu, new_nu = {}, {}
+        for group in _groups(params, CHUNK_ELEMENTS):
+            p = [params[n] for n in group]
+            g = [grads[n].float() for n in group]
+            clipped = torch._foreach_div(g, norm)
+            torch._foreach_mul_(clipped, self.max_grad_norm)
+            torch._foreach_mul_(clipped, 1.0 - keep)
+            torch._foreach_mul_(g, keep)
+            torch._foreach_add_(g, clipped)
+            del clipped
+            mu = [state.mu[n].float() for n in group]
+            nu = [state.nu[n].float() for n in group]
+            torch._foreach_mul_(mu, self.beta1)
+            torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - self.beta1))
+            torch._foreach_mul_(nu, self.beta2)
+            torch._foreach_mul_(g, g)
+            torch._foreach_mul_(g, 1.0 - self.beta2)
+            torch._foreach_add_(nu, g)
+            del g
+            upd = torch._foreach_div(mu, bc1)
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            torch._foreach_div_(upd, denom)
+            del denom
+            idx = [i for i, n in enumerate(group) if decay.get(n)]
+            if idx:
+                torch._foreach_add_([upd[i] for i in idx],
+                                    torch._foreach_mul([p[i] for i in idx], self.weight_decay))
+            torch._foreach_mul_(upd, -lr)
+            torch._foreach_add_(p, upd)
+            del upd
+            for n, m, v in zip(group, mu, nu):
+                new_mu[n], new_nu[n] = m.to(dtype or m.dtype), v.to(dtype or v.dtype)
+        return AdamState(count, new_mu, new_nu), norm
+
+
+# the elements an AdamW group updates at once: 1 GiB of fp32 per temporary
+CHUNK_ELEMENTS = 1 << 28
+
+
+def _groups(params: Tensors, limit: int):
+    """The names in order, in runs of at most `limit` elements (a larger
+    tensor alone)."""
+    group, size = [], 0
+    for n, t in params.items():
+        if group and size + t.numel() > limit:
+            yield group
+            group, size = [], 0
+        group.append(n)
+        size += t.numel()
+    if group:
+        yield group
 
 
 def make_optimizer(lr: float = 1e-4, weight_decay: float = 5e-2, beta1: float = 0.9,

@@ -166,12 +166,21 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """Fresh fp32 weights from cfg.seed (GPT) and cfg.seed + 1 (adapter),
-        gradients on for every parameter but the frozen ones; the latest
-        checkpoint of cfg.resume_dir restored when there is one."""
+        the GPT's replaced by those of cfg.gpt_ckpt when given
+        (`checkpoint.load_gpt_checkpoint`, cast to each parameter's dtype; the
+        control modules a base checkpoint lacks stay the fresh ones), gradients on
+        for every parameter but the frozen ones; the latest checkpoint of
+        cfg.resume_dir restored when there is one."""
         cfg = self.cfg
         gpt = gpt_model.init_gpt(self.gpt_cfg, seed=cfg.seed, device=self.device)
         if cfg.gpt_ckpt:
-            ckpt_lib.load_gpt_checkpoint(cfg.gpt_ckpt, self.gpt_cfg)
+            loaded = ckpt_lib.load_gpt_checkpoint(cfg.gpt_ckpt, self.gpt_cfg, device="cpu",
+                                                  fill_from=gpt).state_dict()
+            with torch.no_grad():
+                for name, p in gpt.state_dict().items():
+                    p.copy_(loaded[name].to(p.dtype))
+            del loaded
+            self.log(f"loaded GPT weights from {cfg.gpt_ckpt}")
         adapter = vit_model.init_vit(self.adapter_cfg, seed=cfg.seed + 1, device=self.device)
         self.model = ControlModel(gpt, adapter)
         frozen = frozen_mask(dict(self.model.named_parameters()))

@@ -1952,3 +1952,109 @@ def test_c2i_depth_pipeline_on_the_card(fp32_exact):
     assert out.shape == (2, img, img, 3) and out.dtype == np.uint8
     assert fd.flash_decode_attention.launches == cfg.n_layer * (cfg.block_size - 1)
     assert list(timings) == ["condition", "adapter", "tokens", "vq_decode"]
+
+
+# ---------------------------------------------------------------------------
+# Slice 8: checkpoint loading, the VQ encoder, the quant report on the card
+# ---------------------------------------------------------------------------
+
+def test_safetensors_bf16_loads_onto_the_card_bit_for_bit(dev, tmp_path):
+    """A bf16 .safetensors in the reference GPT layout -> load_gpt_checkpoint
+    on the card in bf16: every parameter its source's bits."""
+    from controlar_tpu_torch import checkpoint, convert_ref
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.models import gpt as tgpt
+
+    cfg = GPTConfig(model_type="t2i", dim=128, n_layer=3, n_head=2, vocab_size=64,
+                    caption_dim=32, cls_token_num=5, block_size=16)
+    src = tgpt.init_gpt(cfg, seed=5)
+    sd = {k: v.bfloat16() for k, v in convert_ref.gpt_reference_state_dict(src).items()}
+    path = str(tmp_path / "gpt_bf16.safetensors")
+    checkpoint.save_safetensors(sd, path)
+    raw = checkpoint.load_safetensors(path)
+    assert all(torch.equal(raw[k], v) for k, v in sd.items())
+    got = checkpoint.load_gpt_checkpoint(path, cfg, torch.bfloat16, dev)
+    want = src.to(torch.bfloat16).state_dict()
+    for k, v in got.state_dict().items():
+        assert v.device.type == "cuda" and v.dtype == torch.bfloat16
+        assert torch.equal(v.cpu(), want[k]), k
+
+
+def test_trainer_on_the_card_keeps_its_control_modules_on_a_base_checkpoint(dev, tmp_path):
+    """TrainerConfig.gpt_ckpt of a base checkpoint on the card: the file's
+    parameters, and the control modules of the trainer's own fresh GPT
+    (drawn on the card), not a CPU draw."""
+    from controlar_tpu_torch import checkpoint, convert_ref
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.models import vit as tvit
+    from controlar_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    kw = dict(gpt_model="GPT-B", image_size=64, cls_token_num=8, global_batch_size=2,
+              seed=3, model_overrides=dict(dim=64, n_layer=3, n_head=4, vocab_size=64,
+                                           caption_dim=32),
+              adapter_override=tvit.ViTConfig(hidden_size=384, n_layer=1, n_head=2,
+                                              pos_grid=4))
+    fresh = Trainer(TrainerConfig(results_dir=str(tmp_path / "a"), **kw), device=dev)
+    fresh.init_state()
+    weights = tgpt.init_gpt(fresh.gpt_cfg, seed=9)
+    path = str(tmp_path / "base.safetensors")
+    checkpoint.save_safetensors({k: v for k, v in
+                                 convert_ref.gpt_reference_state_dict(weights).items()
+                                 if not k.startswith(convert_ref.CONTROL_MODULES)}, path)
+    loaded = Trainer(TrainerConfig(results_dir=str(tmp_path / "b"), gpt_ckpt=path, **kw),
+                     device=dev)
+    loaded.init_state()
+    for n, p in loaded.model.gpt.named_parameters():
+        assert p.device.type == "cuda", n
+        want = fresh.model.gpt if n.startswith(convert_ref.CONTROL_MODULES) else weights
+        assert torch.equal(p.cpu(), want.state_dict()[n].cpu()), n
+
+
+def test_vq_encode_card_matches_cpu(fp32_exact):
+    """encode then decode_code of a small VQ, card against CPU, fp32: codes
+    equal or ties (their distances within 1e-5), images within 1e-4."""
+    from controlar_tpu_torch.config import VQConfig
+    from controlar_tpu_torch.models import vq as tvq
+
+    cfg = VQConfig(codebook_size=256, codebook_embed_dim=8, z_channels=32, ch=32,
+                   encoder_ch_mult=(1, 1, 2, 4), decoder_ch_mult=(1, 1, 2, 4))
+    vq_cpu = tvq.init_vq(cfg, seed=6)
+    vq_card = copy.deepcopy(vq_cpu).to(fp32_exact)
+    x = torch.rand(2, 64, 96, 3, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    with torch.inference_mode():
+        zq_card, idx_card = tvq.encode(vq_card, cfg, x.to(fp32_exact), device=fp32_exact)
+        zq_cpu, idx_cpu = tvq.encode(vq_cpu, cfg, x, device="cpu")
+        h = tvq._conv(vq_cpu.quant_conv, tvq.encoder_forward(vq_cpu.encoder, cfg, x))
+        differ = idx_card.cpu() != idx_cpu
+        if differ.any():
+            zn = torch.nn.functional.normalize(h[differ], dim=-1)
+            emb = tvq._codebook(vq_cpu, cfg)
+            d = (zn * zn).sum(-1, keepdim=True) + (emb * emb).sum(-1) - 2 * zn @ emb.T
+            rows = torch.arange(len(zn))
+            gap = (d[rows, idx_card.cpu()[differ]] - d[rows, idx_cpu[differ]]).abs()
+            assert gap.max().item() <= 1e-5
+        assert (zq_card.cpu()[~differ] - zq_cpu[~differ]).abs().max().item() <= 1e-5
+        img_card = tvq.decode_code(vq_card, cfg, idx_cpu.to(fp32_exact)).cpu()
+        img_cpu = tvq.decode_code(vq_cpu, cfg, idx_cpu)
+    assert img_card.shape == (2, 64, 96, 3)
+    assert (img_card - img_cpu).abs().max().item() <= 1e-4
+
+
+def test_quant_report_on_the_card(dev):
+    """measure_quant_agreement of a small bf16 c2i model on the card: every
+    metric of every mode in range; the W4 modes launch the W4 kernels."""
+    from controlar_tpu_torch.config import GPTConfig
+    from controlar_tpu_torch.eval.quant_report import MODES, measure_quant_agreement
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.ops import w4_matmul as w4
+
+    cfg = GPTConfig(model_type="c2i", dim=128, n_layer=3, n_head=2, cls_token_num=1,
+                    block_size=64, vocab_size=512, num_classes=16)
+    model = tgpt.init_gpt(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    w4.w4_matmul.launches = 0
+    rep = measure_quant_agreement(model, cfg, modes=MODES, max_new_tokens=64, device=dev)
+    assert set(rep) == set(MODES) and w4.w4_matmul.launches > 0
+    for m in rep.values():
+        assert 0 <= m["teacher_forced_agreement"] <= 1 and 0 <= m["sampled_agreement"] <= 1
+        assert 0 <= m["mean_prefix_survival"] <= 64 and np.isfinite(m["max_rel_logit_err"])
+    assert rep["int8"]["max_rel_logit_err"] <= rep["w4"]["max_rel_logit_err"]

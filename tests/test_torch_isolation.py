@@ -131,18 +131,24 @@ def test_trainer_raises_without_a_card_unless_cpu_is_asked(tmp_path):
         Trainer(TrainerConfig(**{**tcfg.__dict__, "fsdp_axis": 2}), device="cpu")
 
 
+# packages the card's machine does not have
+ABSENT_ON_THE_CARD = ("transformers", "timm", "cv2", "safetensors", "ml_dtypes", "orbax")
+
+
 def test_port_imports_no_transformers_timm_or_cv2():
-    """The card's machine has none of them: no module of the port names one,
+    """The card's machine has none of ABSENT_ON_THE_CARD (transformers, timm,
+    cv2, safetensors, ml_dtypes, orbax): no module of the port names one,
     and importing every module loads none."""
+    names = "|".join(ABSENT_ON_THE_CARD)
     for path in sorted(PKG.rglob("*.py")):
         text = path.read_text()
-        assert not re.search(r"^\s*(import|from)\s+(transformers|timm|cv2)\b", text, re.M), path
+        assert not re.search(rf"^\s*(import|from)\s+({names})\b", text, re.M), path
     code = (
         "import importlib, pkgutil, sys\n"
         "import controlar_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'controlar_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('transformers', 'timm', 'cv2'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {ABSENT_ON_THE_CARD!r})\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -204,3 +210,67 @@ def test_condition_entry_points_raise_without_a_card_unless_cpu_is_asked(name):
         if isinstance(out, torch.nn.Module):
             assert all(p.device.type == "cpu" and not p.requires_grad
                        for p in out.parameters())
+
+
+# the loaders of released and native weights, the quant report, the toy
+# training and the VQ encode: name -> call(tmp_path, **device_kw)
+SLICE8_ENTRY_POINTS = ("load_gpt_checkpoint", "load_vq_checkpoint", "load_adapter_checkpoint",
+                       "gpt_from_state_dict", "vq_from_state_dict", "vit_from_hf_state_dict",
+                       "measure_quant_agreement", "toy_train", "toy_train_main", "vq_encode")
+
+
+def _slice8_call(name, tmp_path):
+    from controlar_tpu_torch import checkpoint, convert_ref, toy_train
+    from controlar_tpu_torch.eval.quant_report import measure_quant_agreement
+
+    cfg, model = _tiny()
+    vcfg = VQConfig(codebook_size=16, z_channels=8, ch=8, encoder_ch_mult=(1, 1),
+                    decoder_ch_mult=(1, 1))
+    acfg = tvit.ViTConfig(hidden_size=32, n_layer=1, n_head=2, pos_grid=2)
+    vq = tvq.init_vq(vcfg)
+    files = {"gpt": convert_ref.gpt_reference_state_dict(model),
+             "vq": convert_ref.vq_reference_state_dict(vq),
+             "adapter": convert_ref.vit_hf_state_dict(tvit.init_vit(acfg), acfg)}
+    for k, sd in files.items():
+        checkpoint.save_safetensors(sd, str(tmp_path / f"{k}.safetensors"))
+    if name == "load_gpt_checkpoint":
+        return lambda **d: checkpoint.load_gpt_checkpoint(str(tmp_path / "gpt.safetensors"), cfg,
+                                                          **d)
+    if name == "load_vq_checkpoint":
+        return lambda **d: checkpoint.load_vq_checkpoint(str(tmp_path / "vq.safetensors"), vcfg,
+                                                         **d)
+    if name == "load_adapter_checkpoint":
+        return lambda **d: checkpoint.load_adapter_checkpoint(
+            str(tmp_path / "adapter.safetensors"), acfg, **d)
+    if name == "gpt_from_state_dict":
+        return lambda **d: convert_ref.gpt_from_state_dict(files["gpt"], cfg, **d)
+    if name == "vq_from_state_dict":
+        return lambda **d: convert_ref.vq_from_state_dict(files["vq"], vcfg, **d)
+    if name == "vit_from_hf_state_dict":
+        return lambda **d: convert_ref.vit_from_hf_state_dict(files["adapter"], acfg, **d)
+    if name == "measure_quant_agreement":
+        return lambda **d: measure_quant_agreement(model, cfg, modes=("int8",),
+                                                   max_new_tokens=4, **d)
+    if name == "toy_train":
+        return lambda **d: toy_train.train(cfg, steps=1, batch=2, num_classes_used=4,
+                                           log=lambda m: None, **d)
+    if name == "toy_train_main":
+        return lambda **d: toy_train.main(["--size", "GPT-B", "--steps", "0"]
+                                          + [f"--device={v}" for v in d.values()])
+    return lambda **d: tvq.encode(vq, vcfg, torch.zeros(1, 4, 4, 3), **d)
+
+
+@pytest.mark.parametrize("name", SLICE8_ENTRY_POINTS)
+def test_slice8_entry_points_raise_without_a_card_unless_cpu_is_asked(name, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    call = _slice8_call(name, tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()
+    if name == "toy_train_main":  # its CPU run is tests/test_torch_toy_train.py's
+        return
+    out = call(device="cpu")
+    modules = [out] if isinstance(out, torch.nn.Module) else [out["model"]] if name == "toy_train" \
+        else []
+    for m in modules:
+        assert all(p.device.type == "cpu" and not p.requires_grad for p in m.parameters())
