@@ -111,6 +111,18 @@ ending the run with a non-zero exit when it fails:
   train_t2i_b256  control fine-tuning through Trainer.fit: GPT-B t2i 256 px,
                 DINOv2-small trained, Canny, batch 16, remat full;
   train_t2i_xl512  the TrainerConfig defaults: GPT-XL t2i 512 px, batch 8;
+  captions      the text encoder at T5-XL's published widths (random weights
+                from a seed) on 8 seed-made token-id captions: card vs CPU
+                at 2 layers (fp32), bf16 vs fp32 at 2 and 24 layers, ms,
+                TFLOP/s and peak memory of a bf16 encode; its features then
+                drive one t2i generate call (GPT-XL 512 px), launches exact;
+  extract_train  16 synthetic 512 px images with captions through
+                extract_tree (VQ-16 encoder, T5-XL) into a tree, codes equal
+                a direct encode, pack_tree and pack_control_dataset into
+                .car files, tree and .car batches identical and valid, a c2i
+                extract (flip, Canny, 256 px) into C2ICodeDataset, then the
+                .car through ShardedLoader into 3 Trainer.fit steps at
+                train_t2i_xl512's config, B10 launches exact;
 then the `kernels` line and, last, the `ok` line. The cells are built by
 `controlar_tpu_torch.cells`; weights are random, made from fixed seeds. The
 generation cells run a warm call and one timed call, the
@@ -2341,6 +2353,18 @@ def _ckpt_models(dtype, device):
         "adapter": tvit.init_vit(tvit.DINOV2_SMALL, seed=CKPT_SEEDS["adapter"], device=device)}
 
 
+def _tie_gaps(h: torch.Tensor, emb: torch.Tensor, got: torch.Tensor, want: torch.Tensor):
+    """Where two index grids differ: |d(h, e_got) - d(h, e_want)| per position,
+    d the fp32 distance of the normalised latent h (..., D) to a code of emb."""
+    differ = got != want
+    if not differ.any():
+        return []
+    zn = torch.nn.functional.normalize(h[differ].float(), dim=-1)
+    d = (zn * zn).sum(-1, keepdim=True) + (emb * emb).sum(-1) - 2 * zn @ emb.T
+    rows = torch.arange(len(zn), device=zn.device)
+    return (d[rows, got[differ].long()] - d[rows, want[differ].long()]).abs().tolist()
+
+
 def _vq_card_vs_cpu(vq_card, vq_cpu, vcfg) -> dict:
     """encode then decode_code on the card against the same model on the CPU
     (fp32): latents, quantized z and images within REF_TOL, code indices
@@ -2359,13 +2383,7 @@ def _vq_card_vs_cpu(vq_card, vq_cpu, vcfg) -> dict:
         h_err = (card["h"] - cpu["h"]).abs().max().item()
         h_scale = max(cpu["h"].abs().max().item(), 1.0)
         differ = card["idx"] != cpu["idx"]
-        gaps = []
-        if differ.any():
-            zn = torch.nn.functional.normalize(cpu["h"][differ], dim=-1)
-            emb = tvq._codebook(vq_cpu, vcfg)
-            d = (zn * zn).sum(-1, keepdim=True) + (emb * emb).sum(-1) - 2 * zn @ emb.T
-            rows = torch.arange(len(zn))
-            gaps = (d[rows, card["idx"][differ]] - d[rows, cpu["idx"][differ]]).abs().tolist()
+        gaps = _tie_gaps(cpu["h"], tvq._codebook(vq_cpu, vcfg), card["idx"], cpu["idx"])
         same = ~differ
         zq_err = (card["z_q"][same] - cpu["z_q"][same]).abs().max().item()
         img_card = tvq.decode_code(vq_card, vcfg, cpu["idx"].cuda()).cpu()
@@ -3057,6 +3075,286 @@ def phase_serve(name: str, order) -> dict:
 
 # one timed call each, where a stacked cell times the same flat call again
 # (one call each keeps the script well inside its time limit on a slow host)
+T5_REF_TOL = 1e-4        # T5 card vs CPU, fp32, TF32 off: of the largest |output|
+T5_REF_LAYERS = 2
+# bf16 against fp32 on the card, relative L2 error of the output. At JAX's
+# init (every matrix N(0, 0.02), no 1/sqrt(d) on the scores) softmax is sharp
+# and a random T5 amplifies rounding: on the CPU at full width the gap grew
+# 0.012, 0.026, 0.053, 0.090 ... 0.269 over layers 1 to 8, about 0.05 a layer.
+T5_BF16_REL_L2 = {T5_REF_LAYERS: 0.05, 24: 1.2}
+T5_TIMED = 10
+
+
+def _t5_flops(cfg, b: int, t: int) -> float:
+    """Operations of one encode: the q, k, v, o and gated-FFN matmuls and the
+    two attention products, every token and layer."""
+    inner = cfg.n_head * cfg.d_kv
+    dense = 2 * b * t * (4 * cfg.d_model * inner + 3 * cfg.d_model * cfg.d_ff)
+    attn = 2 * 2 * b * cfg.n_head * t * t * cfg.d_kv
+    return cfg.n_layer * (dense + attn)
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def phase_captions() -> collections.Counter:
+    """The text encoder at T5-XL's published widths (24 layers, d 2048,
+    32 x 64 heads, FFN 5120, vocab 32128; weights from a seed at the JAX
+    package's init) on BATCH captions given as seed-made token ids (lengths
+    in [8, 120], right-padded):
+    - card against CPU at T5_REF_LAYERS layers, full width, fp32 (TF32 off):
+      within T5_REF_TOL of the largest |output|; bf16 against fp32 on the
+      card at that depth;
+    - full depth, fp32 and bf16 on the card: finite (B, 120, 2048), the bf16
+      gap within T5_BF16_REL_L2; then bf16 timed (ms a batch over T5_TIMED
+      calls, CUDA events; TFLOP/s; peak memory);
+    - the bf16 features, as they are, with their right-padded mask into one
+      ControlARPipeline.generate call of the t2i cell (GPT-XL 512 px, CFG
+      7.5, Canny on its images; its first, unwarmed), as the JAX CLI's
+      sample-t2i passes them:
+      with every launch count set to 0 just before, flash_decode_attention
+      and append_kv launch exactly n_layer x 1023 times each, nothing else.
+    Returns the launches of the generate call."""
+    import dataclasses
+
+    from controlar_tpu_torch.cells import BATCH, build_cell, caption_token_ids
+    from controlar_tpu_torch.models import t5 as tt5
+    from controlar_tpu_torch.text.embedder import T5Embedder
+
+    cfg = tt5.T5_XL
+    ids, mask = caption_token_ids(BATCH, seed=31, vocab_size=cfg.vocab_size)
+    small = dataclasses.replace(cfg, n_layer=T5_REF_LAYERS)
+    cpu = tt5.init_t5(small, seed=3, device="cpu")
+    card = copy.deepcopy(cpu).cuda()
+    with torch.inference_mode():
+        want = tt5.t5_encode(cpu, small, torch.from_numpy(ids), torch.from_numpy(mask))
+        got = tt5.t5_encode(card, small, torch.from_numpy(ids), torch.from_numpy(mask)).cpu()
+        small_bf16 = tt5.t5_encode(card.bfloat16(), small, torch.from_numpy(ids),
+                                   torch.from_numpy(mask)).cpu()
+    scale = float(want.abs().max())
+    ref_err = float((got - want).abs().max()) / scale
+    small_gap = _rel_l2(small_bf16, got)
+    check(bool(torch.isfinite(got).all()) and ref_err <= T5_REF_TOL, "captions",
+          f"T5 card vs CPU at {T5_REF_LAYERS} layers: {ref_err} of max |out| {scale}")
+    check(small_gap <= T5_BF16_REL_L2[T5_REF_LAYERS], "captions",
+          f"T5 bf16 vs fp32 at {T5_REF_LAYERS} layers: relative L2 {small_gap}")
+    del cpu, card
+
+    t0 = time.perf_counter()
+    t5 = tt5.init_t5(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    emb32 = T5Embedder(t5, cfg=cfg, device="cuda")
+    f32, m32 = emb32.encode(ids, mask)
+    emb = T5Embedder(t5.bfloat16(), cfg=cfg, device="cuda")  # in place: the fp32 copy is gone
+    del emb32
+    torch.cuda.empty_cache()
+    feats, fmask = emb.encode(ids, mask)
+    gap = _rel_l2(feats, f32)
+    check(tuple(feats.shape) == (BATCH, 120, cfg.d_model) and feats.dtype == torch.float32
+          and bool(torch.isfinite(feats).all()) and bool(torch.isfinite(f32).all())
+          and torch.equal(fmask.cpu(), torch.from_numpy(mask)), "captions",
+          f"T5-XL features {tuple(feats.shape)} {feats.dtype}")
+    check(gap <= T5_BF16_REL_L2[cfg.n_layer], "captions",
+          f"T5-XL bf16 vs fp32: relative L2 {gap}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = time_ms(lambda: emb.encode(ids, mask), reps=T5_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = _t5_flops(cfg, BATCH, 120)
+    row = dict(t5_init_s=init_s, ref_layers=T5_REF_LAYERS, ref_max_rel_err=ref_err,
+               ref_scale=scale, ref_bf16_rel_l2=small_gap, bf16_rel_l2=gap,
+               bf16_cos=float(torch.nn.functional.cosine_similarity(
+                   feats.flatten(), f32.flatten(), dim=0)),
+               bf16_rel_l2_limits=T5_BF16_REL_L2, t5_ms=ms, t5_tflop=flops / 1e12,
+               t5_tflop_per_s=flops / (ms / 1e3) / 1e12, t5_peak_mem_gb=peak,
+               t5_weights_gb=sum(p.numel() * p.element_size() for p in t5.parameters()) / 2 ** 30,
+               tokens=int(mask.sum()), caption_lens=mask.sum(1).tolist())
+    del emb, t5, f32
+    torch.cuda.empty_cache()
+
+    pipe, kw = build_cell("t2i", device="cuda")
+    kw = dict(kw, caption_emb=feats, emb_masks=fmask)
+    torch.cuda.synchronize()
+    wrappers = {k: v[0] for k, v in _kernels().items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    stages = {}
+    t0 = time.perf_counter()
+    out = pipe.generate(**kw, seed=1, timings=stages)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    per_call = _expected_per_call("t2i", pipe.gpt_cfg)
+    for k, n in launches.items():
+        check(n == per_call.get(k, 0), "captions", f"{k} launches {n} != {per_call.get(k, 0)}")
+    px = pipe.gpt_cfg.grid[0] * 16
+    check(out.shape == (BATCH, px, px, 3) and out.dtype == np.uint8 and float(out.std()) > 0,
+          "captions", f"t2i output {out.shape} {out.dtype}")
+    emit("captions", ok=True, model="T5-XL", layers=cfg.n_layer, d_model=cfg.d_model,
+         heads=cfg.n_head, d_ff=cfg.d_ff, vocab=cfg.vocab_size, batch=BATCH, **row,
+         t2i_model="GPT-XL", t2i_seconds=seconds, t2i_stage_seconds=stages,
+         t2i_shape=list(out.shape), launches={k: v for k, v in launches.items() if v},
+         launches_per_call=per_call)
+    return collections.Counter(launches)
+
+
+EXTRACT_IMAGES, EXTRACT_PX, EXTRACT_BATCH = 16, 512, 8
+EXTRACT_C2I_IMAGES, EXTRACT_C2I_PX = 8, 256
+EXTRACT_TRAIN_STEPS = 3
+
+
+def phase_extract_train() -> collections.Counter:
+    """Captions and images in, training out, on the card:
+    - extract_tree: EXTRACT_IMAGES synthetic EXTRACT_PX px images with
+      seed-made captions through the VQ-16 encoder and T5-XL (bf16, a
+      word-hash stand-in for the tokenizer) into a temporary tree; images/s;
+    - the stored codes equal a direct VQ encode of the saved images (ties
+      within CKPT_TIE_GAP allowed);
+    - pack_tree into a .car (its records the tree's files), and
+      pack_control_dataset of the tree's T2IControlCodeDataset: the same
+      indices through the tree dataset and CarpackControlDataset give
+      identical batches, every item valid;
+    - extract_c2i_tree of EXTRACT_C2I_IMAGES images in flip mode with Canny
+      at EXTRACT_C2I_PX px into C2ICodeDataset: the (1, 2, T) layout;
+    - T5 freed, then ShardedLoader over the .car into Trainer.fit at
+      train_t2i_xl512's config for EXTRACT_TRAIN_STEPS steps: with every
+      count set to 0 just before, the B10 launches exact and nothing else;
+      losses finite.
+    Returns the launches of the training steps."""
+    import tempfile
+
+    from PIL import Image
+
+    from controlar_tpu_torch.cells import (build_train_cell, caption_texts, condition_images,
+                                           word_tokenizer)
+    from controlar_tpu_torch.config import vq_config
+    from controlar_tpu_torch.data import carpack
+    from controlar_tpu_torch.data.extract import extract_c2i_tree, extract_tree
+    from controlar_tpu_torch.data.loader import ShardedLoader
+    from controlar_tpu_torch.data.t2i_control import (C2ICodeDataset, T2IControlCodeDataset,
+                                                      T2IControlConfig)
+    from controlar_tpu_torch.models import t5 as tt5
+    from controlar_tpu_torch.models import vq as tvq
+    from controlar_tpu_torch.text.embedder import T5Embedder
+
+    vcfg = vq_config("VQ-16")
+    vq = tvq.init_vq(vcfg, seed=1, device="cuda")
+    images = condition_images(EXTRACT_IMAGES, EXTRACT_PX, seed=41)
+    captions = caption_texts(EXTRACT_IMAGES, seed=42)
+    samples = [{"image": images[i], "caption": captions[i]} for i in range(EXTRACT_IMAGES)]
+    t5 = tt5.init_t5(tt5.T5_XL, seed=0, dtype=torch.bfloat16, device="cuda")
+    emb = T5Embedder(t5, word_tokenizer(tt5.T5_XL.vocab_size), tt5.T5_XL, device="cuda")
+    row = {}
+    with tempfile.TemporaryDirectory(prefix="controlar_extract_") as tmp:
+        tree = f"{tmp}/tree"
+        extract_tree(tree, samples[:EXTRACT_BATCH], vq, vcfg, t5_embedder=emb,
+                     image_size=EXTRACT_PX, batch_images=EXTRACT_BATCH, device="cuda")  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = extract_tree(tree, samples, vq, vcfg, t5_embedder=emb, image_size=EXTRACT_PX,
+                         batch_images=EXTRACT_BATCH, device="cuda")
+        torch.cuda.synchronize()
+        extract_s = time.perf_counter() - t0
+        check(n == EXTRACT_IMAGES, "extract_train", f"extract_tree wrote {n}")
+        del emb, t5
+        torch.cuda.empty_cache()
+
+        saved = np.stack([np.asarray(Image.open(f"{tree}/image/{i}.png")) for i in range(n)])
+        stored = torch.from_numpy(np.stack([np.load(f"{tree}/code/{i}.npy") for i in range(n)]))
+        with torch.inference_mode():
+            x = torch.from_numpy(saved).cuda().float() / 127.5 - 1.0
+            h = tvq._conv(vq.quant_conv, tvq.encoder_forward(vq.encoder, vcfg, x))
+            _, direct = tvq.encode(vq, vcfg, x, device="cuda")
+            gaps = _tie_gaps(h, tvq._codebook(vq, vcfg).float(), stored.cuda(), direct)
+        grid = EXTRACT_PX // vcfg.downsample_factor
+        check(stored.dtype == torch.int32 and tuple(stored.shape) == (n, grid, grid)
+              and all(g <= CKPT_TIE_GAP for g in gaps), "extract_train",
+              f"stored codes {stored.dtype} {tuple(stored.shape)}, tie gaps {gaps}")
+
+        n_tree = carpack.pack_tree(tree, f"{tmp}/tree.car")
+        raw = carpack.CarpackReader(f"{tmp}/tree.car")
+        caps = [np.load(f"{tree}/caption_emb/{i}.npz")["caption_emb"] for i in range(n)]
+        check(n_tree == n and raw.native and all(
+            np.array_equal(raw[i]["tokens"], stored[i].numpy())
+            and np.array_equal(raw[i]["caption_emb"], caps[i])
+            and np.array_equal(raw[i]["image"], saved[i]) for i in range(n)),
+            "extract_train", "pack_tree records differ from the tree's files")
+        tree_ds = T2IControlCodeDataset(T2IControlConfig(
+            code_path=tree, image_size=EXTRACT_PX, t5_feature_dim=tt5.T5_XL.d_model))
+        packed = carpack.pack_control_dataset(tree_ds, f"{tmp}/train.car")
+        car_ds = carpack.CarpackControlDataset(f"{tmp}/train.car")
+        order = np.random.default_rng(43).permutation(n)
+        same = True
+        for b in range(0, n, EXTRACT_BATCH):
+            idx = order[b:b + EXTRACT_BATCH]
+            tb = tree_ds.make_batch([tree_ds[int(i)] for i in idx])
+            cb = car_ds.make_batch([car_ds[int(i)] for i in idx])
+            # the writer stores a 0-d field (valid) with shape (1,), as the JAX
+            # package's writer does (np.ascontiguousarray), so it batches (B, 1)
+            same &= tb.keys() == cb.keys() and cb["valid"].shape == (len(idx), 1) and all(
+                tb[k].dtype == cb[k].dtype and np.array_equal(tb[k], cb[k].reshape(tb[k].shape))
+                for k in tb)
+            check(bool((tb["valid"] == 1).all()), "extract_train",
+                  f"dummy items (valid 0) at {idx[tb['valid'] != 1].tolist()}")
+        lens = [int(tree_ds[i]["emb_mask"].sum()) for i in range(n)]
+        check(packed == n and car_ds.native and same, "extract_train",
+              f"packed {packed}, native {car_ds.native}, identical batches {same}")
+
+        c2i_imgs = condition_images(EXTRACT_C2I_IMAGES, EXTRACT_C2I_PX + 32, seed=44)
+        n_c2i = extract_c2i_tree(f"{tmp}/c2i", [{"image": im, "label": 10 * i}
+                                                for i, im in enumerate(c2i_imgs)], vq, vcfg,
+                                 image_size=EXTRACT_C2I_PX, conditions=("canny",),
+                                 device="cuda")
+        pre = f"{tmp}/c2i/imagenet{EXTRACT_C2I_PX}"
+        c2i = C2ICodeDataset(f"{pre}_codes", f"{pre}_labels", f"{pre}_canny_imagesnpy")
+        tok = (EXTRACT_C2I_PX // vcfg.downsample_factor) ** 2
+        codes = np.load(f"{pre}_codes/0.npy")
+        cond = np.load(f"{pre}_canny_imagesnpy/0.npy")
+        item = c2i[3]
+        check(n_c2i == len(c2i) == EXTRACT_C2I_IMAGES and codes.shape == (1, 2, tok)
+              and codes.dtype == np.int64 and cond.shape == (2, 1, EXTRACT_C2I_PX, EXTRACT_C2I_PX)
+              and cond.dtype == np.uint8 and item["tokens"].shape == (tok,)
+              and int(item["labels"]) == 30
+              and item["control_map"].shape == (EXTRACT_C2I_PX, EXTRACT_C2I_PX),
+              "extract_train", f"c2i tree: codes {codes.shape} {codes.dtype}, conditions "
+              f"{cond.shape} {cond.dtype}, item {[(k, v.shape) for k, v in item.items()]}")
+        del vq
+        torch.cuda.empty_cache()
+
+        trainer = build_train_cell("train_t2i_xl512", device="cuda",
+                                   results_dir=f"{tmp}/results", log_every=1,
+                                   ckpt_every=10 ** 9)[0]
+        loader = ShardedLoader(car_ds, trainer.cfg.global_batch_size, seed=0)
+        wrappers = {k: v[0] for k, v in _kernels().items()}
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        trainer.fit(loader, max_steps=EXTRACT_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        cfg = trainer.gpt_cfg
+        per_step = {"flash_train_fwd": cfg.n_layer * _fwd_per_layer(trainer.cfg.remat_policy),
+                    "flash_train_dq": cfg.n_layer, "flash_train_dkv": cfg.n_layer}
+        for k, got in launches.items():
+            want = EXTRACT_TRAIN_STEPS * per_step.get(k, 0)
+            check(got == want, "extract_train", f"{k} launches {got} != {want}")
+        losses = [r["loss"] for r in trainer.history]
+        check(len(losses) == EXTRACT_TRAIN_STEPS and bool(np.isfinite(losses).all()),
+              "extract_train", f"losses {losses}")
+        row.update(step_seconds=[r["seconds"] for r in trainer.history], losses=losses)
+    emit("extract_train", ok=True, images=n, image_px=EXTRACT_PX, batch_images=EXTRACT_BATCH,
+         extract_s=extract_s, extract_images_per_s=n / extract_s, caption_lens=lens,
+         code_ties=len(gaps), tie_gaps=gaps, packed=packed, c2i_images=n_c2i,
+         c2i_px=EXTRACT_C2I_PX, train_model=trainer.cfg.gpt_model, train_steps=EXTRACT_TRAIN_STEPS,
+         train_s=train_s, launches={k: v for k, v in launches.items() if v},
+         launches_per_step=per_step, **row)
+    return collections.Counter(launches)
+
+
 CELL_RUNS = (("c2i", 1), ("c2i_depth", 1), ("t2i", 1), ("c2i_w8kv8", 1), ("c2i_3b_w4kv4", 1))
 STACKED_RUNS = ("c2i_stacked", "c2i_w8kv8_stacked", "c2i_3b_w4kv4_stacked")
 SERVE_RUNS = (("serve_c2i", ("sync", "overlap", "overlap", "sync")),  # cell, timed runs
@@ -3151,6 +3449,10 @@ def main() -> int:
     for name in TRAIN_RUNS:
         launches.update(phase_train_cell(name))
         torch.cuda.empty_cache()
+    launches.update(phase_captions())
+    torch.cuda.empty_cache()
+    launches.update(phase_extract_train())
+    torch.cuda.empty_cache()
     emit("total", seconds=time.perf_counter() - t_start)
     entries = []
     for name, (fn, source, replaces) in _kernels().items():

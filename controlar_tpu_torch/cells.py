@@ -113,6 +113,53 @@ def caption_mask(lens, width: int, device) -> torch.Tensor:
     return (torch.arange(width, device=device)[None, :] >= (width - lens)[:, None]).int()
 
 
+# Captions for the text encoder: T5-XL (`models.t5.T5_XL`, flan-t5-xl's
+# published widths) at its 120-token length, with token ids made from a seed
+# (no tokenizer files ship with the repository).
+CAPTION_TOKENS = 120
+CAPTION_EOS = 1
+_WORDS = ("a", "photo", "of", "red", "blue", "house", "tree", "river", "dog", "cat", "on",
+          "the", "beach", "at", "night", "with", "mountains", "in", "fog", "street", "old",
+          "city", "bright", "flowers", "small", "boat", "under", "clouds", "painting", "sky")
+
+
+def caption_token_ids(n: int, seed: int, vocab_size: int = 32128,
+                      length: int = CAPTION_TOKENS):
+    """n tokenized captions as a T5 tokenizer lays them out: lengths drawn in
+    [8, length], ids in [2, vocab) then EOS (1), right-padded with 0.
+    -> (ids int64 (n, length), mask int64 (n, length))."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(8, length + 1, n)
+    ids = rng.integers(2, vocab_size, (n, length))
+    cols = np.arange(length)[None, :]
+    ids = np.where(cols < lens[:, None] - 1, ids, 0)
+    ids[np.arange(n), lens - 1] = CAPTION_EOS
+    return ids, (cols < lens[:, None]).astype(np.int64)
+
+
+def caption_texts(n: int, seed: int) -> List[str]:
+    """n captions of 4 to 30 words drawn from a small vocabulary."""
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(_WORDS, rng.integers(4, 31))) for _ in range(n)]
+
+
+def word_tokenizer(vocab_size: int = 32128):
+    """A stand-in for flan-t5-xl's sentencepiece tokenizer with its layout:
+    one id per whitespace word (2 + crc32 mod (vocab - 2)), truncated to
+    max_length - 1, EOS, right padding. (texts, max_length) -> (ids, mask)."""
+    import zlib
+
+    def tokenize(texts: List[str], max_length: int):
+        ids = np.zeros((len(texts), max_length), np.int64)
+        for i, t in enumerate(texts):
+            row = [2 + zlib.crc32(w.encode()) % (vocab_size - 2) for w in t.split()]
+            row = row[:max_length - 1] + [CAPTION_EOS]
+            ids[i, :len(row)] = row
+        return ids, (ids != 0).astype(np.int64)
+
+    return tokenize
+
+
 def _gpt(cell: dict, size: str, seed: int, device):
     """-> (config, bf16 GPT of the cell's model type and image size)."""
     cfg = gpt_config(size, model_type=cell["model_type"], cls_token_num=cell["cls_token_num"],

@@ -18,8 +18,8 @@ Weights load from:
   port's own step directories, or a results directory holding them (the
   latest step wins). The JAX package's orbax directories cannot be read
   without orbax; they raise an error that names the format.
-`load_gpt_checkpoint`, `load_vq_checkpoint` and `load_adapter_checkpoint`
-return the port's module on the asked device and dtype.
+`load_gpt_checkpoint`, `load_vq_checkpoint`, `load_adapter_checkpoint` and
+`load_t5_encoder` return the port's module on the asked device and dtype.
 """
 from __future__ import annotations
 
@@ -27,13 +27,14 @@ import argparse
 import json
 import os
 import struct
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from controlar_tpu_torch import convert, convert_ref, resolve_device, tools
 from controlar_tpu_torch.models import gpt as gpt_model
+from controlar_tpu_torch.models import t5 as t5_model
 from controlar_tpu_torch.models import vit as vit_model
 from controlar_tpu_torch.models import vq as vq_model
 from controlar_tpu_torch.train.optimizer import AdamState
@@ -97,29 +98,34 @@ _ST_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
 _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 
 
-def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """A .safetensors file -> {name: CPU tensor} in the file's dtypes."""
+def load_safetensors(path: str, keep: Optional[Callable[[str], bool]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """A .safetensors file -> {name: CPU tensor} in the file's dtypes; with
+    `keep`, only the tensors whose names it accepts, reading only their
+    bytes (a seq2seq checkpoint's decoder is never read)."""
+    out = {}
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        buf = bytearray(f.read())
-    out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        if info["dtype"] not in _ST_DTYPES:
-            raise ValueError(f"{path}: {name} has dtype {info['dtype']}, which this reader "
-                             f"does not take ({sorted(_ST_DTYPES)})")
-        dtype, shape = _ST_DTYPES[info["dtype"]], info["shape"]
-        begin, end = info["data_offsets"]
-        count = int(np.prod(shape, dtype=np.int64))
-        if (not 0 <= begin <= end <= len(buf)
-                or end - begin != count * torch.empty((), dtype=dtype).element_size()):
-            raise ValueError(f"{path}: {name} has bytes [{begin}, {end}) of {len(buf)} for "
-                             f"shape {shape}")
-        t = (torch.frombuffer(buf, dtype=dtype, count=count, offset=begin) if count
-             else torch.empty(0, dtype=dtype))
-        out[name] = t.reshape(shape)
+        size = os.fstat(f.fileno()).st_size - 8 - n
+        for name, info in header.items():
+            if name == "__metadata__" or (keep is not None and not keep(name)):
+                continue
+            if info["dtype"] not in _ST_DTYPES:
+                raise ValueError(f"{path}: {name} has dtype {info['dtype']}, which this reader "
+                                 f"does not take ({sorted(_ST_DTYPES)})")
+            dtype, shape = _ST_DTYPES[info["dtype"]], info["shape"]
+            begin, end = info["data_offsets"]
+            count = int(np.prod(shape, dtype=np.int64))
+            if (not 0 <= begin <= end <= size
+                    or end - begin != count * torch.empty((), dtype=dtype).element_size()):
+                raise ValueError(f"{path}: {name} has bytes [{begin}, {end}) of {size} for "
+                                 f"shape {shape}")
+            f.seek(8 + n + begin)
+            buf = bytearray(f.read(end - begin))
+            t = (torch.frombuffer(buf, dtype=dtype, count=count) if count
+                 else torch.empty(0, dtype=dtype))
+            out[name] = t.reshape(shape)
     return out
 
 
@@ -282,3 +288,42 @@ def load_adapter_checkpoint(path: str, cfg: vit_model.ViTConfig = vit_model.DINO
     if _is_flat(params):
         return convert._build(lambda: vit_model.ViT(cfg), params, dtype, device)
     return convert.vit_from_jax(params, cfg, dtype, device)
+
+
+def _t5_key(name: str) -> bool:
+    return name == "shared.weight" or name.startswith("encoder.")
+
+
+def _t5_files(path: str):
+    """The weight files of an HF checkout (or the file itself): one
+    model.safetensors, the shards of model.safetensors.index.json, else
+    pytorch_model.bin or the shards of its index."""
+    if os.path.isfile(path):
+        return [path]
+    for single, index in (("model.safetensors", "model.safetensors.index.json"),
+                          ("pytorch_model.bin", "pytorch_model.bin.index.json")):
+        if os.path.isfile(os.path.join(path, single)):
+            return [os.path.join(path, single)]
+        if os.path.isfile(os.path.join(path, index)):
+            with open(os.path.join(path, index)) as f:
+                shards = json.load(f)["weight_map"]
+            return [os.path.join(path, s) for s in
+                    sorted({s for k, s in shards.items() if _t5_key(k)})]
+    raise FileNotFoundError(f"{path} holds no model.safetensors, pytorch_model.bin or shard "
+                            "index")
+
+
+def load_t5_encoder(path: str, cfg: t5_model.T5Config = t5_model.T5_XL,
+                    dtype: torch.dtype = torch.float32, device="cuda") -> t5_model.T5Encoder:
+    """The text encoder from a local HF T5 checkout (flan-t5-xl, encoder-only
+    or seq2seq) or one weight file: only `shared.weight` and `encoder.*` are
+    read (from .safetensors, their byte ranges; a .bin is memory-mapped)."""
+    device = resolve_device(device)
+    sd: Dict[str, torch.Tensor] = {}
+    for f in _t5_files(path):
+        if f.endswith(".safetensors"):
+            sd.update(load_safetensors(f, keep=_t5_key))
+        else:
+            full = torch.load(f, map_location="cpu", weights_only=True, mmap=True)
+            sd.update({k: v for k, v in full.items() if _t5_key(k)})
+    return convert_ref.t5_from_state_dict(sd, cfg, dtype, device)

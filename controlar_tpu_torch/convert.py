@@ -28,6 +28,7 @@ from controlar_tpu_torch.models import control_nets
 from controlar_tpu_torch.models import dpt as dpt_model
 from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.models import midas as midas_model
+from controlar_tpu_torch.models import t5 as t5_model
 from controlar_tpu_torch.models import vit as vit_model
 from controlar_tpu_torch.models import vq as vq_model
 
@@ -234,3 +235,17 @@ def midas_from_jax(params: Tree, cfg: midas_model.MidasHybridConfig,
     for i, w in enumerate(params["layer_rn"]):
         sd[f"layer_rn.{i}.weight"] = _conv(w)
     return _build(lambda: midas_model.MidasHybrid(cfg), sd, torch.float32, device)
+
+
+def t5_from_jax(params: Tree, cfg: t5_model.T5Config, dtype: torch.dtype = torch.float32,
+                device="cpu") -> t5_model.T5Encoder:
+    """The text encoder: stacked (L, d, n) weights used as x @ W."""
+    sd = {"embedding.weight": _t(params["embedding"]), "rel_bias": _t(params["rel_bias"]),
+          "final_ln": _t(params["final_ln"])}
+    for l in range(cfg.n_layer):
+        lp = _layer(params["layers"], l)
+        sd[f"layers.{l}.ln1"] = _t(lp["ln1"])
+        sd[f"layers.{l}.ln2"] = _t(lp["ln2"])
+        for w in ("q", "k", "v", "o", "wi0", "wi1", "wo"):
+            sd[f"layers.{l}.{w}.weight"] = _lin(lp[w])
+    return _build(lambda: t5_model.T5Encoder(cfg), sd, dtype, device)

@@ -18,7 +18,9 @@ ignored, a key it needs and does not find raises.
 - MiDaS: `dpt_hybrid-midas-501f0c75.pt` (DPTDepthModel over timm's
   `vit_base_resnet50_384`: the trunk under `pretrained.model.patch_embed.
   backbone`, the readouts under `pretrained.act_postprocess{3,4}`, the
-  fusion and head under `scratch`).
+  fusion and head under `scratch`);
+- T5: HF `T5EncoderModel` / `T5ForConditionalGeneration` (flan-t5-xl:
+  `shared.weight` and `encoder.*`; the decoder is not read).
 
 Each layout is a table of regex rules that rewrite a port parameter's name
 into the checkpoint's key (`_RULES` below); `reference_state_dict` reads the
@@ -40,6 +42,7 @@ from controlar_tpu_torch.models import control_nets
 from controlar_tpu_torch.models import dpt as dpt_model
 from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.models import midas as midas_model
+from controlar_tpu_torch.models import t5 as t5_model
 from controlar_tpu_torch.models import vit as vit_model
 from controlar_tpu_torch.models import vq as vq_model
 
@@ -303,6 +306,35 @@ def load_midas_checkpoint(path: str,
     if isinstance(sd, dict) and "model" in sd and _VM + "cls_token" not in sd:
         sd = sd["model"]
     return midas_from_state_dict(sd, cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# T5 encoder (HF `T5EncoderModel` layout; the JAX package's
+# `convert/torch_t5.convert_t5_state_dict`)
+# ---------------------------------------------------------------------------
+
+_T5_ATTN, _T5_FFN = r"encoder.block.\1.layer.0.", r"encoder.block.\1.layer.1."
+T5_RULES = [
+    (r"^embedding\.weight$", "shared.weight"),
+    (r"^rel_bias$", "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"),
+    (r"^final_ln$", "encoder.final_layer_norm.weight"),
+    (r"^layers\.(\d+)\.ln1$", _T5_ATTN + "layer_norm.weight"),
+    (r"^layers\.(\d+)\.([qkvo])\.", _T5_ATTN + r"SelfAttention.\2."),
+    (r"^layers\.(\d+)\.ln2$", _T5_FFN + "layer_norm.weight"),
+    (r"^layers\.(\d+)\.wi([01])\.", _T5_FFN + r"DenseReluDense.wi_\2."),
+    (r"^layers\.(\d+)\.wo\.", _T5_FFN + "DenseReluDense.wo."),
+]
+
+
+def t5_from_state_dict(sd: Mapping, cfg: t5_model.T5Config = t5_model.T5_XL,
+                       dtype: torch.dtype = torch.float32, device="cuda") -> t5_model.T5Encoder:
+    """The text encoder from an HF T5 state dict (torch's (out, in) linears,
+    as the port keeps them)."""
+    return _load_renamed(lambda: t5_model.T5Encoder(cfg), sd, T5_RULES, device, dtype)
+
+
+def t5_hf_state_dict(model: t5_model.T5Encoder) -> Dict[str, torch.Tensor]:
+    return reference_state_dict(model, T5_RULES)
 
 
 def _numpy(sd: Mapping) -> dict:

@@ -132,23 +132,32 @@ def test_trainer_raises_without_a_card_unless_cpu_is_asked(tmp_path):
 
 
 # packages the card's machine does not have
-ABSENT_ON_THE_CARD = ("transformers", "timm", "cv2", "safetensors", "ml_dtypes", "orbax")
+ABSENT_ON_THE_CARD = ("transformers", "timm", "cv2", "safetensors", "ml_dtypes", "orbax", "bs4",
+                      "sentencepiece", "ftfy")
+# the only imports of those allowed, inside a function that the card's runs
+# never call: HF's tokenizer when the caller gives none, ftfy's optional
+# mojibake repair
+OPTIONAL_IMPORTS = {"text/embedder.py": ("transformers",), "text/cleaning.py": ("ftfy",)}
 
 
 def test_port_imports_no_transformers_timm_or_cv2():
     """The card's machine has none of ABSENT_ON_THE_CARD (transformers, timm,
-    cv2, safetensors, ml_dtypes, orbax): no module of the port names one,
-    and importing every module loads none."""
+    cv2, safetensors, ml_dtypes, orbax, bs4, sentencepiece, ftfy): no module
+    of the port names one, but OPTIONAL_IMPORTS inside a function, and
+    importing every module loads none (nor JAX or the JAX package)."""
     names = "|".join(ABSENT_ON_THE_CARD)
     for path in sorted(PKG.rglob("*.py")):
-        text = path.read_text()
-        assert not re.search(rf"^\s*(import|from)\s+({names})\b", text, re.M), path
+        allowed = OPTIONAL_IMPORTS.get(str(path.relative_to(PKG)), ())
+        for m in re.finditer(rf"^(\s*)(import|from)\s+({names})\b", path.read_text(), re.M):
+            assert m.group(1) and m.group(3) in allowed, (path, m.group(0))
     code = (
         "import importlib, pkgutil, sys\n"
         "import controlar_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'controlar_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {ABSENT_ON_THE_CARD!r})\n"
+        f"absent = {ABSENT_ON_THE_CARD + ('jax', 'controlar_tpu')!r}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in absent)\n"
+        "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -274,3 +283,61 @@ def test_slice8_entry_points_raise_without_a_card_unless_cpu_is_asked(name, tmp_
         else []
     for m in modules:
         assert all(p.device.type == "cpu" and not p.requires_grad for p in m.parameters())
+
+
+# the text encoder, its loaders, the embedder and the extraction:
+# name -> call(tmp_path, **device_kw)
+SLICE11_ENTRY_POINTS = ("init_t5", "t5_from_state_dict", "load_t5_encoder", "T5Embedder",
+                        "T5Embedder.from_pretrained", "extract_tree", "extract_c2i_tree")
+
+
+def _slice11_call(name, tmp_path):
+    from controlar_tpu_torch import checkpoint, convert_ref
+    from controlar_tpu_torch.data import extract
+    from controlar_tpu_torch.models import t5
+    from controlar_tpu_torch.text.embedder import T5Embedder
+
+    tcfg = t5.T5Config(vocab_size=32, d_model=16, d_kv=4, d_ff=24, n_layer=1, n_head=2)
+    sd = convert_ref.t5_hf_state_dict(t5.init_t5(tcfg, device="cpu"))
+    checkpoint.save_safetensors(sd, str(tmp_path / "model.safetensors"))
+    tok = lambda texts, n: (np.ones((len(texts), n), np.int64),) * 2  # noqa: E731
+    vcfg = VQConfig(codebook_size=16, z_channels=8, ch=8, encoder_ch_mult=(1, 1),
+                    decoder_ch_mult=(1, 1))
+    image = np.zeros((16, 16, 3), np.uint8)
+    if name == "init_t5":
+        return lambda **d: t5.init_t5(tcfg, **d)
+    if name == "t5_from_state_dict":
+        return lambda **d: convert_ref.t5_from_state_dict(sd, tcfg, **d)
+    if name == "load_t5_encoder":
+        return lambda **d: checkpoint.load_t5_encoder(str(tmp_path), tcfg, **d)
+    if name == "T5Embedder":
+        return lambda **d: T5Embedder(t5.init_t5(tcfg, device="cpu"), tok, tcfg, 4, **d)
+    if name == "T5Embedder.from_pretrained":
+        return lambda **d: T5Embedder.from_pretrained(str(tmp_path), tok, tcfg, **d,
+                                                      model_max_length=4)
+    vq = tvq.init_vq(vcfg)
+    if name == "extract_tree":
+        return lambda **d: extract.extract_tree(str(tmp_path / "tree"), [{"image": image}], vq,
+                                                vcfg, image_size=16, **d)
+    return lambda **d: extract.extract_c2i_tree(str(tmp_path / "c2i"),
+                                                [{"image": image, "label": 1}], vq, vcfg,
+                                                image_size=8, **d)
+
+
+@pytest.mark.parametrize("name", SLICE11_ENTRY_POINTS)
+def test_slice11_entry_points_raise_without_a_card_unless_cpu_is_asked(name, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    call = _slice11_call(name, tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()
+    out = call(device="cpu")
+    if name.startswith("T5Embedder"):
+        assert out.device.type == "cpu"
+        emb, mask = out.get_text_embeddings(["a caption"])
+        assert emb.shape == (1, 4, 16) and emb.device.type == "cpu"
+        out = out.model
+    if isinstance(out, torch.nn.Module):
+        assert all(p.device.type == "cpu" and not p.requires_grad for p in out.parameters())
+    else:
+        assert out == 1  # one sample written
