@@ -123,9 +123,23 @@ ending the run with a non-zero exit when it fails:
                 extract (flip, Canny, 256 px) into C2ICodeDataset, then the
                 .car through ShardedLoader into 3 Trainer.fit steps at
                 train_t2i_xl512's config, B10 launches exact;
+  train_vq      tokenizer training at VQ-16's published widths (LPIPS at
+                VGG16's, PatchGAN ndf 64; fp32, TF32 off): the generator's and
+                discriminator's losses, adaptive weight and gradients card vs
+                CPU at 64 px; 256 px batch 16 steps timed with PatchGAN and
+                with StyleGAN; 30 reconstruction-only steps, the loss falling;
+                the checkpoint's EMA through load_vq_checkpoint into
+                reconstruction_eval (PSNR, MS-SSIM, PNG pairs, samples.npz);
+  multiscale    arbitrary-resolution control training: a small model's loss
+                and gradients card vs CPU at 64 x 64 and 64 x 96, then GPT-XL
+                t2i (HED, DINOv2-small, VQ-16 encoder, batch 8) at 512 x 512,
+                384 x 768 and 1024 x 576 (T up to 2423): ms a step, peak
+                memory, B10 launches exact, the codes a direct encode's;
+  adafactor     toy_train at GPT-3B, block 576, batch 16, with Adafactor for 10
+                steps: ms a step, peak memory, B10 launches exact (D 100);
 then the `kernels` line and, last, the `ok` line. The cells are built by
 `controlar_tpu_torch.cells`; weights are random, made from fixed seeds. The
-generation cells run a warm call and one timed call, the
+generation cells run a 16-step warm call and one timed call, the
 stacked cells one timed call with each cache, the
 speculative cells a 16-token warm call and one timed call, the training
 cells two warm and five timed steps on one fixed batch. Each cell phase sets every
@@ -1527,9 +1541,11 @@ TRAIN_LSE_ATOL, TRAIN_LSE_RTOL = 1e-3, 1e-4
 
 def _train_cases():
     """name, B, T, H, D, left-padded caption columns (0: no bias): the two
-    training cells' shapes, a c2i case without bias, and GPT-3B heads."""
+    training cells' shapes, a c2i case without bias, GPT-3B heads, and the
+    multiscale phase's budget bucket (1024 x 576 px: 2304 tokens)."""
     return [("t2i_xl512", 8, 1143, 20, 64, 120), ("t2i_b256", 16, 375, 12, 64, 120),
-            ("c2i_b384", 4, 576, 12, 64, 0), ("d100", 2, 333, 32, 100, 120)]
+            ("c2i_b384", 4, 576, 12, 64, 0), ("d100", 2, 333, 32, 100, 120),
+            ("t2i_xl_ms2304", 8, 2423, 20, 64, 120)]
 
 
 def _train_inputs(b, t, h, d, n_cls, seed):
@@ -2697,10 +2713,32 @@ def _expected_per_call(name: str, cfg) -> dict:
     return {"flash_decode_attention": layers * steps, **write}
 
 
+def _warm_cell(pipe, kw) -> None:
+    """A short warm call: the pipeline's condition, adapter and VQ decoder at
+    the cell's sizes and 16 decode steps of its model with the cell's batch,
+    CFG, captions and cache dtype, which runs every kernel and matrix shape
+    of a timed call (a full warm call would repeat the timed call's length,
+    as the speculative cells' warm calls avoid too)."""
+    from controlar_tpu_torch import generate as tgen
+    from controlar_tpu_torch.models import vq as tvq
+
+    cfg = pipe.gpt_cfg
+    with torch.inference_mode():
+        feats = pipe.control_features(pipe.extract_condition(kw["condition_images"]))
+        tgen.generate(pipe.gpt, cfg, labels=kw.get("labels"), caption_emb=kw.get("caption_emb"),
+                      emb_masks=kw.get("emb_masks"), adapter_features=feats, max_new_tokens=16,
+                      cfg_scale=kw["cfg_scale"], top_k=kw["top_k"],
+                      cache_dtype=kw["cache_dtype"] or torch.bfloat16, seed=0, device="cuda")
+        gh, gw = cfg.grid
+        tvq.decode_code(pipe.vq, pipe.vq_cfg, torch.zeros(
+            len(kw["condition_images"]), gh, gw, dtype=torch.long, device="cuda"))
+
+
 def phase_cell(name: str, runs: int) -> dict:
-    """One warm `ControlARPipeline.generate` call, then `runs` timed calls
-    with every kernel's launch count set to 0 before them; each count must
-    be exactly its expected launches. Returns the launches."""
+    """A short warm call (`_warm_cell`), then `runs` timed
+    `ControlARPipeline.generate` calls with every kernel's launch count set
+    to 0 before them; each count must be exactly its expected launches.
+    Returns the launches."""
     from controlar_tpu_torch.cells import BATCH, CELLS, build_cell
 
     t0 = time.perf_counter()
@@ -2709,7 +2747,7 @@ def phase_cell(name: str, runs: int) -> dict:
     build_s = time.perf_counter() - t0
     cfg = pipe.gpt_cfg
     px = CELLS[name]["image_px"]
-    pipe.generate(**kw, seed=0)
+    _warm_cell(pipe, kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     seconds, outs = [], []
@@ -3355,6 +3393,418 @@ def phase_extract_train() -> collections.Counter:
     return collections.Counter(launches)
 
 
+# ---------------------------------------------------------------------------
+# Tokenizer training, multiscale control training, Adafactor
+# ---------------------------------------------------------------------------
+
+VQ_TRAIN_BATCH, VQ_TRAIN_PX = 16, 256   # train-vq's defaults, VQ-16
+VQ_REF_BATCH, VQ_REF_PX = 2, 64         # card vs CPU at VQ-16's full widths
+VQ_LR = 1e-4                            # train-vq's default
+VQ_TIMED = {"patchgan": (2, 5), "stylegan": (1, 2)}  # warm, timed steps
+VQ_LOSS_STEPS = 30
+# asked for before the phase first ran on the card (PERF.md's prediction): the
+# reconstruction loss of the last of VQ_LOSS_STEPS reconstruction-only steps on
+# one batch at most this share of the first's (a VQ-16 at 64 px, batch 4, on the
+# CPU: 0.50 -> 0.11 in 30)
+VQ_LOSS_FACTOR = 0.7
+
+
+def _grad_errs(card: dict, cpu: dict):
+    """-> (the largest over tensors of |card - cpu| / max(|cpu|.max(), 1e-4 x
+    the largest |cpu|), the three worst names), as train_reference's gate."""
+    floor = 1e-4 * max(g.abs().max().item() for g in cpu.values())
+    errs = {n: (card[n].cpu() - g).abs().max().item() / max(g.abs().max().item(), floor)
+            for n, g in cpu.items()}
+    return max(errs.values()), sorted(errs, key=errs.get)[-3:]
+
+
+def _vq_models(disc_type: str, px: int, device, seed: int = 0):
+    """VQ-16, a discriminator (PatchGAN ndf 64, 3 layers, or StyleGAN at px)
+    and LPIPS at VGG16's widths from seeds; the tokenizer trainable."""
+    from controlar_tpu_torch.config import vq_config
+    from controlar_tpu_torch.models import discriminators as tdisc
+    from controlar_tpu_torch.models import lpips as tlp
+    from controlar_tpu_torch.models import vq as tvq
+
+    vcfg = vq_config("VQ-16")
+    vq = tvq.init_vq(vcfg, seed=seed, device=device).requires_grad_(True)
+    disc = (tdisc.init_stylegan_disc(seed + 1, image_size=px, device=device)
+            if disc_type == "stylegan" else tdisc.init_patchgan(seed + 1, device=device))
+    return vcfg, vq, disc, tlp.init_lpips(seed, device=device)
+
+
+def _vq_images(n: int, px: int, seed: int):
+    """Synthetic uint8 images (n, px, px, 3) and the same in [-1, 1] on the card."""
+    from controlar_tpu_torch.cells import condition_images
+
+    u8 = condition_images(n, px, seed)
+    return u8, torch.from_numpy(u8).to("cuda").float() / 127.5 - 1.0
+
+
+def _vq_generator(vq, disc, lp, vcfg, x):
+    """The generator's objective at step 0 with disc_start 0, the adaptive
+    weight on, hinge, PatchGAN -> (loss, adaptive weight, tokenizer
+    gradients, codes, reconstruction)."""
+    from controlar_tpu_torch.models import vq as tvq
+    from controlar_tpu_torch.train import vq_loss as L
+
+    gl, (m, recon) = L.generator_loss(vq, disc, lp, vcfg, x, 0, 0, disc_adaptive_weight=True)
+    vp = dict(vq.named_parameters())
+    g = dict(zip(vp, torch.autograd.grad(gl, list(vp.values()))))
+    with torch.no_grad():
+        _, codes = tvq.encode(vq, vcfg, x, device=x.device)
+    return gl.item(), m["disc_adaptive_weight"].item(), g, codes.cpu(), recon.detach()
+
+
+def _vq_discriminator(disc, x, recon):
+    """The discriminator's objective at step 0 (disc_start 0, hinge) ->
+    (loss, gradients)."""
+    from controlar_tpu_torch.train import vq_loss as L
+
+    dl = L.discriminator_loss(disc, x, recon, 0, 0)
+    dp = dict(disc.named_parameters())
+    return dl.item(), dict(zip(dp, torch.autograd.grad(dl, list(dp.values()))))
+
+
+def _vq_step(vcfg, vq, disc, lp, disc_type: str, **kw):
+    """A VQ train state (EMA on) and step with train-vq's optimizers."""
+    from controlar_tpu_torch.train import optimizer as topt
+    from controlar_tpu_torch.train import vq_step as tstep
+
+    tx_g = topt.make_optimizer(lr=VQ_LR, beta1=0.9, beta2=0.95)
+    tx_d = topt.make_optimizer(lr=VQ_LR, beta1=0.9, beta2=0.95)
+    state = tstep.init_vq_train_state(vq, disc, tx_g, tx_d, use_ema=True)
+    return state, tstep.make_vq_train_step(vcfg, tx_g, tx_d, lp, ema_decay=0.9999,
+                                           disc_type=disc_type, **kw)
+
+
+def phase_train_vq() -> collections.Counter:
+    """Tokenizer training (train/vq_step.py) at VQ-16's published widths, fp32
+    with TF32 off, no kernel of the port:
+    - card vs CPU: the generator's and discriminator's objectives (LPIPS at
+      VGG16's widths, PatchGAN ndf 64) at VQ_REF_PX, batch VQ_REF_BATCH,
+      disc_start 0 with the adaptive weight: losses and the adaptive weight
+      within TRAIN_REF_TOL's loss, every gradient within its grad gate;
+    - timed: VQ_TRAIN_BATCH images at VQ_TRAIN_PX, disc_start 0, adaptive
+      weight, hinge, EMA, with PatchGAN and with StyleGAN (VQ_TIMED warm and
+      timed steps): ms a step, images/s, peak memory;
+    - VQ_LOSS_STEPS reconstruction-only steps (disc_start beyond the run) on
+      one fixed batch: the reconstruction loss falls to VQ_LOSS_FACTOR of its
+      first value or below;
+    - that state saved (save_vq_train_state), its EMA read back through
+      load_vq_checkpoint bit for bit, reconstruction_eval of the batch's 16
+      images: finite PSNR, MS-SSIM in [0, 1], 16 PNG pairs, samples.npz.
+    Returns no launches."""
+    import os
+    import tempfile
+
+    from controlar_tpu_torch import checkpoint as ckpt
+    from controlar_tpu_torch.eval.reconstruction import reconstruction_eval
+
+    vcfg, vq, disc, lp = _vq_models("patchgan", VQ_REF_PX, "cpu")
+    u8, _ = _vq_images(VQ_REF_BATCH, VQ_REF_PX, 60)
+    mods = {"cpu": (vq, disc, lp),
+            "cuda": tuple(copy.deepcopy(m).to("cuda") for m in (vq, disc, lp))}
+    xs = {dev: torch.from_numpy(u8).to(dev).float() / 127.5 - 1.0 for dev in mods}
+    gen = {dev: _vq_generator(*m, vcfg, xs[dev]) for dev, m in mods.items()}
+    # the discriminator on the same inputs on both: the CPU's reconstruction
+    # (a code the card and the CPU find at a near tie would change the card's)
+    dis = {dev: _vq_discriminator(m[1], xs[dev], gen["cpu"][4].to(dev))
+           for dev, m in mods.items()}
+    (gl_c, aw_c, g_c, codes_c, _), (gl_p, aw_p, g_p, codes_p, _) = gen["cuda"], gen["cpu"]
+    scalar_errs = {"g_loss": abs(gl_c - gl_p) / abs(gl_p), "adaptive_weight":
+                   abs(aw_c - aw_p) / abs(aw_p),
+                   "d_loss": abs(dis["cuda"][0] - dis["cpu"][0]) / abs(dis["cpu"][0])}
+    g_err, g_worst = _grad_errs(g_c, g_p)
+    d_err, d_worst = _grad_errs(dis["cuda"][1], dis["cpu"][1])
+    code_flips = int((codes_c != codes_p).sum())
+    check(max(scalar_errs.values()) <= TRAIN_REF_TOL["loss"]
+          and max(g_err, d_err) <= TRAIN_REF_TOL["grad"], "train_vq",
+          f"card vs CPU: {scalar_errs}, grad rel err vq {g_err} ({g_worst}), disc {d_err} "
+          f"({d_worst}), codes that differ {code_flips}")
+    reference = dict(px=VQ_REF_PX, batch=VQ_REF_BATCH, rel_errs=scalar_errs,
+                     vq_grad_rel_err=g_err, disc_grad_rel_err=d_err, code_flips=code_flips,
+                     g_loss=gl_p, d_loss=dis["cpu"][0], adaptive_weight=aw_p)
+    del vq, disc, lp, mods, gen, dis
+
+    u8, x = _vq_images(VQ_TRAIN_BATCH, VQ_TRAIN_PX, 61)
+    timed = {}
+    for disc_type, (warm, n) in VQ_TIMED.items():
+        vcfg, vq, disc, lp = _vq_models(disc_type, VQ_TRAIN_PX, "cuda")
+        state, step = _vq_step(vcfg, vq, disc, lp, disc_type, disc_start=0,
+                               disc_adaptive_weight=True)
+        for _ in range(warm):
+            state, m = step(vq, disc, state, x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seconds = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            state, m = step(vq, disc, state, x)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        metrics = {k: v.item() for k, v in m.items()}
+        check(bool(np.isfinite(list(metrics.values())).all()) and metrics["d_loss"] != 0
+              and metrics["disc_adaptive_weight"] > 0, "train_vq",
+              f"{disc_type}: metrics {metrics}")
+        ms = statistics.median(seconds) * 1e3
+        timed[disc_type] = dict(warm_steps=warm, step_seconds=seconds, ms_per_step=ms,
+                                images_per_s=VQ_TRAIN_BATCH / (ms / 1e3),
+                                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                                metrics=metrics)
+        del vq, disc, lp, state, step, m
+        torch.cuda.empty_cache()
+
+    vcfg, vq, disc, lp = _vq_models("patchgan", VQ_TRAIN_PX, "cuda", seed=2)
+    state, step = _vq_step(vcfg, vq, disc, lp, "patchgan", disc_start=10 * VQ_LOSS_STEPS)
+    recs = []
+    for _ in range(VQ_LOSS_STEPS):
+        state, m = step(vq, disc, state, x)
+        recs.append(m["rec_loss"])
+    recs = [r.item() for r in recs]
+    factor = recs[-1] / recs[0]
+    check(bool(np.isfinite(recs).all()) and factor <= VQ_LOSS_FACTOR, "train_vq",
+          f"reconstruction loss {recs[0]} -> {recs[-1]}: factor {factor} > {VQ_LOSS_FACTOR}")
+    with tempfile.TemporaryDirectory(prefix="controlar_vq_") as tmp:
+        ckpt.save_vq_train_state(f"{tmp}/vq_checkpoints", state)
+        loaded = ckpt.load_vq_checkpoint(f"{tmp}/vq_checkpoints", vcfg, device="cuda")
+        check(all(torch.equal(t, state.ema_params[n]) for n, t in loaded.state_dict().items()),
+              "train_vq", "the loaded checkpoint is not the state's EMA")
+        t0 = time.perf_counter()
+        ev = reconstruction_eval(loaded, vcfg, [u8[:8], u8[8:]], out_dir=f"{tmp}/recon_eval",
+                                 device="cuda")
+        eval_s = time.perf_counter() - t0
+        samples = np.load(f"{tmp}/recon_eval/samples.npz")["arr_0"]
+        pngs = [len(os.listdir(f"{tmp}/recon_eval/{d}")) for d in ("orig", "recon")]
+    check(np.isfinite(ev["psnr"]) and 0.0 <= ev["ms_ssim"] <= 1.0 and ev["count"] == 16
+          and pngs == [16, 16] and samples.shape == (16, VQ_TRAIN_PX, VQ_TRAIN_PX, 3)
+          and samples.dtype == np.uint8, "train_vq",
+          f"eval {ev}, PNGs {pngs}, samples {samples.shape} {samples.dtype}")
+    emit("train_vq", ok=True, vq="VQ-16 (ch 128, ch_mult (1, 1, 2, 2, 4), z 256, codebook "
+         "16384 x 8, l2-norm)", lpips="VGG16 widths, seed weights",
+         patchgan="ndf 64, 3 layers", px=VQ_TRAIN_PX, batch=VQ_TRAIN_BATCH, lr=VQ_LR,
+         precision="fp32 parameters and compute, TF32 off (cuDNN and cuBLAS)",
+         reference=reference, tol=TRAIN_REF_TOL, timed=timed, loss_steps=VQ_LOSS_STEPS,
+         rec_losses=recs, rec_factor=factor, asked_factor=VQ_LOSS_FACTOR, eval=ev,
+         eval_s=eval_s)
+    del vq, disc, lp, state, step, loaded
+    torch.cuda.empty_cache()
+    return collections.Counter()
+
+
+# the three buckets of resolution_buckets(384, 1024, 64, 2304, 16) the phase
+# runs: 1024 tokens, 1152, and the budget, 2304 (T = 2423)
+MS_BUCKETS = ((512, 512), (384, 768), (1024, 576))
+MS_REF_BUCKETS = ((64, 64), (64, 96))   # the JAX package's test shapes
+MS_BATCH, MS_TIMED = 8, 2
+
+
+def _ms_batch(hw, b: int, cls: int, caption_dim: int, seed: int, device) -> dict:
+    """Synthetic images (B, H, W, 3) in [-1, 1] at the bucket's size, random
+    captions left-padded to lengths in [16, 120], valid rows."""
+    from controlar_tpu_torch.cells import condition_images, train_caption_lens
+
+    h, w = hw
+    u8 = np.ascontiguousarray(condition_images(b, max(h, w), seed)[:, :h, :w])
+    lens = torch.as_tensor(train_caption_lens(b, seed))
+    rng = np.random.default_rng(seed)
+    return {"images": torch.from_numpy(u8).to(device).float() / 127.5 - 1.0,
+            "caption_emb": torch.from_numpy(rng.standard_normal((b, cls, caption_dim))
+                                            .astype(np.float32)).to(device),
+            "emb_mask": (torch.arange(cls)[None, :] >= (cls - lens)[:, None]).to(device),
+            "valid": torch.ones(b, device=device)}
+
+
+def _ms_reference() -> dict:
+    """A small t2i control model (3 layers of 2 x 64 heads, 120 caption
+    tokens, a tiny tokenizer and HED) through the multiscale step's loss at
+    MS_REF_BUCKETS, fp32, on the card and on the CPU: loss and gradients."""
+    from controlar_tpu_torch.config import GPTConfig, VQConfig
+    from controlar_tpu_torch.models import vit as tvit
+    from controlar_tpu_torch.models import vq as tvq
+    from controlar_tpu_torch.train import optimizer as topt
+    from controlar_tpu_torch.train.multiscale import make_multiscale_train_step
+
+    cfg = GPTConfig(model_type="t2i", dim=128, n_layer=3, n_head=2, vocab_size=64,
+                    caption_dim=48, block_size=16, cls_token_num=120, token_dropout_p=0.0,
+                    resid_dropout_p=0.0, ffn_dropout_p=0.0, class_dropout_prob=0.0)
+    acfg = tvit.ViTConfig(hidden_size=384, n_layer=1, n_head=6, pos_grid=8)
+    vcfg = VQConfig(codebook_size=64, codebook_embed_dim=8, z_channels=16, ch=16)
+    model = _control_model(cfg, acfg)
+    frozen = {"vq": tvq.init_vq(vcfg, seed=5, device="cpu"), "hed": _small_condition_nets()["hed"]}
+    devs = {"cpu": (model, frozen),
+            "cuda": (copy.deepcopy(model).to("cuda"),
+                     {k: copy.deepcopy(v).to("cuda") for k, v in frozen.items()})}
+    out = {}
+    for i, hw in enumerate(MS_REF_BUCKETS):
+        got = {}
+        for dev, (m, fz) in devs.items():
+            fn = make_multiscale_train_step(cfg, acfg, vcfg, topt.make_optimizer(lr=TRAIN_REF_LR),
+                                            "hed", frozen=fz, compute_dtype=torch.float32,
+                                            device=dev)
+            batch = _ms_batch(hw, 2, cfg.cls_token_num, cfg.caption_dim, 80 + i, dev)
+            params = {n: p for n, p in m.named_parameters() if p.requires_grad}
+            loss = fn.loss_fn(m, batch, (0, i))
+            got[dev] = (loss.item(), dict(zip(params, torch.autograd.grad(
+                loss, list(params.values())))))
+        loss_err = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+        grad_err, worst = _grad_errs(got["cuda"][1], got["cpu"][1])
+        check(loss_err <= TRAIN_REF_TOL["loss"] and grad_err <= TRAIN_REF_TOL["grad"],
+              "multiscale", f"{hw} card vs CPU: loss rel err {loss_err}, grad rel err "
+              f"{grad_err} ({worst})")
+        out[f"{hw[0]}x{hw[1]}"] = dict(loss=got["cpu"][0], loss_rel_err=loss_err,
+                                      grad_rel_err=grad_err)
+    return out
+
+
+def phase_multiscale() -> collections.Counter:
+    """Arbitrary-resolution control training (train/multiscale.py): first
+    `_ms_reference` (card vs CPU within TRAIN_REF_TOL), then GPT-XL t2i at
+    its published widths with train_t2i_xl512's settings (bf16 compute on
+    fp32 masters, fp32 moments, remat full, dropout 0.1), the DINOv2-small
+    adapter trained, HED and the VQ-16 encoder frozen, batch MS_BATCH: at
+    each of MS_BUCKETS a warm step, then MS_TIMED steps with every count set
+    to 0 just before (B10 launches exact: 2 x 36 forward, 36 dq, 36 dk/dv a
+    step), each step timed on the host clock around the synchronised step;
+    losses finite; the codes the step encoded equal a direct encode of the
+    same images (ties within CKPT_TIE_GAP). Returns the launches."""
+    from controlar_tpu_torch.config import vq_config
+    from controlar_tpu_torch.models import control_nets as tcn
+    from controlar_tpu_torch.models import gpt as tgpt
+    from controlar_tpu_torch.models import vit as tvit
+    from controlar_tpu_torch.models import vq as tvq
+    from controlar_tpu_torch.train import multiscale as tms
+    from controlar_tpu_torch.train import optimizer as topt
+    from controlar_tpu_torch.train import step as tstep
+    from controlar_tpu_torch.train.control_step import ControlModel
+    from controlar_tpu_torch.train.trainer import TrainerConfig
+
+    reference = _ms_reference()
+    tcfg = TrainerConfig(condition_type="hed", global_batch_size=MS_BATCH)
+    cfg, acfg = tcfg.build_gpt_config(), tcfg.build_adapter_config()
+    model = ControlModel(tgpt.init_gpt(cfg, seed=0, device="cuda"),
+                         tvit.init_vit(acfg, seed=1, device="cuda"))
+    frozen_names = topt.frozen_mask(dict(model.named_parameters()))
+    for n, p in model.named_parameters():
+        p.requires_grad_(not frozen_names[n])
+    tx = topt.make_optimizer(lr=tcfg.lr, weight_decay=tcfg.weight_decay, beta1=tcfg.beta1,
+                             beta2=tcfg.beta2, state_dtype=tcfg.opt_state_dtype)
+    state = tstep.init_train_state(model, tx)
+    vcfg = vq_config("VQ-16")
+    vq = tvq.init_vq(vcfg, seed=1, device="cuda")
+    step = tms.make_multiscale_train_step(cfg, acfg, vcfg, tx, "hed",
+                                          frozen={"vq": vq, "hed": tcn.init_hed(seed=0,
+                                                                                device="cuda")},
+                                          remat_policy=tcfg.remat_policy, device="cuda")
+    wrappers = {k: v[0] for k, v in _kernels().items()}
+    per_step = {"flash_train_fwd": cfg.n_layer * _fwd_per_layer(tcfg.remat_policy),
+                "flash_train_dq": cfg.n_layer, "flash_train_dkv": cfg.n_layer}
+    encoded = {}
+    encode_codes = tms.encode_codes
+
+    def recording(v, c, images):
+        encoded["codes"], encoded["images"] = encode_codes(v, c, images), images
+        return encoded["codes"]
+
+    total, rows = collections.Counter(), []
+    tms.encode_codes = recording
+    try:
+        for i, hw in enumerate(MS_BUCKETS):
+            batch = _ms_batch(hw, MS_BATCH, cfg.cls_token_num, cfg.caption_dim, 70 + i, "cuda")
+            state, m = step(model, state, batch, 0)
+            losses = [m["loss"].item()]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in wrappers.values():
+                fn.launches = 0
+            seconds = []
+            for _ in range(MS_TIMED):
+                t0 = time.perf_counter()
+                state, m = step(model, state, batch, 0)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                losses.append(m["loss"].item())
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+            for k, got in launches.items():
+                want = MS_TIMED * per_step.get(k, 0)
+                check(got == want, "multiscale", f"{hw}: {k} launches {got} != {want}")
+            check(bool(np.isfinite(losses).all()), "multiscale", f"{hw}: losses {losses}")
+            gh, gw = hw[0] // vcfg.downsample_factor, hw[1] // vcfg.downsample_factor
+            with torch.inference_mode():
+                x = encoded["images"]
+                h = tvq._conv(vq.quant_conv, tvq.encoder_forward(vq.encoder, vcfg, x))
+                _, direct = tvq.encode(vq, vcfg, x, device="cuda")
+                gaps = _tie_gaps(h, tvq._codebook(vq, vcfg).float(),
+                                 encoded["codes"].reshape(MS_BATCH, gh, gw), direct)
+            check(tuple(encoded["codes"].shape) == (MS_BATCH, gh * gw)
+                  and all(g <= CKPT_TIE_GAP for g in gaps), "multiscale",
+                  f"{hw}: codes {tuple(encoded['codes'].shape)}, tie gaps {gaps}")
+            total.update(launches)
+            rows.append(dict(bucket=list(hw), grid=[gh, gw], tokens=gh * gw,
+                             t=cfg.cls_token_num + gh * gw - 1, step_seconds=seconds,
+                             ms_per_step=statistics.median(seconds) * 1e3,
+                             images_per_s=MS_BATCH / statistics.median(seconds),
+                             peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                             losses=losses, code_ties=len(gaps)))
+            del batch, m
+            encoded.clear()
+    finally:
+        tms.encode_codes = encode_codes
+    emit("multiscale", ok=True, model=tcfg.gpt_model, condition="hed", batch=MS_BATCH,
+         remat=tcfg.remat_policy, precision="bf16 compute on fp32 masters, fp32 moments",
+         reference=reference, tol=TRAIN_REF_TOL, buckets=rows, launches_per_step=per_step,
+         launches={k: v for k, v in total.items() if v})
+    del model, state, step, vq
+    torch.cuda.empty_cache()
+    return total
+
+
+ADAFACTOR_STEPS, ADAFACTOR_LR = 10, 3e-4   # the JAX script's default lr
+
+
+def phase_adafactor() -> collections.Counter:
+    """toy_train at GPT-3B (24 layers, 32 x 100 heads, block 576, batch 16)
+    with `--optimizer adafactor` for ADAFACTOR_STEPS steps, with every count
+    set to 0 just before: ms a step (toy_train's median after two), peak
+    memory, the optimizer state's size; B10 launches exact (2 x 24 forward on
+    the cp.async variant at D 100, 24 dq, 24 dk/dv a step); the loss lower at
+    the end. Returns the launches."""
+    from controlar_tpu_torch import toy_train
+    from controlar_tpu_torch.ops import flash_train as ft
+
+    cfg = toy_train.toy_config("GPT-3B", 576)
+    wrappers = {k: v[0] for k, v in _kernels().items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = toy_train.train(cfg, steps=ADAFACTOR_STEPS, batch=16, lr=ADAFACTOR_LR,
+                          optimizer="adafactor", device="cuda", log=lambda m: None)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    per_step = {"flash_train_fwd": cfg.n_layer * _fwd_per_layer("full"),
+                "flash_train_dq": cfg.n_layer, "flash_train_dkv": cfg.n_layer}
+    for k, got in launches.items():
+        want = ADAFACTOR_STEPS * per_step.get(k, 0)
+        check(got == want, "adafactor", f"{k} launches {got} != {want}")
+    losses = res["step_losses"]
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0], "adafactor",
+          f"losses {losses}: not finite, or not lower at the end")
+    opt = res["state"].opt_state
+    state_gb = sum(t.numel() * t.element_size() for d in (opt.v_row, opt.v_col, opt.v)
+                   for t in d.values()) / 2 ** 30
+    emit("adafactor", ok=True, model="GPT-3B", block_size=cfg.block_size, batch=16,
+         steps=ADAFACTOR_STEPS, lr=ADAFACTOR_LR, fwd_variant=ft.fwd_variant(cfg.head_dim),
+         ms_per_step=res["ms_per_step"], train_s=train_s, peak_mem_gb=peak,
+         optimizer_state_gb=state_gb, losses=losses, launches_per_step=per_step,
+         launches={k: v for k, v in launches.items() if v})
+    del res, opt
+    torch.cuda.empty_cache()
+    return collections.Counter(launches)
+
+
 CELL_RUNS = (("c2i", 1), ("c2i_depth", 1), ("t2i", 1), ("c2i_w8kv8", 1), ("c2i_3b_w4kv4", 1))
 STACKED_RUNS = ("c2i_stacked", "c2i_w8kv8_stacked", "c2i_3b_w4kv4_stacked")
 SERVE_RUNS = (("serve_c2i", ("sync", "overlap", "overlap", "sync")),  # cell, timed runs
@@ -3453,6 +3903,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches.update(phase_extract_train())
     torch.cuda.empty_cache()
+    launches.update(phase_train_vq())
+    launches.update(phase_multiscale())
+    launches.update(phase_adafactor())
     emit("total", seconds=time.perf_counter() - t_start)
     entries = []
     for name, (fn, source, replaces) in _kernels().items():

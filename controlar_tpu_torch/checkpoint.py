@@ -43,19 +43,41 @@ from controlar_tpu_torch.train.step import TrainState
 _FILE = "state.pt"
 
 
-def save_train_state(ckpt_dir: str, state: TrainState, step: Optional[int] = None) -> str:
-    """Save the state under ckpt_dir/step_XXXXXXXX; returns that path."""
-    step = state.step if step is None else step
+def _save(ckpt_dir: str, step: int, tree: Dict[str, Any]) -> str:
+    """torch.save the tree as ckpt_dir/step_XXXXXXXX/state.pt; -> the directory."""
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step:08d}")
     os.makedirs(path, exist_ok=True)
+    torch.save(tree, os.path.join(path, _FILE))
+    return path
+
+
+def save_train_state(ckpt_dir: str, state: TrainState, step: Optional[int] = None) -> str:
+    """Save the state under ckpt_dir/step_XXXXXXXX; returns that path."""
     opt = state.opt_state
-    torch.save({
+    return _save(ckpt_dir, state.step if step is None else step, {
         "step": state.step,
         "params": {n: p.detach() for n, p in state.params.items()},
         "opt_count": opt.count, "mu": opt.mu, "nu": opt.nu,
         "ema_params": state.ema_params,
-    }, os.path.join(path, _FILE))
-    return path
+    })
+
+
+def save_vq_train_state(ckpt_dir: str, state, step: Optional[int] = None) -> str:
+    """Save a `train.vq_step.VQTrainState` under ckpt_dir/step_XXXXXXXX, its
+    parameters under "vq_params", "disc_params" and "ema_params" (None
+    without an EMA), as the JAX package's VQ training state names them;
+    `load_vq_checkpoint` reads the EMA first. Returns the path."""
+
+    def opt(o: AdamState):
+        return {"count": o.count, "mu": o.mu, "nu": o.nu}
+
+    return _save(ckpt_dir, state.step if step is None else step, {
+        "step": state.step,
+        "vq_params": {n: p.detach() for n, p in state.vq_params.items()},
+        "disc_params": {n: p.detach() for n, p in state.disc_params.items()},
+        "ema_params": state.ema_params,
+        "vq_opt": opt(state.vq_opt), "disc_opt": opt(state.disc_opt),
+    })
 
 
 @torch.no_grad()

@@ -89,6 +89,18 @@ class GPTConfig:
         return g, g
 
     @property
+    def grid_size(self) -> int:
+        g = int(self.block_size ** 0.5)
+        assert g * g == self.block_size, "block_size must be a square"
+        return g
+
+    def with_resolution(self, grid_h: int, grid_w: int) -> "GPTConfig":
+        """The configuration for a (grid_h, grid_w) token grid: the weights
+        do not depend on the resolution (RoPE has no parameters), and the
+        rectangular RoPE table is built from `grid`."""
+        return dataclasses.replace(self, block_size=grid_h * grid_w, grid_hw=(grid_h, grid_w))
+
+    @property
     def max_seq_len(self) -> int:
         """cls prefix + image tokens, padded to a multiple of 8."""
         return find_multiple(self.cls_token_num + self.block_size, 8)

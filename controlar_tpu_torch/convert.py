@@ -25,8 +25,10 @@ import torch
 from controlar_tpu_torch import quant
 from controlar_tpu_torch.config import GPTConfig, VQConfig
 from controlar_tpu_torch.models import control_nets
+from controlar_tpu_torch.models import discriminators as disc_model
 from controlar_tpu_torch.models import dpt as dpt_model
 from controlar_tpu_torch.models import gpt as gpt_model
+from controlar_tpu_torch.models import lpips as lpips_model
 from controlar_tpu_torch.models import midas as midas_model
 from controlar_tpu_torch.models import t5 as t5_model
 from controlar_tpu_torch.models import vit as vit_model
@@ -249,3 +251,28 @@ def t5_from_jax(params: Tree, cfg: t5_model.T5Config, dtype: torch.dtype = torch
         for w in ("q", "k", "v", "o", "wi0", "wi1", "wo"):
             sd[f"layers.{l}.{w}.weight"] = _lin(lp[w])
     return _build(lambda: t5_model.T5Encoder(cfg), sd, dtype, device)
+
+
+def lpips_from_jax(params: Tree, device="cpu") -> lpips_model.LPIPS:
+    """The LPIPS network (frozen); the slices' widths read from the tree."""
+    widths = [np.shape(params["vgg"][str(ids[-1])]["w"])[3] for ids in lpips_model.VGG_SLICES]
+    return _build(lambda: lpips_model.LPIPS(widths), _tree_sd(params), torch.float32, device)
+
+
+def patchgan_from_jax(params: Tree, device="cpu") -> disc_model.PatchGAN:
+    """The PatchGAN discriminator; input channels, ndf and depth read from
+    the tree. Returned trainable."""
+    cin, ndf = np.shape(params["conv_in"]["w"])[2:]
+    model = _build(lambda: disc_model.PatchGAN(cin, ndf, len(params["blocks"])),
+                   _tree_sd(params), torch.float32, device)
+    return model.train().requires_grad_(True)
+
+
+def stylegan_disc_from_jax(params: Tree, device="cpu") -> disc_model.StyleGANDisc:
+    """The StyleGAN discriminator; the image size from its number of blocks
+    (down to 4 x 4). Returned trainable."""
+    cin = np.shape(params["conv_in"]["w"])[2]
+    size = 2 ** (len(params["blocks"]) + 2)
+    model = _build(lambda: disc_model.StyleGANDisc(cin, size), _tree_sd(params),
+                   torch.float32, device)
+    return model.train().requires_grad_(True)

@@ -20,7 +20,14 @@ ignored, a key it needs and does not find raises.
   backbone`, the readouts under `pretrained.act_postprocess{3,4}`, the
   fusion and head under `scratch`);
 - T5: HF `T5EncoderModel` / `T5ForConditionalGeneration` (flan-t5-xl:
-  `shared.weight` and `encoder.*`; the decoder is not read).
+  `shared.weight` and `encoder.*`; the decoder is not read);
+- LPIPS: torchvision's `vgg16` state dict (`features.{i}.*`) and the LPIPS
+  heads' checkpoint (`lin{k}.model.1.weight`), two files;
+- the discriminators of VQ training: the reference's PatchGAN
+  (`NLayerDiscriminator`, `main.{i}.*`; batch-norm running statistics not
+  read) and StyleGAN `Discriminator` (`blocks.{i}`, `final_conv.0`,
+  `final_linear.{0,2}`; its first linear takes the (C, H, W) flattening,
+  the port's the (H, W, C) one, so that weight's input axis is permuted).
 
 Each layout is a table of regex rules that rewrite a port parameter's name
 into the checkpoint's key (`_RULES` below); `reference_state_dict` reads the
@@ -39,8 +46,10 @@ import torch
 from controlar_tpu_torch import resolve_device
 from controlar_tpu_torch.config import GPTConfig, VQConfig
 from controlar_tpu_torch.models import control_nets
+from controlar_tpu_torch.models import discriminators as disc_model
 from controlar_tpu_torch.models import dpt as dpt_model
 from controlar_tpu_torch.models import gpt as gpt_model
+from controlar_tpu_torch.models import lpips as lpips_model
 from controlar_tpu_torch.models import midas as midas_model
 from controlar_tpu_torch.models import t5 as t5_model
 from controlar_tpu_torch.models import vit as vit_model
@@ -335,6 +344,109 @@ def t5_from_state_dict(sd: Mapping, cfg: t5_model.T5Config = t5_model.T5_XL,
 
 def t5_hf_state_dict(model: t5_model.T5Encoder) -> Dict[str, torch.Tensor]:
     return reference_state_dict(model, T5_RULES)
+
+
+# ---------------------------------------------------------------------------
+# LPIPS (torchvision vgg16 + the LPIPS heads; the JAX package's
+# `convert/torch_lpips.convert_lpips_state_dicts`)
+# ---------------------------------------------------------------------------
+
+LPIPS_RULES = [
+    (r"^vgg\.(\d+)\.", r"features.\1."),
+    (r"^lins\.(\d)\.weight$", r"lin\1.model.1.weight"),
+]
+
+
+def lpips_from_state_dicts(vgg_sd: Mapping, lin_sd: Mapping,
+                           device="cuda") -> lpips_model.LPIPS:
+    """The frozen LPIPS network from torchvision's vgg16 state dict and the
+    heads' checkpoint; the slices' widths read from the state dict."""
+    sd = {**_numpy(vgg_sd), **_numpy(lin_sd)}
+    widths = [sd[f"features.{ids[-1]}.weight"].shape[0] for ids in lpips_model.VGG_SLICES]
+    return _load_renamed(lambda: lpips_model.LPIPS(widths), sd, LPIPS_RULES, device)
+
+
+def lpips_reference_state_dicts(model: lpips_model.LPIPS):
+    """-> (the vgg16 `features.*` state dict, the heads' `lin*` one)."""
+    sd = reference_state_dict(model, LPIPS_RULES)
+    return ({k: v for k, v in sd.items() if k.startswith("features.")},
+            {k: v for k, v in sd.items() if k.startswith("lin")})
+
+
+# ---------------------------------------------------------------------------
+# Discriminators (the reference's `discriminator_patchgan.py` and
+# `discriminator_stylegan.py`; the JAX package's `convert_*_state_dict`)
+# ---------------------------------------------------------------------------
+
+def _patchgan_rules(n_layers: int) -> Rules:
+    """main.0 the first convolution, then per block a convolution, its batch
+    norm and an activation (3 entries), then the last convolution."""
+    return [
+        (r"^conv_in\.", "main.0."),
+        (r"^blocks\.(\d+)\.conv\.", lambda m: f"main.{2 + 3 * int(m[1])}."),
+        (r"^blocks\.(\d+)\.bn\.scale$", lambda m: f"main.{3 + 3 * int(m[1])}.weight"),
+        (r"^blocks\.(\d+)\.bn\.bias$", lambda m: f"main.{3 + 3 * int(m[1])}.bias"),
+        (r"^conv_out\.", f"main.{2 + 3 * n_layers}."),
+    ]
+
+
+def patchgan_from_state_dict(sd: Mapping, n_layers: int = 3,
+                             device="cuda") -> disc_model.PatchGAN:
+    """The PatchGAN discriminator, trainable; input channels and ndf read
+    from the state dict."""
+    sd = _numpy(sd)
+    ndf, cin = sd["main.0.weight"].shape[:2]
+    model = _load_renamed(lambda: disc_model.PatchGAN(cin, ndf, n_layers), sd,
+                          _patchgan_rules(n_layers), device)
+    return model.train().requires_grad_(True)
+
+
+def patchgan_reference_state_dict(model: disc_model.PatchGAN) -> Dict[str, torch.Tensor]:
+    return reference_state_dict(model, _patchgan_rules(len(model.blocks)))
+
+
+# blocks.1 of the reference is a parameter-free LeakyReLU: its residual
+# blocks start at blocks.2
+STYLEGAN_RULES = [
+    (r"^conv_in\.", "blocks.0."),
+    (r"^blocks\.(\d+)\.conv_res\.", lambda m: f"blocks.{int(m[1]) + 2}.conv_res."),
+    (r"^blocks\.(\d+)\.conv1\.", lambda m: f"blocks.{int(m[1]) + 2}.net.0."),
+    (r"^blocks\.(\d+)\.conv2\.", lambda m: f"blocks.{int(m[1]) + 2}.net.2."),
+    (r"^blocks\.(\d+)\.down\.", lambda m: f"blocks.{int(m[1]) + 2}.downsample.1."),
+    (r"^final_conv\.", "final_conv.0."),
+    (r"^fc1\.", "final_linear.0."),
+    (r"^fc2\.", "final_linear.2."),
+]
+_SG_FC1 = "final_linear.0.weight"
+
+
+def _fc1_input(w: torch.Tensor, to_hwc: bool) -> torch.Tensor:
+    """Permute the first linear's input axis between the (C, 4, 4) and the
+    (4, 4, C) flattening."""
+    n, k = w.shape
+    c = k // 16
+    if to_hwc:
+        return w.reshape(n, c, 4, 4).permute(0, 2, 3, 1).reshape(n, k)
+    return w.reshape(n, 4, 4, c).permute(0, 3, 1, 2).reshape(n, k)
+
+
+def stylegan_disc_from_state_dict(sd: Mapping, device="cuda") -> disc_model.StyleGANDisc:
+    """The StyleGAN discriminator, trainable; the image size from its number
+    of residual blocks (down to 4 x 4)."""
+    sd = _numpy(sd)
+    sd[_SG_FC1] = _fc1_input(torch.from_numpy(sd[_SG_FC1]), to_hwc=True).numpy()
+    last = max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
+    cin = sd["blocks.0.weight"].shape[1]
+    model = _load_renamed(lambda: disc_model.StyleGANDisc(cin, 2 ** (last - 1 + 2)), sd,
+                          STYLEGAN_RULES, device)
+    return model.train().requires_grad_(True)
+
+
+def stylegan_disc_reference_state_dict(model: disc_model.StyleGANDisc
+                                       ) -> Dict[str, torch.Tensor]:
+    sd = reference_state_dict(model, STYLEGAN_RULES)
+    sd[_SG_FC1] = _fc1_input(sd[_SG_FC1], to_hwc=False)
+    return sd
 
 
 def _numpy(sd: Mapping) -> dict:

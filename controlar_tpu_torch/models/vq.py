@@ -239,16 +239,23 @@ def _codebook(p: VQModel, cfg: VQConfig) -> torch.Tensor:
     return emb
 
 
-def quantize(p: VQModel, cfg: VQConfig, z: torch.Tensor):
-    """Nearest codebook entry, straight-through: z (B, h, w, D) -> (z_q
-    (B, h, w, D) in z's dtype, indices (B, h, w) int64). Distances
-    |z|^2 + |e|^2 - 2 z.e in fp32 on the l2-normalised z and codes when
-    codebook_l2_norm; the gradient flows to the (normalised) z."""
+def code_distances(p: VQModel, cfg: VQConfig, z: torch.Tensor):
+    """-> (codebook (N, D), zn (B, h, w, D), distances (B, h, w, N)), fp32:
+    |z|^2 + |e|^2 - 2 z.e on the l2-normalised z and codes when
+    codebook_l2_norm, differentiable in both."""
     emb = _codebook(p, cfg).float()
     zf = z.float()
     zn = zf / zf.norm(dim=-1, keepdim=True) if cfg.codebook_l2_norm else zf
     d = ((zn * zn).sum(-1, keepdim=True) + (emb * emb).sum(-1)
          - 2.0 * torch.einsum("bhwd,nd->bhwn", zn, emb))
+    return emb, zn, d
+
+
+def quantize(p: VQModel, cfg: VQConfig, z: torch.Tensor):
+    """Nearest codebook entry, straight-through: z (B, h, w, D) -> (z_q
+    (B, h, w, D) in z's dtype, indices (B, h, w) int64), by
+    `code_distances`; the gradient flows to the (normalised) z."""
+    emb, zn, d = code_distances(p, cfg, z)
     indices = torch.argmin(d, dim=-1)
     z_q = emb[indices]
     z_q = zn + (z_q - zn).detach()

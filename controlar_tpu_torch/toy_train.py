@@ -17,7 +17,10 @@ Tasks (labels from 16 classes; `toy_tokens`, `toy_tokens_chain`):
          tail at every position, where small logit shifts flip samples.
 
 Training is the port's `train.step.make_train_step` with AdamW
-(`train.optimizer.make_optimizer`, the moments in `--opt-state-dtype`);
+(`train.optimizer.make_optimizer`, the moments in `--opt-state-dtype`) or,
+with `--optimizer adafactor`, `train.optimizer.Adafactor` (optax's
+chain(clip_by_global_norm(1.0), adafactor(lr)), as the JAX script builds
+it; its state fp32);
 attention runs on the training kernels on the card. After training the
 model is cast to bf16 and measured with `eval.quant_report` in every mode of
 `--quant-modes`, and greedy speculative decode with an int8 copy of itself
@@ -26,14 +29,13 @@ as the draft reports its accepted tokens per cycle (k = SPEC_K).
 less converged, higher-entropy model) and reports on it.
 
     python -m controlar_tpu_torch.toy_train [--size GPT-B] [--steps 800]
-        [--batch 16] [--task basic|chain] [--block-size 256]
+        [--batch 16] [--task basic|chain] [--block-size 256] [--optimizer adamw|adafactor]
         [--ckpt-out DIR] [--load-ckpt DIR] [--json-out FILE] [--device cuda]
 
 --ckpt-out saves the trained bf16 model as a port step directory
 (`checkpoint.save_train_state` layout, loadable with
 `checkpoint.load_gpt_checkpoint`); --load-ckpt skips training and reports
-on such a checkpoint (or a JAX `.npz` dump). optax's adafactor
-(`--optimizer adafactor` in the JAX script) is not ported.
+on such a checkpoint (or a JAX `.npz` dump).
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ from controlar_tpu_torch.config import GPTConfig, gpt_config
 from controlar_tpu_torch.eval.quant_report import format_report, measure_quant_agreement
 from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.quant import quantize_gpt
-from controlar_tpu_torch.train.optimizer import AdamState, make_optimizer
+from controlar_tpu_torch.train.optimizer import Adafactor, AdamState, make_optimizer
 from controlar_tpu_torch.train.step import TrainState, init_train_state, make_train_step
 
 CHAIN_STATES = 512  # the deterministic-transition sub-vocabulary of the chain task
@@ -126,11 +128,12 @@ def train(cfg: GPTConfig, *, steps: int, batch: int = 16, lr: float = 3e-4,
           task: str = "basic", noise: Optional[float] = None, num_classes_used: int = 16,
           param_dtype: torch.dtype = torch.float32, opt_state_dtype: str = "bfloat16",
           mid_step: int = -1, model: Optional[gpt_model.GPT] = None,
-          compute_dtype: torch.dtype = torch.bfloat16, device="cuda",
-          log: Callable[[str], None] = print) -> Dict[str, object]:
+          compute_dtype: torch.dtype = torch.bfloat16, optimizer: str = "adamw",
+          device="cuda", log: Callable[[str], None] = print) -> Dict[str, object]:
     """Train `model` (default: `init_gpt(cfg, SEED)` in param_dtype) for
     `steps` steps on the toy task (noise None: the task's TASK_NOISE), in
-    place, with the JAX script's seeds. Returns {model, losses (every
+    place, with the JAX script's seeds; optimizer "adamw" (moments in
+    opt_state_dtype) or "adafactor". Returns {model, losses (every
     LOG_EVERY steps and the last), step_losses (every step, read at the
     end), mid (a bf16 copy after step mid_step, or None), ms_per_step
     (median of the synchronised steps after the first two), state}."""
@@ -139,7 +142,12 @@ def train(cfg: GPTConfig, *, steps: int, batch: int = 16, lr: float = 3e-4,
         model = gpt_model.init_gpt(cfg, seed=SEED, dtype=param_dtype, device=dev)
     for n, p in model.named_parameters():
         p.requires_grad_(not n.endswith("uncond_embedding"))
-    tx = make_optimizer(lr=lr, state_dtype=opt_state_dtype)
+    if optimizer == "adafactor":
+        tx = Adafactor(lr=lr)
+    elif optimizer == "adamw":
+        tx = make_optimizer(lr=lr, state_dtype=opt_state_dtype)
+    else:
+        raise ValueError(f"optimizer must be 'adamw' or 'adafactor', got {optimizer!r}")
     state = init_train_state(model, tx)
     step_fn = make_train_step(cfg, tx, compute_dtype=compute_dtype)
     noise = TASK_NOISE[task] if noise is None else noise
@@ -219,6 +227,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mid-ckpt-frac", type=float, default=0.0,
                     help="also snapshot the model at this fraction of training and report "
                          "on it")
+    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "adafactor"],
+                    help="adafactor: fp32 factored second moments, no first moment")
     ap.add_argument("--param-dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--opt-state-dtype", default="bfloat16", choices=["float32", "bfloat16"])
     ap.add_argument("--ckpt-out", default=None, help="save the trained bf16 model here")
@@ -239,7 +249,7 @@ def main(argv=None) -> int:
     smi = _card_name(dev)
     out: Dict[str, object] = {
         "size": args.size, "steps": args.steps, "block_size": args.block_size,
-        "batch": args.batch, "optimizer": "adamw", "task": args.task, "noise": noise,
+        "batch": args.batch, "optimizer": args.optimizer, "task": args.task, "noise": noise,
         "max_new_tokens": args.max_new_tokens, "device": smi}
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -253,7 +263,8 @@ def main(argv=None) -> int:
         res = train(cfg, steps=args.steps, batch=args.batch, lr=args.lr, task=args.task,
                     noise=noise, num_classes_used=args.num_classes_used,
                     param_dtype=getattr(torch, args.param_dtype),
-                    opt_state_dtype=args.opt_state_dtype, mid_step=mid_step, device=dev)
+                    opt_state_dtype=args.opt_state_dtype, mid_step=mid_step,
+                    optimizer=args.optimizer, device=dev)
         out.update(final_loss=res["losses"][-1], losses=res["losses"],
                    ms_per_step=res["ms_per_step"], train_s=time.perf_counter() - t0)
         if dev.type == "cuda":

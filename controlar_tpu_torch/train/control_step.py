@@ -44,16 +44,24 @@ class ControlModel(nn.Module):
         self.adapter = adapter
 
 
+# the entries of `frozen` each condition type's map reads; any other entry
+# (the multiscale step's tokenizer, "vq") is not the condition's and is ignored
+CONDITION_NETS = {"canny": (), "hed": ("hed",), "lineart": ("lineart",),
+                  "depth": ("depth_fn", "midas", "midas_cfg", "dpt", "dpt_cfg")}
+
+
 def extract_condition_on_device(batch: Dict[str, torch.Tensor], condition_type: str,
                                 frozen: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-    """-> (B, H, W, 3) f32 in [-1, 1]."""
+    """-> (B, H, W, 3) f32 in [-1, 1]. The map takes from `frozen` only the
+    networks of `CONDITION_NETS[condition_type]`."""
     if "control_map" in batch:
         cm = batch["control_map"].float()
         cond = cm if cm.dim() == 4 else cm[..., None].expand(*cm.shape, 3)
         return 2.0 * (cond / 255.0 - 0.5)
     with torch.no_grad():
-        m = control_nets.condition_map(condition_type, batch["control_image"],
-                                       **(frozen or {})).float()
+        nets = {k: v for k, v in (frozen or {}).items()
+                if k in CONDITION_NETS.get(condition_type, ())}
+        m = control_nets.condition_map(condition_type, batch["control_image"], **nets).float()
     cond = m[..., None].expand(*m.shape, 3)
     return 2.0 * (cond / 255.0 - 0.5)
 

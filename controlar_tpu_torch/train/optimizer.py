@@ -19,6 +19,7 @@ parameters are updated in place.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import re
 from typing import Callable, Dict, Optional
@@ -114,8 +115,11 @@ class AdamW:
         names = list(params)
         norm = global_norm([grads[n].float() for n in names])
         # g * keep + (g / norm * max) * (1 - keep) with keep 0 or 1 selects
-        # exactly, without a host sync on the norm
+        # exactly, without a host sync on the norm; the unselected quotient
+        # divides by one when the norm is below the limit (zero gradients, a
+        # loss held at zero, would make it 0 / 0, and NaN * 0 is NaN)
         keep = (norm < self.max_grad_norm).float()
+        div = torch.where(keep > 0, torch.ones_like(norm), norm)
         count = state.count + 1
         bc1 = float(np.float32(1) - np.float32(self.beta1) ** np.int32(count))
         bc2 = float(np.float32(1) - np.float32(self.beta2) ** np.int32(count))
@@ -126,7 +130,7 @@ class AdamW:
         for group in _groups(params, CHUNK_ELEMENTS):
             p = [params[n] for n in group]
             g = [grads[n].float() for n in group]
-            clipped = torch._foreach_div(g, norm)
+            clipped = torch._foreach_div(g, div)
             torch._foreach_mul_(clipped, self.max_grad_norm)
             torch._foreach_mul_(clipped, 1.0 - keep)
             torch._foreach_mul_(g, keep)
@@ -195,6 +199,134 @@ def with_state_dtype(tx: AdamW, dtype) -> AdamW:
         return tx
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     return dataclasses.replace(tx, state_dtype=None if dtype == torch.float32 else dtype)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor: optax.chain(clip_by_global_norm(1.0), adafactor(lr)) at optax
+# 0.2.6's defaults, the JAX package's toy training optimizer
+# (scripts/toy_train_quant.py)
+# ---------------------------------------------------------------------------
+
+# the JAX package stacks a model's per-layer tensors on a leading axis (the
+# transformer's `layers`, the GPT's `condition_layers`): optax's block RMS is
+# taken over the whole stacked leaf, so over every layer's tensor together
+_STACKED = re.compile(r"(^|\.)(layers|condition_layers)\.\d+\.")
+
+
+def jax_leaf(name: str) -> str:
+    """The JAX package's leaf a port parameter belongs to: the name with its
+    layer index replaced by `*` where the JAX package stacks the layers."""
+    return _STACKED.sub(r"\1\2.*.", name, count=1)
+
+
+def _factored_dims(shape, min_dim: int):
+    """optax's rule: factor over the two largest dimensions when the second
+    largest is at least min_dim -> (d1, d0) = (second largest, largest)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape, kind="stable")
+    if shape[order[-2]] < min_dim:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+@dataclasses.dataclass
+class AdafactorState:
+    count: int
+    v_row: Tensors  # factored tensors: the second largest dimension's statistics
+    v_col: Tensors  # ... and the largest's
+    v: Tensors      # the other tensors' second moments
+
+
+# optax 0.2.6's adafactor defaults, and the chain's global-norm clip
+AF_MAX_GRAD_NORM = 1.0
+AF_DECAY_RATE = 0.8
+AF_MIN_DIM_SIZE_TO_FACTOR = 128
+AF_EPS = 1e-30
+AF_CLIPPING_THRESHOLD = 1.0
+AF_MIN_SCALE = 1e-3
+
+
+@dataclasses.dataclass
+class Adafactor:
+    """Per update, in fp32 (the state too), with the AF_* constants:
+
+      g    <- global-norm clip at AF_MAX_GRAD_NORM (as AdamW's)
+      beta <- 1 - (count + 1)^-AF_DECAY_RATE
+      factored (two dimensions >= AF_MIN_DIM_SIZE_TO_FACTOR; d0 the largest,
+      d1 the second): R <- beta R + (1 - beta) mean_d0(g^2 + AF_EPS),
+      C <- beta C + (1 - beta) mean_d1(g^2 + AF_EPS), u = g (R / mean(R))^-1/2 C^-1/2;
+      else V <- beta V + (1 - beta)(g^2 + AF_EPS), u = g V^-1/2
+      u <- u / max(1, rms(u) / AF_CLIPPING_THRESHOLD)     (block RMS)
+      p <- p - lr max(rms(p), AF_MIN_SCALE) u              (parameter scale)
+
+    The factoring of a tensor stacked in the JAX package is per layer, as
+    there (its two largest dimensions are the layer's), and transposing a
+    tensor leaves the update unchanged; both RMS values are taken over the
+    JAX package's whole leaf (`jax_leaf`). The parameters are updated in
+    place."""
+    lr: float = 1e-3
+
+    @staticmethod
+    def _dims(name: str, p: torch.Tensor, layers: int):
+        """The factored dimensions of a tensor; a stacked leaf with as many
+        layers as AF_MIN_DIM_SIZE_TO_FACTOR could factor over the layer
+        axis, which a per-layer tensor cannot."""
+        if layers >= AF_MIN_DIM_SIZE_TO_FACTOR:
+            raise NotImplementedError(f"{jax_leaf(name)}: {layers} stacked layers, which "
+                                      f"optax could factor over the layer axis")
+        return _factored_dims(tuple(p.shape), AF_MIN_DIM_SIZE_TO_FACTOR)
+
+    def init(self, params: Tensors) -> AdafactorState:
+        layers = collections.Counter(jax_leaf(n) for n in params)
+        v_row, v_col, v = {}, {}, {}
+        for n, p in params.items():
+            dims = self._dims(n, p, layers[jax_leaf(n)] if jax_leaf(n) != n else 1)
+            if dims is None:
+                v[n] = torch.zeros_like(p, dtype=torch.float32)
+            else:
+                d1, d0 = dims
+                shape = list(p.shape)
+                v_row[n] = p.new_zeros(shape[:d0] + shape[d0 + 1:], dtype=torch.float32)
+                v_col[n] = p.new_zeros(shape[:d1] + shape[d1 + 1:], dtype=torch.float32)
+        return AdafactorState(0, v_row, v_col, v)
+
+    @torch.no_grad()
+    def step(self, params: Tensors, grads: Tensors, state: AdafactorState):
+        """-> (new state, the gradients' global norm before clipping)."""
+        norm = global_norm([grads[n] for n in params])
+        keep = norm < AF_MAX_GRAD_NORM
+        beta = float(np.float32(1) - np.float32(state.count + 1) ** np.float32(-AF_DECAY_RATE))
+        v_row, v_col, v = dict(state.v_row), dict(state.v_col), dict(state.v)
+        leaves = collections.defaultdict(list)
+        for n in params:
+            leaves[jax_leaf(n)].append(n)
+        for group in leaves.values():
+            us = []
+            for n in group:
+                g = grads[n].float()
+                g = torch.where(keep, g, g / norm * AF_MAX_GRAD_NORM)
+                g2 = g * g + AF_EPS
+                if n in v:
+                    v[n] = beta * v[n] + (1.0 - beta) * g2
+                    us.append(g * v[n] ** -0.5)
+                    continue
+                d1, d0 = _factored_dims(tuple(g.shape), AF_MIN_DIM_SIZE_TO_FACTOR)
+                v_row[n] = beta * v_row[n] + (1.0 - beta) * g2.mean(dim=d0)
+                v_col[n] = beta * v_col[n] + (1.0 - beta) * g2.mean(dim=d1)
+                del g2
+                row_col_mean = v_row[n].mean(dim=d1 - 1 if d1 > d0 else d1, keepdim=True)
+                row = (v_row[n] / row_col_mean) ** -0.5
+                us.append(g * row.unsqueeze(d0) * (v_col[n] ** -0.5).unsqueeze(d1))
+            numel = sum(u.numel() for u in us)
+            u_rms = torch.sqrt(torch.stack([(u * u).sum() for u in us]).sum() / numel)
+            denom = torch.clamp(u_rms / AF_CLIPPING_THRESHOLD, min=1.0)
+            p_rms = torch.sqrt(torch.stack([(params[n].float() ** 2).sum() for n in group]).sum()
+                               / numel)
+            p_scale = torch.where(p_rms <= AF_MIN_SCALE, AF_MIN_SCALE, p_rms)
+            for n, u in zip(group, us):
+                params[n].add_((u / denom * self.lr * p_scale * -1.0).to(params[n].dtype))
+        return AdafactorState(state.count + 1, v_row, v_col, v), norm
 
 
 @torch.no_grad()

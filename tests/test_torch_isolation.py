@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 its entry points never drift to the CPU on their own."""
+import dataclasses
 import os
 import re
 import subprocess
@@ -341,3 +342,121 @@ def test_slice11_entry_points_raise_without_a_card_unless_cpu_is_asked(name, tmp
         assert all(p.device.type == "cpu" and not p.requires_grad for p in out.parameters())
     else:
         assert out == 1  # one sample written
+
+
+# tokenizer and multiscale training (slice 9): each module imported alone
+SLICE9_MODULES = ("models.lpips", "models.discriminators", "train.vq_loss", "train.vq_step",
+                  "train.vq_train", "train.multiscale", "eval.reconstruction",
+                  "train.optimizer")
+
+
+def test_slice9_modules_load_no_jax_optax_or_the_jax_package():
+    """Each module of the slice, imported in a fresh interpreter, loads no
+    jax, optax or controlar_tpu."""
+    code = (
+        "import importlib, sys\n"
+        "importlib.import_module('controlar_tpu_torch.' + sys.argv[1])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'optax', 'controlar_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for name in SLICE9_MODULES:
+        res = subprocess.run([sys.executable, "-c", code, name], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, (name, res.stdout + res.stderr)
+
+
+SLICE9_ENTRY_POINTS = ("init_lpips", "init_patchgan", "init_stylegan_disc",
+                       "lpips_from_state_dicts", "patchgan_from_state_dict",
+                       "stylegan_disc_from_state_dict", "train_vq", "eval_vq",
+                       "reconstruction_eval", "multiscale_step")
+
+
+def _slice9_call(name, tmp_path):
+    from PIL import Image
+
+    from controlar_tpu_torch import convert_ref
+    from controlar_tpu_torch.eval.reconstruction import reconstruction_eval
+    from controlar_tpu_torch.models import discriminators, lpips
+    from controlar_tpu_torch.train import control_step, multiscale, vq_train
+    from controlar_tpu_torch.train import optimizer as topt
+    from controlar_tpu_torch.train import step as tstep
+
+    vcfg = VQConfig(codebook_size=16, z_channels=8, ch=8, encoder_ch_mult=(1, 1),
+                    decoder_ch_mult=(1, 1))
+    widths = (4, 4, 4, 4, 4)
+    if name == "init_lpips":
+        return lambda **d: lpips.init_lpips(widths=widths, **d)
+    if name == "init_patchgan":
+        return lambda **d: discriminators.init_patchgan(ndf=4, **d)
+    if name == "init_stylegan_disc":
+        return lambda **d: discriminators.init_stylegan_disc(image_size=8, **d)
+    if name == "lpips_from_state_dicts":
+        sds = convert_ref.lpips_reference_state_dicts(lpips.init_lpips(widths=widths,
+                                                                       device="cpu"))
+        return lambda **d: convert_ref.lpips_from_state_dicts(*sds, **d)
+    if name == "patchgan_from_state_dict":
+        sd = convert_ref.patchgan_reference_state_dict(discriminators.init_patchgan(
+            ndf=4, device="cpu"))
+        return lambda **d: convert_ref.patchgan_from_state_dict(sd, **d)
+    if name == "stylegan_disc_from_state_dict":
+        sd = convert_ref.stylegan_disc_reference_state_dict(discriminators.init_stylegan_disc(
+            image_size=8, device="cpu"))
+        return lambda **d: convert_ref.stylegan_disc_from_state_dict(sd, **d)
+    images = tmp_path / "images"
+    images.mkdir(exist_ok=True)
+    Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(images / "0.png")
+    if name == "train_vq":  # 32 px: PatchGAN's pyramid and VGG16's pools fit
+        def train(**d):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(vq_train, "vq_config", lambda name: vcfg)
+                return vq_train.train_vq(str(images), image_size=32, batch_size=1,
+                                         max_steps=1, eval_after=0, results_dir=str(tmp_path),
+                                         log=lambda m: None, **d)["vq"]
+
+        return train
+    if name == "eval_vq":  # VQ-16 from seed 0: only the refusal is checked
+        return lambda **d: vq_train.eval_vq(str(images), image_size=16, **d)
+    if name == "reconstruction_eval":
+        vq = tvq.init_vq(vcfg)
+        return lambda **d: reconstruction_eval(vq, vcfg, [np.zeros((1, 16, 16, 3), np.uint8)],
+                                               **d)
+    cfg = GPTConfig(model_type="t2i", dim=32, n_layer=3, n_head=2, vocab_size=16,
+                    cls_token_num=4, caption_dim=8, block_size=4)
+    acfg = tvit.ViTConfig(hidden_size=384, n_layer=1, n_head=2, pos_grid=2)
+    model = control_step.ControlModel(tgpt.init_gpt(cfg), tvit.init_vit(acfg))
+    model.requires_grad_(True)
+    model.gpt.cls_embedding.uncond_embedding.requires_grad_(False)
+    tx = topt.make_optimizer(lr=1e-3)
+    batch = {"images": torch.zeros(1, 32, 16, 3), "caption_emb": torch.zeros(1, 4, 8),
+             "emb_mask": torch.ones(1, 4, dtype=torch.bool)}
+
+    vcfg16 = dataclasses.replace(vcfg, encoder_ch_mult=(1,) * 5)  # /16, the adapter's grid
+
+    def run(**d):
+        fn = multiscale.make_multiscale_train_step(cfg, acfg, vcfg16, tx, "canny",
+                                                   frozen={"vq": tvq.init_vq(vcfg16)},
+                                                   compute_dtype=torch.float32, **d)
+        state, m = fn(model, tstep.init_train_state(model, tx), batch, 0)
+        assert state.step == 1 and np.isfinite(m["loss"].item())
+        return None
+
+    return run
+
+
+@pytest.mark.parametrize("name", SLICE9_ENTRY_POINTS)
+def test_slice9_entry_points_raise_without_a_card_unless_cpu_is_asked(name, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    call = _slice9_call(name, tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()
+    if name == "eval_vq":  # its CPU run is tests/test_torch_vq_train.py's reconstruction
+        return
+    out = call(device="cpu")
+    if isinstance(out, torch.nn.Module):
+        assert all(p.device.type == "cpu" for p in out.parameters())
+    elif isinstance(out, dict):
+        assert out["count"] == 1
