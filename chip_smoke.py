@@ -88,14 +88,15 @@ ending the run with a non-zero exit when it fails:
                 Canny -> DINOv2-small -> CFG decode -> VQ-16, batch 8;
   c2i_depth     the c2i cell with depth control: the MiDaS DPT-Hybrid
                 detector at full width on the 384 px images, stage seconds;
-  t2i           GPT-XL text-to-image at 512 px with left-padded captions;
+  t2i           GPT-XL text-to-image at 512 px with left-padded captions (12
+                of its 36 layers);
   c2i_w8kv8     c2i with W8A16 weights and the int8 KV cache;
   c2i_3b_w4kv4  GPT-3B c2i with W4A16 split-rope weights and the int4 cache;
   c2i_stacked   generate.generate on the c2i, c2i_w8kv8 and c2i_3b_w4kv4
   c2i_w8kv8_stacked  models with the per-layer and with the stacked cache
   c2i_3b_w4kv4_stacked  (kv_stacked=True): kernels per step of each, their
                 first decode steps from one prefill, then a timed call
-                of each, flat then stacked;
+                of each, flat then stacked (the GPT-3B at 8 of 24 layers);
   serve_c2i     continuous-batching serving (ServeEngine) of the c2i model,
                 16 requests with adapter features on 8 slots, quantum 72,
                 timed sync, overlapped, overlapped, sync (identical
@@ -105,7 +106,8 @@ ending the run with a non-zero exit when it fails:
                 timed sync then overlapped (identical tokens required);
   spec_c2i_3b   speculative decode through ControlARPipeline.generate(
                 spec_draft="model"): GPT-3B c2i at 384 px drafted by GPT-B,
-                k = 4, batch 8, CFG 4.0, top_k 2000, Leviathan sampling;
+                k = 4, batch 8, CFG 4.0, top_k 2000, Leviathan sampling (the
+                target at 8 of 24 layers, the draft at 4 of 12);
   spec_c2i_3b_w8kv8  the same with a W8A16 target and the int8 cache;
   spec_c2i_3b_w4kv4  the same with the c2i_3b_w4kv4 target and int4 cache;
   train_t2i_b256  control fine-tuning through Trainer.fit: GPT-B t2i 256 px,
@@ -137,8 +139,32 @@ ending the run with a non-zero exit when it fails:
                 memory, B10 launches exact, the codes a direct encode's;
   adafactor     toy_train at GPT-3B, block 576, batch 16, with Adafactor for 10
                 steps: ms a step, peak memory, B10 launches exact (D 100);
+  eval_reference  the evaluation's parts card against CPU (fp32, TF32 off):
+                the FID InceptionV3 at full width on 4 images (pool3,
+                spatial, logits), the precision / recall radii and
+                memberships from the card's distance matmuls against
+                float64 numpy on 256 features of 2048, a narrow DeepLabV3,
+                a narrow taming VQGAN (codes equal);
+  eval_fid      generate then score, the slice's main path: the c2i cell's
+                pipeline through sample_c2i_fid for 16 images (two calls,
+                B1 and append_kv launches exact) into samples.npz, then
+                evaluate_all (bf16 InceptionV3, seed weights) against 32
+                seed reference images: FID, sFID, IS, precision, recall
+                finite; seconds of each, Inception images/s at batch 64 in
+                bf16 and fp32, peak memory;
+  eval_models   DeepLabV3-R101 (171 classes) written as an mmseg .pth and
+                loaded by load_mmseg_segmenter segments 8 of the samples
+                (512 px after its resize) into cocostuff_miou; the
+                vqgan_imagenet_f16_16384 taming VQGAN through
+                checkpoint.load_taming reconstructs 8 images at 256 px: ms,
+                PSNR, peak memory (seed weights, fp32);
 then the `kernels` line and, last, the `ok` line. The cells are built by
 `controlar_tpu_torch.cells`; weights are random, made from fixed seeds. The
+t2i cell (and the captions phase's t2i call) runs GPT-XL at 12 of its 36
+layers, c2i_3b_w4kv4_stacked GPT-3B at 8 of 24, the speculative cells a
+GPT-3B target at 8 of 24 layers drafted by GPT-B at 4 of 12 (`CELL_DEPTH`,
+`SPEC_DEPTH`: the smoke's time; widths and per-layer launches as at full
+depth). Each JSON line carries `elapsed_s`, the seconds since the start. The
 generation cells run a 16-step warm call and one timed call, the
 stacked cells one timed call with each cache, the
 speculative cells a 16-token warm call and one timed call, the training
@@ -158,6 +184,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -178,8 +205,14 @@ REF_TOL = 1e-3              # fp32 model on card vs CPU; bf16 cache identical
 W4_ATOL, W4_RTOL = 1e-2, 1e-2
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, its fields and the seconds since the script
+    started (`elapsed_s`)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - T_START}), flush=True)
 
 
 def check(ok: bool, phase: str, msg: str) -> None:
@@ -2742,7 +2775,7 @@ def phase_cell(name: str, runs: int) -> dict:
     from controlar_tpu_torch.cells import BATCH, CELLS, build_cell
 
     t0 = time.perf_counter()
-    pipe, kw = build_cell(name)
+    pipe, kw = build_cell(name, n_layer=CELL_DEPTH.get(name))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     cfg = pipe.gpt_cfg
@@ -2773,7 +2806,7 @@ def phase_cell(name: str, runs: int) -> dict:
     # finite: ControlARPipeline.generate raises on a non-finite decoded image
     med = statistics.median(seconds)
     emit(name, ok=True, model=CELLS[name]["size"], quant=CELLS[name].get("quant"),
-         condition_type=pipe.condition_type, stage_seconds=stages,
+         layers=cfg.n_layer, condition_type=pipe.condition_type, stage_seconds=stages,
          cache_dtype=str(kw.get("cache_dtype") or torch.bfloat16), image_px=px,
          tokens=cfg.block_size, batch=BATCH, cfg_scale=kw["cfg_scale"], top_k=kw["top_k"],
          runs=runs, build_s=build_s, seconds=seconds, median_s=med, images_per_s=BATCH / med,
@@ -2858,7 +2891,7 @@ def phase_stacked_cell(name: str) -> dict:
     from controlar_tpu_torch.cells import BATCH, CELLS, STACKED_CELLS, build_stacked_cell
 
     t0 = time.perf_counter()
-    pipe, kw = build_stacked_cell(name)
+    pipe, kw = build_stacked_cell(name, n_layer=CELL_DEPTH.get(name))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     base, cfg = STACKED_CELLS[name], pipe.gpt_cfg
@@ -2952,7 +2985,7 @@ def phase_spec_cell(name: str, runs: int) -> dict:
         BATCH, SPEC_CELLS, SPEC_DRAFT_SIZE, SPEC_K, build_spec_cell)
 
     t0 = time.perf_counter()
-    pipe, kw = build_spec_cell(name)
+    pipe, kw = build_spec_cell(name, n_layer=SPEC_DEPTH[0], draft_n_layer=SPEC_DEPTH[1])
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     cfg, dcfg = pipe.gpt_cfg, pipe.draft_gpt_cfg
@@ -2990,7 +3023,7 @@ def phase_spec_cell(name: str, runs: int) -> dict:
         calls.append(dict(stats, launches={k: v for k, v in launches.items() if v}))
     med = statistics.median(seconds)
     emit(name, ok=True, model=SPEC_CELLS[name]["size"], draft=SPEC_DRAFT_SIZE,
-         quant=SPEC_CELLS[name].get("quant"),
+         layers=cfg.n_layer, draft_layers=dcfg.n_layer, quant=SPEC_CELLS[name].get("quant"),
          cache_dtype=str(kw.get("cache_dtype") or torch.bfloat16), image_px=px,
          tokens=cfg.block_size, batch=BATCH, cfg_scale=kw["cfg_scale"], top_k=kw["top_k"],
          k_draft=SPEC_K, runs=runs, build_s=build_s, seconds=seconds, median_s=med,
@@ -3148,8 +3181,9 @@ def phase_captions() -> collections.Counter:
       gap within T5_BF16_REL_L2; then bf16 timed (ms a batch over T5_TIMED
       calls, CUDA events; TFLOP/s; peak memory);
     - the bf16 features, as they are, with their right-padded mask into one
-      ControlARPipeline.generate call of the t2i cell (GPT-XL 512 px, CFG
-      7.5, Canny on its images; its first, unwarmed), as the JAX CLI's
+      ControlARPipeline.generate call of the t2i cell (GPT-XL widths at
+      CELL_DEPTH's 12 layers, 512 px, CFG 7.5, Canny on its images; its
+      first, unwarmed), as the JAX CLI's
       sample-t2i passes them:
       with every launch count set to 0 just before, flash_decode_attention
       and append_kv launch exactly n_layer x 1023 times each, nothing else.
@@ -3213,7 +3247,7 @@ def phase_captions() -> collections.Counter:
     del emb, t5, f32
     torch.cuda.empty_cache()
 
-    pipe, kw = build_cell("t2i", device="cuda")
+    pipe, kw = build_cell("t2i", device="cuda", n_layer=CELL_DEPTH["t2i"])
     kw = dict(kw, caption_emb=feats, emb_masks=fmask)
     torch.cuda.synchronize()
     wrappers = {k: v[0] for k, v in _kernels().items()}
@@ -3233,7 +3267,8 @@ def phase_captions() -> collections.Counter:
           "captions", f"t2i output {out.shape} {out.dtype}")
     emit("captions", ok=True, model="T5-XL", layers=cfg.n_layer, d_model=cfg.d_model,
          heads=cfg.n_head, d_ff=cfg.d_ff, vocab=cfg.vocab_size, batch=BATCH, **row,
-         t2i_model="GPT-XL", t2i_seconds=seconds, t2i_stage_seconds=stages,
+         t2i_model="GPT-XL", t2i_layers=pipe.gpt_cfg.n_layer, t2i_seconds=seconds,
+         t2i_stage_seconds=stages,
          t2i_shape=list(out.shape), launches={k: v for k, v in launches.items() if v},
          launches_per_call=per_call)
     return collections.Counter(launches)
@@ -3805,7 +3840,348 @@ def phase_adafactor() -> collections.Counter:
     return collections.Counter(launches)
 
 
+# The evaluation phases: the c2i sampler, the evaluator's Inception and
+# metrics, the mmseg DeepLabV3 segmenter and the taming VQGAN.
+EVAL_REF_TOL = 1e-3        # card vs CPU, fp32 with TF32 off, of each output's largest
+EVAL_RADII_TOL = 1e-5      # fp32 squared distances (~4e3) against float64, relative
+EVAL_SAMPLES, EVAL_REF_IMAGES, EVAL_REF_FEATS = 16, 32, 256
+EVAL_BATCHES = (64, 3)     # Inception throughput: batch, timed calls
+MIOU_CLASSES = 171         # COCO-Stuff
+TAMING_NAME, TAMING_PX = "vqgan_imagenet_f16_16384", 256
+
+
+def _meta_flops(make, run) -> float:
+    """Operations of run(make()) counted by FlopCounterMode on the meta
+    device (convolutions and matmuls)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.device("meta"):
+        model = make()
+        with FlopCounterMode(display=False) as counter:
+            run(model)
+    return float(counter.get_total_flops())
+
+
+def _rel(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((out.float() - ref.float()).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def _narrow_taming(device):
+    """A taming VQGAN at f16-16384's structure, ch 32 and a 256-entry
+    codebook of embed_dim 8 drawn normal (spread as a trained one is), fp32."""
+    import dataclasses
+
+    from controlar_tpu_torch.models import taming_vqgan as tt
+
+    cfg = dataclasses.replace(tt.TAMING_CONFIGS[TAMING_NAME], ch=32, resolution=64,
+                              attn_resolutions=(4,), z_channels=32, n_embed=256, embed_dim=8)
+    model = tt.init_taming(cfg, seed=41, device=device)
+    gen = torch.Generator(device=device).manual_seed(42)
+    with torch.no_grad():
+        model.embedding.copy_(torch.randn(model.embedding.shape, generator=gen, device=device))
+    return model, cfg
+
+
+def phase_eval_reference():
+    """The evaluation's parts on the card against the CPU (the path the
+    tests hold to the JAX package), fp32 with TF32 off:
+    - the InceptionV3 at full width (random weights from a seed) on 4 seed
+      images of 96 x 128 (resized to 299): pool3, spatial and logits within
+      EVAL_REF_TOL of each output's largest;
+    - manifold radii and precision / recall membership from the card's
+      fp32 distance matmuls against float64 numpy on 256 seed features of
+      2048: radii within EVAL_RADII_TOL relative; each membership equal
+      where no pair's float64 distance lies within EVAL_RADII_TOL of its
+      radius (counted as near-ties);
+    - a narrow DeepLabV3 (depth 50, base 8, head 16, 171 classes) on 2
+      images at 64 x 96: logits within EVAL_REF_TOL of their largest;
+    - a narrow taming VQGAN (`_narrow_taming`) on 2 images at 64 px: codes
+      equal, the reconstruction within EVAL_REF_TOL of its largest."""
+    from controlar_tpu_torch.cells import condition_images
+    from controlar_tpu_torch.eval import evaluator as tev
+    from controlar_tpu_torch.eval import inception as tinc
+    from controlar_tpu_torch.eval.deeplabv3 import DeepLabV3
+    from controlar_tpu_torch.models import taming_vqgan as tt
+
+    rows = {}
+    imgs = condition_images(4, 128, seed=33)[:, :96]
+    cpu = tinc.init_inception(seed=31, device="cpu")
+    card = copy.deepcopy(cpu).cuda()
+    want = tinc.inception_features(cpu, imgs)
+    got = tinc.inception_features(card, imgs)
+    for name, o, r in zip(("pool3", "spatial", "logits"), got, want):
+        rows[f"inception_{name}_rel_err"] = err = _rel(o.cpu(), r)
+        check(tuple(o.shape) == tuple(r.shape) and bool(torch.isfinite(o).all())
+              and err <= EVAL_REF_TOL, "eval_reference", f"inception {name}: {err}")
+    del cpu, card
+
+    rng = np.random.default_rng(34)
+    ref = rng.standard_normal((EVAL_REF_FEATS, tinc.POOL_DIM)).astype(np.float32)
+    smp = (rng.standard_normal((EVAL_REF_FEATS, tinc.POOL_DIM)) * 1.05 + 0.02).astype(np.float32)
+
+    def d64(u, v):
+        u, v = u.astype(np.float64), v.astype(np.float64)
+        return np.maximum((u * u).sum(1)[:, None] - 2 * u @ v.T + (v * v).sum(1)[None], 0)
+
+    for name, (f, e) in {"precision": (ref, smp), "recall": (smp, ref)}.items():
+        radii = tev.manifold_radii(f, 3, device="cuda")
+        want_r = np.partition(d64(f, f), 3, axis=1)[:, 3]
+        r_err = float(np.max(np.abs(radii - want_r) / want_r))
+        inside = tev.manifold_inside(f, radii, e, device="cuda")
+        d = d64(e, f)
+        want_in = (d <= want_r[None]).any(1)
+        near = (np.abs(d - want_r[None]) <= EVAL_RADII_TOL * want_r[None]).any(1)
+        differ = int(((inside != want_in) & ~near).sum())
+        rows[f"{name}_radii_rel_err"], rows[f"{name}_near_ties"] = r_err, int(near.sum())
+        rows[name] = float(inside.mean())
+        rows[f"{name}_float64"] = float(want_in.mean())
+        check(r_err <= EVAL_RADII_TOL and differ == 0, "eval_reference",
+              f"{name}: radii {r_err}, {differ} memberships differ away from ties")
+
+    torch.manual_seed(35)
+    seg_cpu = DeepLabV3(depth=50, num_classes=MIOU_CLASSES, base_channels=8,
+                        head_channels=16).eval()
+    seg_card = copy.deepcopy(seg_cpu).cuda()
+    x = torch.from_numpy(condition_images(2, 96, seed=36)[:, :64]).permute(0, 3, 1, 2).float()
+    x = x / 127.5 - 1
+    with torch.no_grad():
+        want, got = seg_cpu(x), seg_card(x.cuda()).cpu()
+    rows["deeplabv3_rel_err"] = err = _rel(got, want)
+    check(tuple(got.shape) == (2, MIOU_CLASSES, 64, 96) and err <= EVAL_REF_TOL,
+          "eval_reference", f"deeplabv3 logits {tuple(got.shape)}: {err}")
+
+    tam_cpu, tcfg = _narrow_taming("cpu")
+    tam_card = copy.deepcopy(tam_cpu).cuda()
+    x = torch.from_numpy(condition_images(2, 64, seed=37)).float() / 127.5 - 1
+    with torch.no_grad():
+        zc, _, ic = tt.encode(tam_cpu, tcfg, x, device="cpu")
+        zg, _, ig = tt.encode(tam_card, tcfg, x.cuda(), device="cuda")
+        rec_c, rec_g = tt.decode(tam_cpu, tcfg, zc), tt.decode(tam_card, tcfg, zg).cpu()
+    rows["taming_codes"] = int(ic.numel())
+    rows["taming_codes_equal"] = bool(torch.equal(ic, ig.cpu()))
+    rows["taming_rel_err"] = err = _rel(rec_g, rec_c)
+    check(rows["taming_codes_equal"] and err <= EVAL_REF_TOL, "eval_reference",
+          f"taming: codes equal {rows['taming_codes_equal']}, reconstruction {err}")
+    emit("eval_reference", ok=True, tol=EVAL_REF_TOL, radii_tol=EVAL_RADII_TOL,
+         feats=[EVAL_REF_FEATS, tinc.POOL_DIM], **rows)
+
+
+def _device_profile(fn, trace: Path) -> dict:
+    """One call of fn under torch.profiler: device busy ms, kernels and the
+    six kernels with the most device time (`trace_decode._device_summary`)."""
+    from controlar_tpu_torch.trace_decode import _device_summary
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    summary = _device_summary(trace.read_bytes(), 1, kernels=())
+    trace.unlink()
+    top = list(summary["top_kernels_ms_per_step"].items())[:6]
+    return dict(device_busy_ms=summary["device_busy_ms_per_step"],
+                kernels=summary["kernels_per_step"], top_kernels_ms=dict(top))
+
+
+def _median_ms(fn, reps: int = 3):
+    """A warm call of fn, then the median host-clock ms of reps synchronised
+    calls. -> (the last call's output, ms)."""
+    fn()
+    torch.cuda.synchronize()
+    seconds = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return out, statistics.median(seconds) * 1e3
+
+
+def _inception_rate(model, dtype, tmp: Path) -> dict:
+    """images/s and TFLOP/s of inception_features at EVAL_BATCHES[0] 384 px
+    uint8 images already on the card (`_median_ms` of EVAL_BATCHES[1]
+    calls); then one profiled call."""
+    from controlar_tpu_torch.cells import condition_images
+    from controlar_tpu_torch.eval import inception as tinc
+
+    n, reps = EVAL_BATCHES
+    x = torch.from_numpy(condition_images(n, 384, seed=38)).cuda()
+    _, ms = _median_ms(lambda: tinc.inception_features(model, x, dtype), reps)
+    sec = ms / 1e3
+    return dict(ms=ms, images_per_s=n / sec,
+                tflop_per_s=tinc.inception_flops(n) / sec / 1e12,
+                profile=_device_profile(lambda: tinc.inception_features(model, x, dtype),
+                                        tmp / "inception_trace.json"))
+
+
+def phase_eval_fid(tmp: Path):
+    """The slice's main path, generate then score: the c2i cell's pipeline
+    (GPT-B c2i 384 px, Canny on its images, CFG 4.0, top_k 2000) through
+    sample_c2i_fid for EVAL_SAMPLES images in batches of 8 (two generate
+    calls) into tmp/samples/samples.npz, with every launch count set to 0
+    just before: flash_decode_attention and append_kv exactly 2 x 12 x 575
+    each, nothing else; then evaluate_all (bf16 InceptionV3 at full width,
+    random weights from a seed, written as pytorch-fid's .pth and read by
+    checkpoint.load_inception) against a reference npz of EVAL_REF_IMAGES
+    seed images: the five numbers finite, IS in [1, 1008]; the seconds of
+    each, Inception images/s at batch 64 in bf16 and fp32, peak memory.
+    Returns (launches, the samples)."""
+    from controlar_tpu_torch import checkpoint, convert_ref
+    from controlar_tpu_torch.cells import BATCH, CELLS, build_cell, condition_images
+    from controlar_tpu_torch.eval import evaluator as tev
+    from controlar_tpu_torch.eval import inception as tinc
+    from controlar_tpu_torch.eval.sampler import sample_c2i_fid
+
+    pipe, kw = build_cell("c2i")
+    cfg = pipe.gpt_cfg
+    out_dir = tmp / "samples"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = {k: v[0] for k, v in _kernels().items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    samples = sample_c2i_fid(pipe, EVAL_SAMPLES, batch_size=BATCH, cfg_scale=kw["cfg_scale"],
+                             top_k=kw["top_k"], out_dir=str(out_dir), seed=0,
+                             condition_images=kw["condition_images"])
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    calls = EVAL_SAMPLES // BATCH
+    want = {k: calls * v for k, v in _expected_per_call("c2i", cfg).items()}
+    for k, n in launches.items():
+        check(n == want.get(k, 0), "eval_fid", f"{k} launches {n} != {want.get(k, 0)}")
+    px = pipe.gpt_cfg.grid[0] * 16
+    with np.load(out_dir / "samples.npz") as f:
+        check(f.files == ["arr_0"] and f["arr_0"].shape == (EVAL_SAMPLES, px, px, 3)
+              and f["arr_0"].dtype == np.uint8 and np.array_equal(f["arr_0"], samples),
+              "eval_fid", f"samples.npz {f.files}")
+    check(len(list((out_dir / "images").glob("*.png"))) == EVAL_SAMPLES, "eval_fid",
+          "PNG count")
+    sample_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del pipe
+    torch.cuda.empty_cache()
+
+    ref_path = tmp / "ref.npz"
+    np.savez(ref_path, arr_0=condition_images(EVAL_REF_IMAGES, px, seed=39))
+    # a seed Inception written in pytorch-fid's layout and read back as a
+    # user reads the released file
+    seeded = tinc.init_inception(seed=40)
+    torch.save(convert_ref.inception_state_dict(seeded), tmp / "pt_inception.pth")
+    inception = checkpoint.load_inception(str(tmp / "pt_inception.pth"))
+    check(all(torch.equal(a, b) for a, b in zip(seeded.state_dict().values(),
+                                                inception.state_dict().values())),
+          "eval_fid", "load_inception is not bit for bit")
+    del seeded
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scores = tev.evaluate_all(inception, str(ref_path), str(out_dir / "samples.npz"))
+    score_s = time.perf_counter() - t0
+    score_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(set(scores) == {"inception_score", "fid", "sfid", "precision", "recall"}
+          and all(np.isfinite(v) for v in scores.values())
+          and 1.0 <= scores["inception_score"] <= tinc.NUM_LOGITS
+          and all(0.0 <= scores[k] <= 1.0 for k in ("precision", "recall")),
+          "eval_fid", f"scores {scores}")
+    rates = {"bf16": _inception_rate(inception, torch.bfloat16, tmp),
+             "fp32": _inception_rate(inception, torch.float32, tmp)}
+    emit("eval_fid", ok=True, model=CELLS["c2i"]["size"], layers=cfg.n_layer, image_px=px,
+         samples=EVAL_SAMPLES, reference_images=EVAL_REF_IMAGES, generate_calls=calls,
+         sample_s=sample_s, score_s=score_s, scores=scores, compute_dtype="bfloat16",
+         inception_batch=EVAL_BATCHES[0], inception=rates,
+         inception_gflop_per_image=tinc.inception_flops(1) / 1e9,
+         sample_peak_mem_gb=sample_peak, score_peak_mem_gb=score_peak,
+         launches={k: v for k, v in launches.items() if v}, launches_expected=want)
+    return collections.Counter(launches), samples
+
+
+def phase_eval_models(tmp: Path, samples: np.ndarray):
+    """The comparison and reward models at published widths, seed weights,
+    fp32 with TF32 off:
+    - DeepLabV3-R101 (171 classes, mmseg's widths), written as an mmseg
+      .pth ({"state_dict", "meta"}) and read through load_mmseg_segmenter,
+      segments 8 of eval_fid's 384 px samples (its keep-ratio resize takes
+      them to 512 px) in one batch; cocostuff_miou against seed labels;
+      ms of a batch (median of 3 after a warm call, host clock, the labels
+      back on the host), peak memory;
+    - vqgan_imagenet_f16_16384 from a seed, written as a lightning
+      checkpoint ({"state_dict"}) and read through checkpoint.load_taming
+      bit for bit, reconstructs 8 images at 256 px: ms (median of 3 after a
+      warm call), PSNR, peak memory."""
+    from controlar_tpu_torch import checkpoint, convert_ref
+    from controlar_tpu_torch.cells import condition_images
+    from controlar_tpu_torch.convert_mmseg import load_mmseg_segmenter
+    from controlar_tpu_torch.eval.deeplabv3 import DeepLabV3
+    from controlar_tpu_torch.eval.miou import cocostuff_miou
+    from controlar_tpu_torch.models import taming_vqgan as tt
+
+    torch.manual_seed(43)
+    with torch.device("cuda"):
+        seg = DeepLabV3(depth=101, num_classes=MIOU_CLASSES)
+    path = tmp / "deeplabv3_r101.pth"
+    torch.save({"state_dict": seg.state_dict(), "meta": {"mmseg_version": "1.2.2"}}, path)
+    params_m = sum(p.numel() for p in seg.parameters()) / 1e6
+    del seg
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    segment = load_mmseg_segmenter(str(path), device="cuda", batch_size=8)
+    load_s = time.perf_counter() - t0
+    images = samples[:8]
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        labels, seg_ms = _median_ms(lambda: segment(images))
+    seg_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(labels.shape == images.shape[:3] and labels.min() >= 0
+          and labels.max() < MIOU_CLASSES, "eval_models", f"labels {labels.shape}")
+    gt = np.random.default_rng(44).integers(0, MIOU_CLASSES, images.shape[:3])
+    gt[:, :8] = 255  # an ignored band
+    miou = cocostuff_miou(segment, [(images, gt)])
+    check(np.isfinite(miou) and 0 <= miou <= 1, "eval_models", f"mIoU {miou}")
+    seg_flops = _meta_flops(lambda: DeepLabV3(depth=101, num_classes=MIOU_CLASSES),
+                            lambda m: m(torch.zeros(8, 3, 512, 512)))
+    del segment
+    torch.cuda.empty_cache()
+
+    cfg = tt.TAMING_CONFIGS[TAMING_NAME]
+    model = tt.init_taming(cfg, seed=45)
+    sd = convert_ref.taming_reference_state_dict(model)
+    ckpt = tmp / "vqgan_f16_16384.ckpt"
+    torch.save({"state_dict": sd}, ckpt)
+    loaded, lcfg = checkpoint.load_taming(str(ckpt), TAMING_NAME)
+    check(all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                loaded.state_dict().values())),
+          "eval_models", "load_taming is not bit for bit")
+    del model, sd
+    x = torch.from_numpy(condition_images(8, TAMING_PX, seed=46)).cuda().float() / 127.5 - 1
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        rec, tam_ms = _median_ms(lambda: tt.reconstruct(loaded, lcfg, x))
+    tam_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(tuple(rec.shape) == tuple(x.shape) and bool(torch.isfinite(rec).all()),
+          "eval_models", f"taming reconstruction {tuple(rec.shape)}")
+    mse = float(((rec.clamp(-1, 1) - x) / 2).pow(2).mean())
+    tam_flops = _meta_flops(lambda: tt.TamingVQModel(cfg), lambda m: tt.decode(
+        m, cfg, tt.quantize(m, cfg, tt._conv(m.quant_conv, tt.encoder_forward(
+            m.encoder, torch.zeros(8, TAMING_PX, TAMING_PX, 3))))[0]))
+    emit("eval_models", ok=True, dtype="float32", tf32=False,
+         deeplabv3=dict(depth=101, classes=MIOU_CLASSES, params_m=params_m, batch=8,
+                        input_px=list(images.shape[1:3]), load_s=load_s, ms=seg_ms,
+                        tflop_per_s=seg_flops / (seg_ms / 1e3) / 1e12, peak_mem_gb=seg_peak,
+                        cocostuff_miou=miou),
+         taming=dict(name=TAMING_NAME, params_m=sum(p.numel() for p in loaded.parameters())
+                     / 1e6, batch=8, image_px=TAMING_PX, ms=tam_ms,
+                     tflop_per_s=tam_flops / (tam_ms / 1e3) / 1e12,
+                     psnr_db=10 * np.log10(1.0 / max(mse, 1e-12)), peak_mem_gb=tam_peak))
+
+
 CELL_RUNS = (("c2i", 1), ("c2i_depth", 1), ("t2i", 1), ("c2i_w8kv8", 1), ("c2i_3b_w4kv4", 1))
+# depth cuts that keep the smoke in its time (widths unchanged; every kernel
+# and launch count as at full depth, per layer): the t2i cell and the
+# captions phase's t2i call run GPT-XL at 12 of its 36 layers, the GPT-3B
+# stacked cell at 8 of 24, the speculative cells a GPT-3B target at 8 of 24
+# layers drafted by GPT-B at 4 of 12
+CELL_DEPTH = {"t2i": 12, "c2i_3b_w4kv4_stacked": 8}
+SPEC_DEPTH = (8, 4)
 STACKED_RUNS = ("c2i_stacked", "c2i_w8kv8_stacked", "c2i_3b_w4kv4_stacked")
 SERVE_RUNS = (("serve_c2i", ("sync", "overlap", "overlap", "sync")),  # cell, timed runs
               ("serve_c2i_w8kv8", ("sync",)), ("serve_c2i_stacked", ("sync", "overlap")))
@@ -3906,6 +4282,12 @@ def main() -> int:
     launches.update(phase_train_vq())
     launches.update(phase_multiscale())
     launches.update(phase_adafactor())
+    torch.cuda.empty_cache()
+    phase_eval_reference()
+    with tempfile.TemporaryDirectory(prefix="controlar_eval_") as tmp:
+        fid_launches, samples = phase_eval_fid(Path(tmp))
+        launches.update(fid_launches)
+        phase_eval_models(Path(tmp), samples)
     emit("total", seconds=time.perf_counter() - t_start)
     entries = []
     for name, (fn, source, replaces) in _kernels().items():

@@ -160,20 +160,23 @@ def word_tokenizer(vocab_size: int = 32128):
     return tokenize
 
 
-def _gpt(cell: dict, size: str, seed: int, device):
-    """-> (config, bf16 GPT of the cell's model type and image size)."""
+def _gpt(cell: dict, size: str, seed: int, device, n_layer=None):
+    """-> (config, bf16 GPT of the cell's model type and image size);
+    n_layer, when given, cuts the size's depth (its widths stay)."""
+    depth = {} if n_layer is None else {"n_layer": n_layer}
     cfg = gpt_config(size, model_type=cell["model_type"], cls_token_num=cell["cls_token_num"],
                      block_size=(cell["image_px"] // 16) ** 2, vocab_size=16384,
-                     num_classes=1000)
+                     num_classes=1000, **depth)
     return cfg, gpt_model.init_gpt(cfg, seed=seed, dtype=torch.bfloat16, device=device)
 
 
-def build_cell(name: str, seed: int = 0, device="cuda", cells=CELLS, **pipe_kw):
+def build_cell(name: str, seed: int = 0, device="cuda", cells=CELLS, n_layer=None, **pipe_kw):
     """-> (pipeline, keyword arguments of one `pipeline.generate` call).
-    pipe_kw go to the pipeline (the speculative cells' draft)."""
+    n_layer cuts the GPT's depth; pipe_kw go to the pipeline (the
+    speculative cells' draft)."""
     cell = cells[name]
     px = cell["image_px"]
-    cfg, gpt = _gpt(cell, cell["size"], seed, device)
+    cfg, gpt = _gpt(cell, cell["size"], seed, device, n_layer)
     vcfg = vq_config("VQ-16")
     if "quant" in cell:
         quantize_gpt(gpt, cfg, mode=cell["quant"], split_rope=cell.get("split_rope", False))
@@ -258,12 +261,13 @@ STACKED_CELLS = {"c2i_stacked": "c2i", "c2i_w8kv8_stacked": "c2i_w8kv8",  # -> p
                  "c2i_3b_w4kv4_stacked": "c2i_3b_w4kv4"}
 
 
-def build_stacked_cell(name: str, seed: int = 0, device="cuda"):
+def build_stacked_cell(name: str, seed: int = 0, device="cuda", n_layer=None):
     """-> (pipeline of the cell's model, keyword arguments of one
     `generate.generate` call on it but `kv_stacked` and `seed`: labels,
     adapter features of the cell's condition images computed on the
-    device, max_new_tokens, cfg_scale, top_k, cache_dtype, device)."""
-    pipe, kw = build_cell(STACKED_CELLS[name], seed, device)
+    device, max_new_tokens, cfg_scale, top_k, cache_dtype, device).
+    n_layer cuts the GPT's depth."""
+    pipe, kw = build_cell(STACKED_CELLS[name], seed, device, n_layer=n_layer)
     with torch.inference_mode():
         feats = pipe.control_features(pipe.extract_condition(kw["condition_images"]))
     return pipe, dict(labels=kw["labels"], adapter_features=feats,
@@ -281,13 +285,15 @@ SPEC_DRAFT_SIZE = "GPT-B"
 SPEC_K = 4  # drafts per cycle: the pipeline's k
 
 
-def build_spec_cell(name: str, seed: int = 0, device="cuda"):
+def build_spec_cell(name: str, seed: int = 0, device="cuda", n_layer=None,
+                    draft_n_layer=None):
     """-> (pipeline with the GPT-B draft, keyword arguments of one
-    speculative `pipeline.generate` call)."""
+    speculative `pipeline.generate` call). n_layer and draft_n_layer cut
+    the target's and the draft's depths."""
     cell = SPEC_CELLS[name]
-    dcfg, draft = _gpt(cell, SPEC_DRAFT_SIZE, seed + 5, device)
-    pipe, kw = build_cell(name, seed, device=device, cells=SPEC_CELLS, draft_gpt_cfg=dcfg,
-                          draft_gpt=draft)
+    dcfg, draft = _gpt(cell, SPEC_DRAFT_SIZE, seed + 5, device, draft_n_layer)
+    pipe, kw = build_cell(name, seed, device=device, cells=SPEC_CELLS, n_layer=n_layer,
+                          draft_gpt_cfg=dcfg, draft_gpt=draft)
     return pipe, dict(kw, spec_draft="model")
 
 

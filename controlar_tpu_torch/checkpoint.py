@@ -18,12 +18,14 @@ Weights load from:
   port's own step directories, or a results directory holding them (the
   latest step wins). The JAX package's orbax directories cannot be read
   without orbax; they raise an error that names the format.
-`load_gpt_checkpoint`, `load_vq_checkpoint`, `load_adapter_checkpoint` and
-`load_t5_encoder` return the port's module on the asked device and dtype.
+`load_gpt_checkpoint`, `load_vq_checkpoint`, `load_adapter_checkpoint`,
+`load_t5_encoder`, `load_inception` and `load_taming` return the port's
+module on the asked device and dtype.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import struct
@@ -33,8 +35,10 @@ import numpy as np
 import torch
 
 from controlar_tpu_torch import convert, convert_ref, resolve_device, tools
+from controlar_tpu_torch.eval import inception as inception_model
 from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.models import t5 as t5_model
+from controlar_tpu_torch.models import taming_vqgan as taming_model
 from controlar_tpu_torch.models import vit as vit_model
 from controlar_tpu_torch.models import vq as vq_model
 from controlar_tpu_torch.train.optimizer import AdamState
@@ -293,6 +297,30 @@ def load_vq_checkpoint(path: str, cfg, dtype: torch.dtype = torch.float32,
     if _is_flat(tree):
         return convert._build(lambda: vq_model.VQModel(cfg), tree, dtype, device)
     return convert.vq_from_jax(tree, cfg, dtype, device)
+
+
+def load_inception(path: str, device="cuda") -> inception_model.InceptionV3:
+    """pytorch-fid's `pt_inception-2015-12-05-*.pth` (or a .safetensors of
+    the same keys) -> the port's FID InceptionV3 in fp32."""
+    device = resolve_device(device)
+    return convert_ref.inception_from_state_dict(load_torch_file(path), device)
+
+
+def load_taming(path: str, name: str, remap=None, unknown_index="random",
+                dtype: torch.dtype = torch.float32, device="cuda"):
+    """A taming VQGAN checkpoint (the lightning `state_dict` of its VQModel,
+    .ckpt / .pt / .safetensors) of the config `name` in
+    `taming_vqgan.TAMING_CONFIGS` -> (the port's TamingVQModel, its
+    config). `remap`, the used codebook rows (a sequence or a .npy file;
+    `vqgan_openimage_f8_256` is released with one), and `unknown_index`
+    set the quantizer's remap."""
+    device = resolve_device(device)
+    cfg = taming_model.TAMING_CONFIGS[name]
+    if remap is not None:
+        used = np.load(remap) if isinstance(remap, str) else np.asarray(remap)
+        cfg = dataclasses.replace(cfg, remap=tuple(int(i) for i in used.ravel()),
+                                  unknown_index=unknown_index)
+    return convert_ref.taming_from_state_dict(load_torch_file(path), cfg, dtype, device), cfg
 
 
 def load_adapter_checkpoint(path: str, cfg: vit_model.ViTConfig = vit_model.DINOV2_SMALL,

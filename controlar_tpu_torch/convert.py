@@ -24,6 +24,7 @@ import torch
 
 from controlar_tpu_torch import quant
 from controlar_tpu_torch.config import GPTConfig, VQConfig
+from controlar_tpu_torch.eval import inception as inception_model
 from controlar_tpu_torch.models import control_nets
 from controlar_tpu_torch.models import discriminators as disc_model
 from controlar_tpu_torch.models import dpt as dpt_model
@@ -31,6 +32,7 @@ from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.models import lpips as lpips_model
 from controlar_tpu_torch.models import midas as midas_model
 from controlar_tpu_torch.models import t5 as t5_model
+from controlar_tpu_torch.models import taming_vqgan as taming_model
 from controlar_tpu_torch.models import vit as vit_model
 from controlar_tpu_torch.models import vq as vq_model
 
@@ -276,3 +278,27 @@ def stylegan_disc_from_jax(params: Tree, device="cpu") -> disc_model.StyleGANDis
     model = _build(lambda: disc_model.StyleGANDisc(cin, size), _tree_sd(params),
                    torch.float32, device)
     return model.train().requires_grad_(True)
+
+
+def inception_from_jax(params: Tree, device="cpu") -> inception_model.InceptionV3:
+    """The FID InceptionV3 (fp32): each conv's HWIO `w` and its batch norm's
+    bn_scale / bn_bias / bn_mean / bn_var, and the fc's (2048, 1008) `w`
+    and `b`."""
+    sd = {"fc.weight": _lin(params["fc"]["w"]), "fc.bias": _t(params["fc"]["b"])}
+    names = {"bn_scale": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
+             "bn_var": "running_var"}
+    for path, _ in inception_model.iter_conv_paths():
+        leaf = params
+        for part in path.split("."):
+            leaf = leaf[part]
+        sd[f"{path}.conv.weight"] = _conv(leaf["w"])
+        sd.update({f"{path}.bn.{n}": _t(leaf[k]) for k, n in names.items()})
+    return _build(inception_model.InceptionV3, sd, torch.float32, device)
+
+
+def taming_from_jax(params: Tree, cfg: taming_model.TamingVQConfig,
+                    dtype: torch.dtype = torch.float32,
+                    device="cpu") -> taming_model.TamingVQModel:
+    """A taming VQGAN: encoder, quant_conv, the codebook (`embedding`),
+    post_quant_conv and decoder; the module's names are the JAX tree's."""
+    return _build(lambda: taming_model.TamingVQModel(cfg), _tree_sd(params), dtype, device)

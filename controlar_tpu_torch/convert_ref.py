@@ -23,6 +23,12 @@ ignored, a key it needs and does not find raises.
   `shared.weight` and `encoder.*`; the decoder is not read);
 - LPIPS: torchvision's `vgg16` state dict (`features.{i}.*`) and the LPIPS
   heads' checkpoint (`lin{k}.model.1.weight`), two files;
+- the FID InceptionV3: pytorch-fid's `pt_inception-2015-12-05-*.pth`
+  (torchvision's module paths, read by identity; a missing `fc.bias` is
+  zero);
+- the taming VQGAN comparison tokenizers: the pytorch-lightning
+  `state_dict` of taming's VQModel (`encoder.down.{i}.block.{j}.*`,
+  `decoder.up.{i}.*`, `quantize.embedding.weight`);
 - the discriminators of VQ training: the reference's PatchGAN
   (`NLayerDiscriminator`, `main.{i}.*`; batch-norm running statistics not
   read) and StyleGAN `Discriminator` (`blocks.{i}`, `final_conv.0`,
@@ -45,6 +51,7 @@ import torch
 
 from controlar_tpu_torch import resolve_device
 from controlar_tpu_torch.config import GPTConfig, VQConfig
+from controlar_tpu_torch.eval import inception as inception_model
 from controlar_tpu_torch.models import control_nets
 from controlar_tpu_torch.models import discriminators as disc_model
 from controlar_tpu_torch.models import dpt as dpt_model
@@ -52,6 +59,7 @@ from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.models import lpips as lpips_model
 from controlar_tpu_torch.models import midas as midas_model
 from controlar_tpu_torch.models import t5 as t5_model
+from controlar_tpu_torch.models import taming_vqgan as taming_model
 from controlar_tpu_torch.models import vit as vit_model
 from controlar_tpu_torch.models import vq as vq_model
 
@@ -447,6 +455,43 @@ def stylegan_disc_reference_state_dict(model: disc_model.StyleGANDisc
     sd = reference_state_dict(model, STYLEGAN_RULES)
     sd[_SG_FC1] = _fc1_input(sd[_SG_FC1], to_hwc=False)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# FID InceptionV3 (pytorch-fid layout) and the taming VQGAN (lightning
+# `state_dict` of taming's VQModel)
+# ---------------------------------------------------------------------------
+
+def inception_from_state_dict(sd: Mapping, device="cuda") -> inception_model.InceptionV3:
+    """The FID InceptionV3 from pytorch-fid's state dict, by identity; keys
+    it does not use (`num_batches_tracked`) are ignored, a missing fc.bias
+    is zero (the logits use no bias)."""
+    zero_bias = torch.zeros(inception_model.NUM_LOGITS)
+    return _load_renamed(inception_model.InceptionV3, sd, [], device,
+                         fallback=lambda name: zero_bias if name == "fc.bias" else sd[name])
+
+
+def inception_state_dict(model: inception_model.InceptionV3) -> Dict[str, torch.Tensor]:
+    return reference_state_dict(model, [])
+
+
+TAMING_RULES = [
+    (r"\.scale$", ".weight"),
+    (r"^embedding$", "quantize.embedding.weight"),
+]
+
+
+def taming_from_state_dict(sd: Mapping, cfg: taming_model.TamingVQConfig,
+                           dtype: torch.dtype = torch.float32,
+                           device="cuda") -> taming_model.TamingVQModel:
+    """A taming VQGAN from its lightning state dict (the discriminator and
+    LPIPS of its loss are not read)."""
+    return _load_renamed(lambda: taming_model.TamingVQModel(cfg), sd, TAMING_RULES, device,
+                         dtype)
+
+
+def taming_reference_state_dict(model: taming_model.TamingVQModel) -> Dict[str, torch.Tensor]:
+    return reference_state_dict(model, TAMING_RULES)
 
 
 def _numpy(sd: Mapping) -> dict:

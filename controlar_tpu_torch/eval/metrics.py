@@ -8,6 +8,8 @@ package's definitions (`controlar_tpu/eval/metrics.py`):
   0.1333), k1 0.01, k2 0.03), computed on a device (hed, lineart).
 
 Each is streaming: update(true, pred) per image, calculate() the mean.
+`FIDStats` streams feature batches into float64 sums on the host, and
+`frechet_distance` is the FID between two Gaussians.
 """
 from __future__ import annotations
 
@@ -121,3 +123,42 @@ class SSIM:
 
     def calculate(self) -> float:
         return self.total / max(self.count, 1)
+
+
+class FIDStats:
+    """Streaming mean and covariance of feature batches, float64 sums on
+    the host."""
+
+    def __init__(self, dim: int):
+        self.n = 0
+        self.sum = np.zeros(dim, np.float64)
+        self.outer = np.zeros((dim, dim), np.float64)
+
+    def update(self, feats: np.ndarray):
+        f = np.asarray(feats, np.float64)
+        self.n += f.shape[0]
+        self.sum += f.sum(0)
+        self.outer += f.T @ f
+
+    def finalize(self):
+        """-> (mu, sigma), sigma with the unbiased (n - 1) normalisation."""
+        mu = self.sum / self.n
+        sigma = self.outer / self.n - np.outer(mu, mu)
+        sigma *= self.n / max(self.n - 1, 1)
+        return mu, sigma
+
+
+def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
+    """|mu1 - mu2|^2 + tr(sigma1 + sigma2 - 2 sqrt(sigma1 sigma2)). When the
+    square root is not finite, it is taken again with eps on both
+    diagonals; a complex root keeps its real part."""
+    import scipy.linalg
+
+    diff = mu1 - mu2
+    covmean = scipy.linalg.sqrtm(sigma1 @ sigma2)
+    if not np.isfinite(covmean).all():
+        offset = np.eye(sigma1.shape[0]) * eps
+        covmean = scipy.linalg.sqrtm((sigma1 + offset) @ (sigma2 + offset))
+    if np.iscomplexobj(covmean):
+        covmean = covmean.real
+    return float(diff @ diff + np.trace(sigma1) + np.trace(sigma2) - 2 * np.trace(covmean))

@@ -134,18 +134,24 @@ def test_trainer_raises_without_a_card_unless_cpu_is_asked(tmp_path):
 
 # packages the card's machine does not have
 ABSENT_ON_THE_CARD = ("transformers", "timm", "cv2", "safetensors", "ml_dtypes", "orbax", "bs4",
-                      "sentencepiece", "ftfy")
+                      "sentencepiece", "ftfy", "diffusers", "cleanfid")
 # the only imports of those allowed, inside a function that the card's runs
 # never call: HF's tokenizer when the caller gives none, ftfy's optional
-# mojibake repair
-OPTIONAL_IMPORTS = {"text/embedder.py": ("transformers",), "text/cleaning.py": ("ftfy",)}
+# mojibake repair, the transformers segmenters, Mask2Former and CLIP, the
+# cleanfid wrapper, the diffusers autoencoders
+OPTIONAL_IMPORTS = {"text/embedder.py": ("transformers",), "text/cleaning.py": ("ftfy",),
+                    "eval/segmenter.py": ("transformers",),
+                    "eval/t2i_eval.py": ("transformers", "cleanfid"),
+                    "convert_mmseg.py": ("transformers",),
+                    "models/latent_vae.py": ("diffusers",)}
 
 
 def test_port_imports_no_transformers_timm_or_cv2():
     """The card's machine has none of ABSENT_ON_THE_CARD (transformers, timm,
-    cv2, safetensors, ml_dtypes, orbax, bs4, sentencepiece, ftfy): no module
-    of the port names one, but OPTIONAL_IMPORTS inside a function, and
-    importing every module loads none (nor JAX or the JAX package)."""
+    cv2, safetensors, ml_dtypes, orbax, bs4, sentencepiece, ftfy, diffusers,
+    cleanfid): no module of the port names one, but OPTIONAL_IMPORTS inside
+    a function, and importing every module loads none (nor JAX or the JAX
+    package)."""
     names = "|".join(ABSENT_ON_THE_CARD)
     for path in sorted(PKG.rglob("*.py")):
         allowed = OPTIONAL_IMPORTS.get(str(path.relative_to(PKG)), ())
@@ -460,3 +466,55 @@ def test_slice9_entry_points_raise_without_a_card_unless_cpu_is_asked(name, tmp_
         assert all(p.device.type == "cpu" for p in out.parameters())
     elif isinstance(out, dict):
         assert out["count"] == 1
+
+
+# the evaluation slice (slice 13): name -> call(tmp_path, **device_kw)
+SLICE13_ENTRY_POINTS = ("Evaluator", "sample_c2i_fid", "init_inception", "init_taming",
+                        "load_mmseg_segmenter")
+
+
+def _slice13_call(name, tmp_path):
+    from controlar_tpu_torch.eval import evaluator, inception, sampler
+    from controlar_tpu_torch.eval.deeplabv3 import DeepLabV3
+    from controlar_tpu_torch.convert_mmseg import load_mmseg_segmenter
+    from controlar_tpu_torch.models import taming_vqgan
+
+    if name == "Evaluator":
+        model = inception.init_inception(device="cpu")
+        return lambda **d: evaluator.Evaluator(model, **d).model
+    if name == "sample_c2i_fid":
+        cfg, model = _tiny()
+        vcfg = VQConfig(codebook_size=16, z_channels=8, ch=8, decoder_ch_mult=(1, 1))
+        acfg = tvit.ViTConfig(hidden_size=384, n_layer=1, n_head=2, pos_grid=2)
+        pipe = ControlARPipeline(gpt_cfg=cfg, gpt=model, vq_cfg=vcfg, vq=tvq.init_vq(vcfg),
+                                 adapter_cfg=acfg, adapter=tvit.init_vit(acfg), device="cpu")
+        return lambda **d: sampler.sample_c2i_fid(pipe, 3, batch_size=2, num_classes=4,
+                                                  top_k=4, **d)
+    if name == "init_inception":
+        return lambda **d: inception.init_inception(**d)
+    if name == "init_taming":
+        cfg = taming_vqgan.TamingVQConfig(ch=8, ch_mult=(1, 2), resolution=8,
+                                          attn_resolutions=(4,), z_channels=4, n_embed=8,
+                                          embed_dim=4)
+        return lambda **d: taming_vqgan.init_taming(cfg, **d)
+    torch.manual_seed(0)
+    sd = DeepLabV3(depth=50, num_classes=3, base_channels=8, head_channels=8).state_dict()
+    torch.save({"state_dict": sd}, tmp_path / "seg.pth")
+    return lambda **d: load_mmseg_segmenter(str(tmp_path / "seg.pth"), **d)
+
+
+@pytest.mark.parametrize("name", SLICE13_ENTRY_POINTS)
+def test_slice13_entry_points_raise_without_a_card_unless_cpu_is_asked(name, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    call = _slice13_call(name, tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()
+    out = call(device="cpu")
+    if isinstance(out, torch.nn.Module):
+        assert all(p.device.type == "cpu" and not p.requires_grad for p in out.parameters())
+    elif isinstance(out, np.ndarray):
+        assert out.shape == (3, 4, 4, 3) and out.dtype == np.uint8
+    else:  # the segmenter
+        labels = out(np.zeros((1, 16, 16, 3), np.uint8))
+        assert labels.shape == (1, 16, 16) and labels.max() < 3
