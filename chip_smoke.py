@@ -100,7 +100,7 @@ ending the run with a non-zero exit when it fails:
   serve_c2i     continuous-batching serving (ServeEngine) of the c2i model,
                 16 requests with adapter features on 8 slots, quantum 72,
                 timed sync, overlapped, overlapped, sync (identical
-                tokens and statistics required), then VQ-16 decoded;
+                statistics required), then VQ-16 decoded;
   serve_c2i_w8kv8  the same traffic on the c2i_w8kv8 model and int8 cache;
   serve_c2i_stacked  the serve_c2i traffic with ServeConfig(kv_stacked=True),
                 timed sync then overlapped (identical tokens required);
@@ -125,6 +125,11 @@ ending the run with a non-zero exit when it fails:
                 extract (flip, Canny, 256 px) into C2ICodeDataset, then the
                 .car through ShardedLoader into 3 Trainer.fit steps at
                 train_t2i_xl512's config, B10 launches exact;
+  cli           the port's CLI in process, as a user runs it (random weights
+                from the seeds): sample-c2i (GPT-B 384 px, 8 seed PNGs as
+                condition images -> 8 PNGs), serve (16 labels, 8 slots ->
+                16 PNGs) and train-t2i (2 GPT-XL 512 px steps on
+                extract_train's .car); each command's launches exact;
   train_vq      tokenizer training at VQ-16's published widths (LPIPS at
                 VGG16's, PatchGAN ndf 64; fp32, TF32 off): the generator's and
                 discriminator's losses, adaptive weight and gradients card vs
@@ -158,6 +163,15 @@ ending the run with a non-zero exit when it fails:
                 vqgan_imagenet_f16_16384 taming VQGAN through
                 checkpoint.load_taming reconstructs 8 images at 256 px: ms,
                 PSNR, peak memory (seed weights, fp32);
+  parallel_single  the trainer's (data 1, fsdp 1, tp 1) mesh path in a
+                one-rank NCCL group against the same steps without a
+                process group (train_t2i_b256, 3 steps): losses equal,
+                every parameter within 1e-6 of the largest;
+  tp_decode     tensor-parallel decode: two processes on the one card (gloo
+                over CUDA tensors; NCCL refuses two ranks on one GPU) decode
+                fp32 GPT-B c2i 384 px (4 of 12 layers) greedily on 6 heads each, against tp
+                1 in this process (tokens equal but at near-ties); B1 at H 6
+                and append_kv launches exact on each rank;
 then the `kernels` line and, last, the `ok` line. The cells are built by
 `controlar_tpu_torch.cells`; weights are random, made from fixed seeds. The
 t2i cell (and the captions phase's t2i call) runs GPT-XL at 12 of its 36
@@ -181,12 +195,14 @@ import collections
 import contextlib
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -402,8 +418,9 @@ def phase_kernel():
     """flash_decode_attention at the main path's shapes: 16 rows (batch 8
     with CFG); c2i GPT-B (12 x 64 heads, 768 cache rows = 577 rounded up to
     256, pos 0..575), t2i GPT-XL (20 x 64 heads, 1280 rows = 1144 rounded
-    up, pos 119..1142, caption bias), and head dims 100 and 128 (GPT-3B,
-    GPT-7B), at `_positions`' (the kernel's 64-row chunk boundaries at D =
+    up, pos 119..1142, caption bias), head dims 100 and 128 (GPT-3B,
+    GPT-7B), and a tensor-parallel rank's 6 and 10 heads (GPT-B and GPT-XL
+    at tp 2), at `_positions`' (the kernel's 64-row chunk boundaries at D =
     64) and, at D = 100 and 128, both sides of the first boundary of their
     32- and 128-row chunks, with and without the left-padded bias. Timed at
     each case's last decode step with and
@@ -425,6 +442,9 @@ def phase_kernel():
         # the live rows (pos + 1) on each side of the 32- and 128-row chunk boundaries
         ("d100", 32, 100, 768, 120, (30, 31, 32) + _positions("c2i"), (575,)),
         ("d128", 32, 128, 768, 120, (126, 127, 128) + _positions("c2i"), (575,)),
+        # a tp = 2 rank's heads: GPT-B (tp_decode) and GPT-XL
+        ("tp2_c2i", 6, 64, 768, 120, _positions("c2i"), (575,)),
+        ("tp2_t2i", 10, 64, 1280, 120, _positions("t2i"), (1142,)),
     ]
     results, max_err, main = [], 0.0, {}
     for name, h, d, s, t_cls, positions, timed_at in cases:
@@ -3279,7 +3299,7 @@ EXTRACT_C2I_IMAGES, EXTRACT_C2I_PX = 8, 256
 EXTRACT_TRAIN_STEPS = 3
 
 
-def phase_extract_train() -> collections.Counter:
+def phase_extract_train(keep_car: Optional[Path] = None) -> collections.Counter:
     """Captions and images in, training out, on the card:
     - extract_tree: EXTRACT_IMAGES synthetic EXTRACT_PX px images with
       seed-made captions through the VQ-16 encoder and T5-XL (bf16, a
@@ -3296,7 +3316,9 @@ def phase_extract_train() -> collections.Counter:
       train_t2i_xl512's config for EXTRACT_TRAIN_STEPS steps: with every
       count set to 0 just before, the B10 launches exact and nothing else;
       losses finite.
-    Returns the launches of the training steps."""
+    keep_car, when given, receives a copy of the .car (the cli phase trains
+    from it). Returns the launches of the training steps."""
+    import shutil
     import tempfile
 
     from PIL import Image
@@ -3358,6 +3380,8 @@ def phase_extract_train() -> collections.Counter:
         tree_ds = T2IControlCodeDataset(T2IControlConfig(
             code_path=tree, image_size=EXTRACT_PX, t5_feature_dim=tt5.T5_XL.d_model))
         packed = carpack.pack_control_dataset(tree_ds, f"{tmp}/train.car")
+        if keep_car is not None:
+            shutil.copy(f"{tmp}/train.car", keep_car)
         car_ds = carpack.CarpackControlDataset(f"{tmp}/train.car")
         order = np.random.default_rng(43).permutation(n)
         same = True
@@ -4174,6 +4198,313 @@ def phase_eval_models(tmp: Path, samples: np.ndarray):
                      psnr_db=10 * np.log10(1.0 / max(mse, 1e-12)), peak_mem_gb=tam_peak))
 
 
+# ---------------------------------------------------------------------------
+# Entry points and the parallel layer
+# ---------------------------------------------------------------------------
+
+CLI_PX, CLI_BATCH = 384, 8      # sample-c2i: GPT-B c2i 384 px, batch 8
+CLI_SERVE_REQUESTS, CLI_SLOTS, CLI_QUANTUM = 16, 8, 64
+CLI_TRAIN_STEPS = 2             # train-t2i at XL-512 on extract_train's .car
+
+
+def _png(path) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
+
+
+def phase_cli(car: Path) -> collections.Counter:
+    """The port's CLI in process, as a user runs it (`cli.main`, random
+    weights from the seeds, `--device cuda`), each command's launch counts
+    set to 0 just before it and exact after it:
+    - sample-c2i: GPT-B 384 px, 8 labels with 8 seed-made PNGs as condition
+      images -> 8 PNGs; B1 and append_kv 12 x 575 launches each;
+    - serve: 16 labels through the engine (8 slots, quantum 64) -> 16 PNGs;
+      two waves of ceil(575 / 64) x 64 decode steps, B1 and append_kv 12 a
+      step;
+    - train-t2i: 2 steps of GPT-XL 512 px, batch 8, on the .car extract_train
+      wrote; B10 forward 2 x 36, dq and dk/dv 36 a step; losses finite.
+    Returns the launches."""
+    from PIL import Image
+
+    from controlar_tpu_torch import cli
+    from controlar_tpu_torch.cells import condition_images
+    from controlar_tpu_torch.config import gpt_config
+
+    wrappers = {k: v[0] for k, v in _kernels().items()}
+    total, rows = collections.Counter(), {}
+
+    def run(name, argv, want):
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        for k, n in got.items():
+            check(n == want(out).get(k, 0), "cli", f"{name}: {k} launches {n} != "
+                  f"{want(out).get(k, 0)}")
+        total.update(got)
+        rows[name] = dict(seconds=seconds, launches={k: v for k, v in got.items() if v})
+        return out
+
+    layers_b, layers_xl = gpt_config("GPT-B").n_layer, gpt_config("GPT-XL").n_layer
+    steps = (CLI_PX // 16) ** 2 - 1
+    decode = {"flash_decode_attention": layers_b * steps, "append_kv": layers_b * steps}
+    with tempfile.TemporaryDirectory(prefix="controlar_cli_") as tmp:
+        tmp = Path(tmp)
+        paths = []
+        for i, img in enumerate(condition_images(CLI_BATCH, CLI_PX, seed=51)):
+            paths.append(str(tmp / f"cond_{i}.png"))
+            Image.fromarray(img).save(paths[-1])
+        gpt = ["--gpt-model", "GPT-B", "--image-size", str(CLI_PX), "--device", "cuda"]
+        run("sample-c2i", ["sample-c2i", *gpt, "--class-labels",
+                           ",".join(str(100 * i) for i in range(CLI_BATCH)),
+                           "--condition-images", ",".join(paths),
+                           "--output-dir", str(tmp / "c2i")], lambda _: decode)
+        imgs = [_png(tmp / "c2i" / f"sample_{i}.png") for i in range(CLI_BATCH)]
+        check(all(im.shape == (CLI_PX, CLI_PX, 3) and im.dtype == np.uint8 and im.std() > 0
+                  for im in imgs), "cli", "sample-c2i images")
+        # the slots decode in waves of CLI_SLOTS requests, admitted on quantum
+        # boundaries: each wave takes its steps rounded up to the quantum
+        waves = -(-CLI_SERVE_REQUESTS // CLI_SLOTS)
+        serve_steps = waves * -(-steps // CLI_QUANTUM) * CLI_QUANTUM
+        done, stats = run("serve", ["serve", *gpt, "--class-labels",
+                                    ",".join(str(37 * i % 1000) for i in range(CLI_SERVE_REQUESTS)),
+                                    "--max-slots", str(CLI_SLOTS), "--quantum", str(CLI_QUANTUM),
+                                    "--output-dir", str(tmp / "serve")],
+                          lambda _: {k: layers_b * serve_steps for k in decode})
+        check(stats["slot_steps"] == CLI_SLOTS * serve_steps, "cli",
+              f"serve: {stats['slot_steps']} slot steps != {CLI_SLOTS} x {serve_steps}")
+        served = sorted(os.listdir(tmp / "serve"))
+        check(len(done) == len(served) == CLI_SERVE_REQUESTS
+              and all(r.tokens.shape == (steps + 1,) for r in done)
+              and all(_png(tmp / "serve" / f).shape == (CLI_PX, CLI_PX, 3) for f in served),
+              "cli", f"serve wrote {served}")
+        rows["serve"].update(stats)
+        per_step = {"flash_train_fwd": 2 * layers_xl, "flash_train_dq": layers_xl,
+                    "flash_train_dkv": layers_xl}
+        state = run("train-t2i", ["train-t2i", "--code-path", str(car), "--gpt-model", "GPT-XL",
+                                  "--image-size", "512", "--global-batch-size", "8",
+                                  "--max-steps", str(CLI_TRAIN_STEPS), "--results-dir",
+                                  str(tmp / "train"), "--device", "cuda"],
+                    lambda _: {k: CLI_TRAIN_STEPS * v for k, v in per_step.items()})
+        records = [json.loads(ln) for ln in open(tmp / "train" / "metrics.jsonl")]
+        check(state.step == CLI_TRAIN_STEPS and records
+              and all(np.isfinite(r["loss"]) for r in records), "cli",
+              f"train-t2i: step {state.step}, records {records}")
+        rows["train-t2i"].update(first_loss=records[0]["loss"])
+    emit("cli", ok=True, commands=rows)
+    return total
+
+
+PAR_CELL, PAR_STEPS = "train_t2i_b256", 3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_parallel_single() -> None:
+    """The trainer's mesh path in a one-rank NCCL group: PAR_STEPS steps of
+    the train_t2i_b256 cell (bf16 compute, dropout 0.1) through the
+    (data 1, fsdp 1, tp 1) mesh's gather, reduce and norm against the same
+    steps without a process group: losses equal, every parameter within
+    1e-6 of the largest (a one-rank group has no collective that could
+    reorder a sum, and the kernels of the step use no atomics). ms a step
+    of each."""
+    import torch.distributed as dist
+
+    from controlar_tpu_torch.cells import FixedBatchLoader, build_train_cell
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="controlar_par_") as tmp:
+        for name in ("plain", "mesh"):
+            if name == "mesh":
+                dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                        world_size=1, rank=0)
+            try:
+                trainer, batch = build_train_cell(PAR_CELL, device="cuda", log_every=1,
+                                                  ckpt_every=10 ** 9, results_dir=f"{tmp}/{name}")
+                check((trainer.mesh is None) == (name == "plain"), "parallel_single",
+                      f"{name}: mesh {trainer.mesh}")
+                state = trainer.fit(FixedBatchLoader(batch, PAR_STEPS), max_steps=PAR_STEPS)
+                torch.cuda.synchronize()
+                params = (trainer.layout.full_state(state).params if trainer.layout is not None
+                          else {n: p.detach().clone() for n, p in state.params.items()})
+                runs[name] = dict(params=params, losses=[r["loss"] for r in trainer.history],
+                                  step_s=[r["seconds"] for r in trainer.history],
+                                  lr=trainer.cfg.lr)
+                del trainer, state
+            finally:
+                if name == "mesh":
+                    dist.destroy_process_group()
+            torch.cuda.empty_cache()
+    plain, mesh = runs["plain"], runs["mesh"]
+    scale = max(p.abs().max().item() for p in plain["params"].values())
+    worst, equal, total = 0.0, 0, 0
+    for n, p in plain["params"].items():
+        d = (mesh["params"][n].float() - p.float()).abs()
+        worst = max(worst, d.max().item())
+        equal, total = equal + int((d == 0).sum()), total + d.numel()
+    check(mesh["losses"] == plain["losses"], "parallel_single",
+          f"losses {mesh['losses']} != {plain['losses']}")
+    check(worst <= 1e-6 * scale, "parallel_single",
+          f"parameters: largest difference {worst} against 1e-6 of {scale}")
+    emit("parallel_single", ok=True, cell=PAR_CELL, steps=PAR_STEPS, backend="nccl",
+         world=1, losses=plain["losses"], bit_equal_share=equal / total,
+         max_abs_diff=worst, largest_param=scale,
+         step_s_plain=plain["step_s"], step_s_mesh=mesh["step_s"])
+
+
+TP_PX, TP_BATCH, TP_SEED = 384, 8, 0   # GPT-B c2i 384 px in fp32 (bf16 cache), tp 2
+# GPT-B at 4 of its 12 layers (widths, heads and launches a layer as at full
+# depth): a gloo all-reduce over CUDA tensors takes ~2 ms, and a rank runs two
+# a layer a step (12 layers: 37.8 s a call against 6.6 s at tp 1 on an H100)
+TP_LAYERS = 4
+TP_PROFILE_TOKENS = 64
+TP_MARGIN = 1e-4
+
+
+def _tp_inputs(device="cuda"):
+    """The tp_decode model and inputs: fp32 GPT-B c2i at 384 px (TP_LAYERS
+    layers), 8 labels, adapter features from a seed."""
+    from controlar_tpu_torch.config import gpt_config
+    from controlar_tpu_torch.models import gpt as tgpt
+
+    cfg = gpt_config("GPT-B", model_type="c2i", cls_token_num=1, n_layer=TP_LAYERS,
+                     block_size=(TP_PX // 16) ** 2, vocab_size=16384, num_classes=1000)
+    model = tgpt.init_gpt(cfg, seed=TP_SEED, dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device).manual_seed(TP_SEED + 1)
+    feats = torch.randn(TP_BATCH, cfg.block_size, cfg.adapter_dim, generator=gen,
+                        device=device) * 0.5
+    kw = dict(labels=np.arange(TP_BATCH) * 100, adapter_features=feats, cfg_scale=4.0,
+              sample_logits=False, device=device)
+    return cfg, model, kw
+
+
+def _device_ms(fn) -> float:
+    """Device time (ms) of the kernels fn launches, from a profiler window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
+def _tp_worker(rank: int, port: int, out_dir: str) -> None:
+    """One tp rank of tp_decode (a spawned process on the one card): gloo,
+    which takes CUDA tensors for all_reduce; the GPT split over tp 2."""
+    import torch.distributed as dist
+
+    from controlar_tpu_torch import generate as tgen
+    from controlar_tpu_torch.parallel.mesh import make_mesh
+    from controlar_tpu_torch.parallel.sharding import shard_gpt_tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    try:
+        cfg, model, kw = _tp_inputs()
+        rcfg = shard_gpt_tp(model, cfg, make_mesh(1, 1, 2))
+        wrappers = {k: v[0] for k, v in _kernels().items()}
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        toks = tgen.generate(model, rcfg, max_new_tokens=cfg.block_size, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+        dev_ms = _device_ms(lambda: tgen.generate(model, rcfg, max_new_tokens=TP_PROFILE_TOKENS,
+                                                  **kw))
+        torch.save({"tokens": toks.cpu(), "seconds": seconds, "launches": launches,
+                    "heads": rcfg.n_head, "profile_device_ms": dev_ms},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp_decode() -> collections.Counter:
+    """Tensor-parallel decode on the one card: two processes (gloo over
+    CUDA tensors: NCCL refuses two ranks on one GPU) each run the whole
+    greedy decode loop of fp32 GPT-B c2i 384 px at TP_LAYERS layers (bf16
+    cache, batch 8, CFG 4.0, adapter features) on its 6 heads and half the
+    FFN and control-MLP features, against the same model in this process
+    at tp 1: both ranks' tokens equal, and equal to the tp = 1 tokens
+    except where the tp = 1 logits' top two are within TP_MARGIN of the
+    largest; B1 (at H 6) and append_kv TP_LAYERS x 575 launches on each
+    rank. Seconds of a call on each side, and the device ms of a
+    TP_PROFILE_TOKENS-token call from a profiler window. Returns both
+    ranks' launches."""
+    from controlar_tpu_torch import generate as tgen
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = _free_port()
+    with tempfile.TemporaryDirectory(prefix="controlar_tp_") as tmp:
+        procs = [ctx.Process(target=_tp_worker, args=(r, port, tmp)) for r in range(2)]
+        for proc in procs:
+            proc.start()
+        deadline = time.perf_counter() + 300
+        for proc in procs:
+            proc.join(max(1.0, deadline - time.perf_counter()))
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        check(all(proc.exitcode == 0 for proc in procs), "tp_decode",
+              f"tp ranks exited {[proc.exitcode for proc in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    cfg, model, kw = _tp_inputs()
+    seen = []
+    real = tgen.sample_from
+    tgen.sample_from = lambda lg, *a, **k: seen.append(lg.clone()) or real(lg, *a, **k)
+    try:
+        t0 = time.perf_counter()
+        want = tgen.generate(model, cfg, max_new_tokens=cfg.block_size, **kw).cpu()
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+    finally:
+        tgen.sample_from = real
+    one_ms = _device_ms(lambda: tgen.generate(model, cfg, max_new_tokens=TP_PROFILE_TOKENS, **kw))
+    got = ranks[0]["tokens"]
+    check(torch.equal(got, ranks[1]["tokens"]), "tp_decode", "the two ranks' tokens differ")
+    parted = []
+    for b in range(TP_BATCH):
+        diff = torch.nonzero(got[b] != want[b])
+        if len(diff):
+            i = int(diff[0])
+            top2 = torch.topk(seen[i][b], 2).values
+            gap = (top2[0] - top2[1]).item() / seen[i].abs().max().item()
+            parted.append(dict(row=b, token=i, top2_gap=gap))
+            check(gap < TP_MARGIN, "tp_decode", f"row {b} parts at token {i} with a top-2 gap "
+                  f"of {gap} of the largest logit")
+    steps = cfg.block_size - 1
+    want_launches = {k: cfg.n_layer * steps for k in ("flash_decode_attention", "append_kv")}
+    for r in ranks:
+        check(r["heads"] == cfg.n_head // 2 and r["launches"] == want_launches, "tp_decode",
+              f"rank heads {r['heads']}, launches {r['launches']} != {want_launches}")
+    emit("tp_decode", ok=True, model="GPT-B", layers=cfg.n_layer, tp=2,
+         backend="gloo (CUDA tensors)",
+         heads_per_rank=ranks[0]["heads"], image_px=TP_PX, batch=TP_BATCH, tokens=cfg.block_size,
+         equal_rows=int(sum(torch.equal(got[b], want[b]) for b in range(TP_BATCH))),
+         parted=parted, tp1_seconds=one_s, rank_seconds=[r["seconds"] for r in ranks],
+         profile_tokens=TP_PROFILE_TOKENS, tp1_device_ms=one_ms,
+         rank_device_ms=[r["profile_device_ms"] for r in ranks],
+         launches_per_rank=ranks[0]["launches"])
+    return sum((collections.Counter(r["launches"]) for r in ranks), collections.Counter())
+
+
 CELL_RUNS = (("c2i", 1), ("c2i_depth", 1), ("t2i", 1), ("c2i_w8kv8", 1), ("c2i_3b_w4kv4", 1))
 # depth cuts that keep the smoke in its time (widths unchanged; every kernel
 # and launch count as at full depth, per layer): the t2i cell and the
@@ -4277,7 +4608,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     launches.update(phase_captions())
     torch.cuda.empty_cache()
-    launches.update(phase_extract_train())
+    with tempfile.TemporaryDirectory(prefix="controlar_car_") as car_dir:
+        car = Path(car_dir) / "train.car"
+        launches.update(phase_extract_train(keep_car=car))
+        torch.cuda.empty_cache()
+        launches.update(phase_cli(car))
     torch.cuda.empty_cache()
     launches.update(phase_train_vq())
     launches.update(phase_multiscale())
@@ -4288,6 +4623,9 @@ def main() -> int:
         fid_launches, samples = phase_eval_fid(Path(tmp))
         launches.update(fid_launches)
         phase_eval_models(Path(tmp), samples)
+    torch.cuda.empty_cache()
+    phase_parallel_single()
+    launches.update(phase_tp_decode())
     emit("total", seconds=time.perf_counter() - t_start)
     entries = []
     for name, (fn, source, replaces) in _kernels().items():

@@ -30,7 +30,9 @@ from controlar_tpu_torch.train.step import (
     _Loss,
     apply_step,
     drop_ids,
+    loss_weight,
     prefix_embedding,
+    step_key,
 )
 
 
@@ -93,9 +95,12 @@ def make_control_train_step(gpt_cfg: GPTConfig, adapter_cfg: vit_model.ViTConfig
                             condition_type: str = "canny",
                             frozen: Optional[Dict[str, Any]] = None,
                             ema_decay: Optional[float] = None,
-                            compute_dtype=torch.bfloat16, remat_policy: str = "full"):
+                            compute_dtype=torch.bfloat16, remat_policy: str = "full",
+                            layout=None):
     """-> train_step(model: ControlModel, state, batch, seed) -> (state,
-    metrics). The state's parameters are the ControlModel's.
+    metrics). The state's parameters are the ControlModel's, or with a
+    `parallel.sharding.ShardLayout` this rank's pieces of them (the model
+    split over tp as the layout says, gpt_cfg the rank's configuration).
 
     Batch: tokens (B, code_len) int; c2i labels (B,), t2i caption_emb (B,
     T_cls, caption_dim) and emb_mask (B, T_cls); control_image (B, H, W, 3)
@@ -123,9 +128,10 @@ def make_control_train_step(gpt_cfg: GPTConfig, adapter_cfg: vit_model.ViTConfig
 
     def train_step(model: ControlModel, state: TrainState, batch: Dict[str, torch.Tensor],
                    seed: int):
-        key = (seed, state.step)
+        key = step_key(seed, state.step, layout)
         wrapper = _Loss(model, lambda: loss_fn(model, batch, key))
-        return apply_step(wrapper, "model.", state, tx, compute_dtype, ema_decay)
+        return apply_step(wrapper, "model.", state, tx, compute_dtype, ema_decay, layout,
+                          loss_weight(batch))
 
     train_step.loss_fn = loss_fn  # loss_fn(model, batch, key): the step's loss
     return train_step

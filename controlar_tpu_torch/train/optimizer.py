@@ -104,16 +104,20 @@ class AdamW:
                          {n: zeros(p) for n, p in params.items()})
 
     @torch.no_grad()
-    def step(self, params: Tensors, grads: Tensors, state: AdamState):
+    def step(self, params: Tensors, grads: Tensors, state: AdamState,
+             norm: Optional[torch.Tensor] = None):
         """Clip, update the moments and the parameters; -> (new state, the
         gradients' global norm before clipping). grads holds a tensor for
         every parameter. The parameters, the gradients and (fp32) moments
         are updated in place. After the global norm, the update runs over
         groups of at most CHUNK_ELEMENTS elements, so its fp32 temporaries
         stay a bounded size whatever the model's (each value is the same as
-        in one pass: every operation is elementwise)."""
+        in one pass: every operation is elementwise). `norm`, when given, is
+        the global norm to clip by: a sharded model's (the pieces here are
+        this rank's, `parallel.sharding.ShardLayout.global_norm`)."""
         names = list(params)
-        norm = global_norm([grads[n].float() for n in names])
+        if norm is None:
+            norm = global_norm([grads[n].float() for n in names])
         # g * keep + (g / norm * max) * (1 - keep) with keep 0 or 1 selects
         # exactly, without a host sync on the norm; the unselected quotient
         # divides by one when the norm is below the limit (zero gradients, a

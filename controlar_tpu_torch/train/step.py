@@ -11,7 +11,10 @@ Randomness comes from integer keys: the step's key is (seed, step), its
 class dropout draws from (seed, step, 0) and the model's dropout from
 (seed, step, 1, ...) (`models/gpt.generator`), so a step is a function of
 the state, the batch and the seed, as `jax.random.fold_in(rng, step)` makes
-it in the JAX package (which draws other numbers).
+it in the JAX package (which draws other numbers). Over a mesh
+(`parallel.sharding.ShardLayout`) the state holds this rank's pieces, and a
+data-parallel replica's key is (seed, step, replica) when there are
+several: each replica draws its own rows' dropout.
 """
 from __future__ import annotations
 
@@ -64,9 +67,10 @@ def drop_ids(cfg: GPTConfig, b: int, key, device) -> torch.Tensor:
 def prefix_embedding(gpt: gpt_model.GPT, cfg: GPTConfig, batch: Dict[str, torch.Tensor],
                      dropped: torch.Tensor, compute_dtype) -> torch.Tensor:
     """The class (c2i) or caption (t2i) prefix, dropped rows replaced by the
-    null class or the unconditional caption."""
+    null class or the unconditional caption. Labels are (B,), or (B, 1) from
+    a .car file, which stores a sample's 0-d label as shape (1,)."""
     if cfg.model_type == "c2i":
-        labels = torch.where(dropped, cfg.num_classes, batch["labels"].long())
+        labels = torch.where(dropped, cfg.num_classes, batch["labels"].long().reshape(-1))
         return gpt_model.embed_prefix_c2i(gpt, labels)
     cap = batch["caption_emb"].to(compute_dtype)
     uncond = gpt.cls_embedding.uncond_embedding.to(compute_dtype)
@@ -120,20 +124,56 @@ def make_train_step(cfg: GPTConfig, tx: AdamW, ema_decay: Optional[float] = None
     return train_step
 
 
+def step_key(seed: int, step: int, layout=None) -> tuple:
+    """(seed, step), and the data-parallel replica when there are several."""
+    if layout is not None and layout.mesh.size("dp") > 1:
+        return (seed, step, layout.mesh.index("dp"))
+    return (seed, step)
+
+
+def loss_weight(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The weight of a batch in the mean loss: its `valid` sum, else its
+    rows (the loss is a mean over samples and tokens, every sample the same
+    tokens)."""
+    if "valid" in batch:
+        return batch["valid"].float().sum()
+    return torch.tensor(float(batch["tokens"].shape[0]))
+
+
 def apply_step(wrapper: nn.Module, prefix: str, state: TrainState, tx: AdamW,
-               compute_dtype, ema_decay: Optional[float]):
+               compute_dtype, ema_decay: Optional[float], layout=None,
+               weight: Optional[torch.Tensor] = None):
     """One optimizer step: the loss is wrapper() with the module holding the
     state's parameters (named with `prefix` in front) in the compute dtype;
     gradients of the trainable masters (zeros for the frozen ones), AdamW,
-    EMA. -> (new state, metrics {loss, grad_norm})."""
+    EMA. -> (new state, metrics {loss, grad_norm}).
+
+    With a `parallel.sharding.ShardLayout` the state holds this rank's
+    pieces: the compute copies are gathered whole, the gradients (scaled by
+    this rank's share of the batch's loss `weight`) summed over the
+    data-parallel ranks into the pieces, and clipped by the whole model's
+    norm; the loss is the mean over the whole batch."""
     params = state.params
     trainable = [n for n, p in params.items() if p.requires_grad]
-    bound = _cast_bf16(params) if compute_dtype == torch.bfloat16 else dict(params)
+    if layout is None:
+        bound = _cast_bf16(params) if compute_dtype == torch.bfloat16 else dict(params)
+        wrt = [params[n] for n in trainable]
+    else:
+        bound = layout.gather_params(params, compute_dtype)
+        wrt = [bound[n] for n in trainable]
     loss = torch.func.functional_call(wrapper, {prefix + n: t for n, t in bound.items()}, ())
-    grads = dict(zip(trainable, torch.autograd.grad(loss, [params[n] for n in trainable],
-                                                    allow_unused=True)))
+    grads = dict(zip(trainable, torch.autograd.grad(loss, wrt, allow_unused=True)))
+    if layout is not None:
+        share = layout.loss_share(weight.to(loss.device))
+        grads = layout.reduce_grads({n: g if g is not None else torch.zeros_like(bound[n])
+                                     for n, g in grads.items()}, share)
+        loss = layout.dp_sum(loss * share)
     grads = zero_frozen_grads(grads, params)
-    opt_state, grad_norm = tx.step(params, grads, state.opt_state)
+    if layout is None:
+        opt_state, grad_norm = tx.step(params, grads, state.opt_state)
+    else:  # AdamW: its moments are elementwise, so it updates the pieces as they are
+        opt_state, grad_norm = tx.step(params, grads, state.opt_state,
+                                       norm=layout.global_norm(grads))
     metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
     ema = state.ema_params
     if ema is not None and ema_decay is not None:

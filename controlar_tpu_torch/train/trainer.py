@@ -2,9 +2,15 @@
 JAX package's `train/trainer.py`).
 
 `Trainer(cfg, device="cuda").fit(loader, max_steps=N)` takes N AdamW steps of
-`train/control_step.make_control_train_step` on one card. Only the data
-axis of the JAX package's mesh exists here (one card): other mesh shapes
-raise until the port has its parallel layer.
+`train/control_step.make_control_train_step`. In one process it trains on
+one card. In a process group (`parallel.distributed.init`, e.g. under
+torchrun) it trains over the (data, fsdp, tp) mesh of cfg.data_axis,
+fsdp_axis and tp_axis, whose product must be the world size
+(`parallel.sharding`): each rank reads its share of the batch
+(`batch_split`, the loader's process_index / process_count), keeps its
+pieces of the masters and moments, and runs its tp heads; rank 0 alone logs
+and writes checkpoints, which always hold the whole state in one card's
+layout, so a checkpoint loads onto any mesh.
 """
 from __future__ import annotations
 
@@ -12,16 +18,25 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from controlar_tpu_torch import checkpoint as ckpt_lib
 from controlar_tpu_torch import resolve_device
 from controlar_tpu_torch.config import GPTConfig, gpt_config
 from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.models import vit as vit_model
+from controlar_tpu_torch.parallel import distributed
+from controlar_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+from controlar_tpu_torch.parallel.sharding import (
+    batch_split,
+    model_layout,
+    rank_config,
+    shard_training,
+)
 from controlar_tpu_torch.train.control_step import ControlModel, make_control_train_step
 from controlar_tpu_torch.train.optimizer import frozen_mask, make_optimizer, step_lr
 from controlar_tpu_torch.train.step import TrainState, init_train_state
@@ -58,7 +73,7 @@ class TrainerConfig:
     opt_state_dtype: str = "float32"
     ema_decay: float = 0.9999
     class_dropout_prob: float = 0.1
-    # mesh (one card: data -1 or 1 only)
+    # mesh over the process group: data -1 takes what fsdp x tp leave
     data_axis: int = -1
     fsdp_axis: int = 1
     tp_axis: int = 1
@@ -116,14 +131,21 @@ def next_experiment_dir(root: str, name: str) -> str:
 class Trainer:
     def __init__(self, cfg: TrainerConfig, frozen: Optional[Dict[str, Any]] = None,
                  device="cuda"):
-        if cfg.data_axis not in (-1, 1) or (cfg.fsdp_axis, cfg.tp_axis) != (1, 1):
-            raise NotImplementedError(
-                f"mesh data={cfg.data_axis} fsdp={cfg.fsdp_axis} tp={cfg.tp_axis}: one card "
-                "only (data -1 or 1, fsdp 1, tp 1) until the parallel layer is ported")
+        shape = mesh_shape(distributed.world_size(), cfg.data_axis, cfg.fsdp_axis, cfg.tp_axis)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.gpt_cfg = cfg.build_gpt_config()
         self.adapter_cfg = cfg.build_adapter_config()
+        self.main = distributed.is_main_process()
+        # in a process group the step runs over the mesh, a (1, 1, 1) one too
+        self.mesh = make_mesh(*shape) if dist.is_initialized() else None
+        self.layout = None
+        step_cfg = self.gpt_cfg
+        if self.mesh is not None:
+            with torch.device("meta"):
+                whole = ControlModel(gpt_model.GPT(self.gpt_cfg), vit_model.ViT(self.adapter_cfg))
+            self.layout = model_layout(self.mesh, whole, self.gpt_cfg)
+            step_cfg = rank_config(self.gpt_cfg, shape[2])
         schedule = None
         if cfg.lr_decay_every > 0 and cfg.lr_gamma != 1.0:
             schedule = step_lr(cfg.lr, cfg.lr_decay_every, cfg.lr_gamma)
@@ -131,18 +153,21 @@ class Trainer:
                                  beta2=cfg.beta2, max_grad_norm=cfg.max_grad_norm,
                                  lr_schedule=schedule, state_dtype=cfg.opt_state_dtype)
         self.step_fn = make_control_train_step(
-            self.gpt_cfg, self.adapter_cfg, self.tx, cfg.condition_type, frozen=frozen,
-            ema_decay=cfg.ema_decay if cfg.ema else None, remat_policy=cfg.remat_policy)
+            step_cfg, self.adapter_cfg, self.tx, cfg.condition_type, frozen=frozen,
+            ema_decay=cfg.ema_decay if cfg.ema else None, remat_policy=cfg.remat_policy,
+            layout=self.layout)
         self.model: Optional[ControlModel] = None
-        if cfg.auto_exp_dir:
+        if cfg.auto_exp_dir and self.main:
             cfg.results_dir = next_experiment_dir(cfg.results_dir,
                                                   cfg.gpt_model.replace("/", "-"))
-        os.makedirs(cfg.results_dir, exist_ok=True)
-        self._log_file = open(os.path.join(cfg.results_dir, "log.txt"), "a")
-        self._metrics_file = open(os.path.join(cfg.results_dir, "metrics.jsonl"), "a")
+        self._log_file = self._metrics_file = None
+        if self.main:
+            os.makedirs(cfg.results_dir, exist_ok=True)
+            self._log_file = open(os.path.join(cfg.results_dir, "log.txt"), "a")
+            self._metrics_file = open(os.path.join(cfg.results_dir, "metrics.jsonl"), "a")
         self.history = []  # the records of log_metrics
         self._wandb = None
-        if cfg.wandb_project:
+        if cfg.wandb_project and self.main:
             try:
                 import wandb
             except ImportError:
@@ -151,7 +176,14 @@ class Trainer:
                 self._wandb = wandb.init(project=cfg.wandb_project, name=cfg.wandb_run_name,
                                          config=dataclasses.asdict(cfg), resume="allow")
 
+    def batch_split(self) -> Tuple[int, int]:
+        """(process_index, process_count) of this rank's share of the
+        batch for `ShardedLoader`: (0, 1) in one process."""
+        return (0, 1) if self.mesh is None else batch_split(self.mesh)
+
     def log(self, msg: str) -> None:
+        if not self.main:
+            return
         print(msg, flush=True)
         self._log_file.write(msg + "\n")
         self._log_file.flush()
@@ -159,6 +191,8 @@ class Trainer:
     def log_metrics(self, step: int, record: Dict[str, Any]) -> None:
         """One JSON line per log window (and a wandb point when configured)."""
         self.history.append({"step": step, **record})
+        if not self.main:
+            return
         self._metrics_file.write(json.dumps({"step": step, **record}) + "\n")
         self._metrics_file.flush()
         if self._wandb is not None:
@@ -170,7 +204,10 @@ class Trainer:
         (`checkpoint.load_gpt_checkpoint`, cast to each parameter's dtype; the
         control modules a base checkpoint lacks stay the fresh ones), gradients on
         for every parameter but the frozen ones; the latest checkpoint of
-        cfg.resume_dir restored when there is one."""
+        cfg.resume_dir restored when there is one. Over a mesh every rank
+        builds the whole state so, then keeps its pieces (`ShardLayout`),
+        and the GPT is split over tp; the module's own tensors are released,
+        the step binding the gathered pieces."""
         cfg = self.cfg
         gpt = gpt_model.init_gpt(self.gpt_cfg, seed=cfg.seed, device=self.device)
         if cfg.gpt_ckpt:
@@ -192,7 +229,24 @@ class Trainer:
             if latest:
                 state = ckpt_lib.restore_train_state(latest, state)
                 self.log(f"resumed from {latest} at step {state.step}")
+        if self.layout is not None:
+            state = shard_training(self.layout, self.model, gpt, self.gpt_cfg, state)
         return state
+
+    def save_checkpoint(self, state: TrainState) -> Optional[str]:
+        """Write the whole state under results_dir/checkpoints (rank 0; over
+        a mesh every rank takes part in gathering it). -> the path on rank
+        0, else None."""
+        if self.layout is not None:
+            state = self.layout.full_state(state)
+        path = None
+        if self.main:
+            path = ckpt_lib.save_train_state(os.path.join(self.cfg.results_dir, "checkpoints"),
+                                             state)
+            self.log(f"saved {path}")
+        if self.mesh is not None:
+            dist.barrier()
+        return path
 
     def put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Host batch -> device tensors; on the card through pinned memory
@@ -231,7 +285,7 @@ class Trainer:
                                             "seconds": dt})
                     first_step_done = True
                     running, t0 = [], time.time()
-                if cfg.profile_dir:
+                if cfg.profile_dir and self.main:
                     if step == cfg.profile_start_step and profiler is None:
                         profiler = self._start_profile()
                     elif profiler is not None and step >= (cfg.profile_start_step
@@ -251,9 +305,7 @@ class Trainer:
                                             "steps": len(running), "seconds": dt})
                     running, t0 = [], time.time()
                 if step % cfg.ckpt_every == 0:
-                    path = ckpt_lib.save_train_state(
-                        os.path.join(cfg.results_dir, "checkpoints"), state)
-                    self.log(f"saved {path}")
+                    self.save_checkpoint(state)
                 if max_steps is not None and step >= max_steps:
                     if profiler is not None:
                         self._stop_profile(profiler)

@@ -128,7 +128,8 @@ def test_trainer_raises_without_a_card_unless_cpu_is_asked(tmp_path):
         Trainer(tcfg)
     state = Trainer(tcfg, device="cpu").init_state()
     assert state.step == 0 and all(p.device.type == "cpu" for p in state.params.values())
-    with pytest.raises(NotImplementedError, match="mesh"):  # one card until parallel/ is ported
+    # a mesh whose data x fsdp x tp is not the number of processes (one here)
+    with pytest.raises(ValueError, match="processes"):
         Trainer(TrainerConfig(**{**tcfg.__dict__, "fsdp_axis": 2}), device="cpu")
 
 
