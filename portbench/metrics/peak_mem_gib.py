@@ -1,0 +1,6 @@
+"""peak_mem_gib: torch.cuda.max_memory_allocated over set-up and window, in
+GiB; nothing on the CPU."""
+
+
+def read(ctx):
+    return ctx.peak_bytes / 2 ** 30 if ctx.peak_bytes else None
