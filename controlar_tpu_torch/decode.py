@@ -89,6 +89,7 @@ from controlar_tpu_torch.quant import (
     W4Linear,
     is_split,
 )
+from controlar_tpu_torch.spans import span
 
 Caches = Union[List[Cache], Cache]  # per-layer caches, or one stacked cache
 Rope = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
@@ -338,7 +339,12 @@ def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
     pos[b] and that in-flight row: through the stacked kernels, or over a
     copy of the layer with the row written. After the last layer one
     `append_stacked` stores every layer's rows of every stream (the rows,
-    and a quantized cache's scales) at pos[b]."""
+    and a quantized cache's scales) at pos[b].
+
+    Each layer's control add, attention (its norm through `wo` and the
+    residual, `append_kv` and the attention kernel included) and FFN (its
+    norm through the residual) are the profiler spans `decode.fuse`,
+    `decode.attn` and `decode.ffn` (`spans.span`)."""
     b, t = h.shape[:2]
     dev = h.device
     kvd = cfg.kv_heads * cfg.head_dim
@@ -368,29 +374,34 @@ def _decode_layers(model: GPT, cfg: GPTConfig, caches: Caches, h: torch.Tensor,
 
     for l, lp in enumerate(model.layers):
         if control is not None and gate[l] > 0:
-            h = h + _fuse(control(fidx[l]), control_strength, h.dtype)
-        x = rms_norm(h, lp.attention_norm, cfg.norm_eps)
-        q, k, v = _qkv_for(lp, cfg, x, rope)  # (B, T, H, D), (B, T, KV, D)
-        kr, vr = k.reshape(b, t, kvd), v.reshape(b, t, kvd)
-        if stacked:  # layer l's in-flight rows, written as a (B, 1, W) cache at row 0
-            append_kv(inflight_layer(inflight, l), kr, vr, 0, kv_heads=cfg.kv_heads,
-                      split=split)
-            rows = [x[l] for x in stream_list(inflight)]
-            cache = None if use_flash else _layer_with_rows(caches, l, rows, pos)
-        else:
-            cache = caches[l]
-            append_kv(cache, kr, vr, pos, kv_heads=cfg.kv_heads, split=split)
-        if use_flash and stacked:
-            attn = _flash_stacked_attn(q, caches, rows, l, pos, col_bias, cfg, split).to(h.dtype)
-        elif use_flash:
-            attn = _flash_attn(q, cache, pos, col_bias, cfg, split, chunk).to(h.dtype)
-        else:
-            slab = _dequant_slab(cache, cfg, h.dtype, split) if isinstance(cache, dict) else cache
-            kl = slab[:, :, :kvd].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
-            vl = slab[:, :, kvd:].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
-            attn = attend_masked(q, kl, vl, mask)
-        h = h + lp.wo(attn)
-        h = h + ffn(lp, rms_norm(h, lp.ffn_norm, cfg.norm_eps))
+            with span("decode.fuse"):
+                h = h + _fuse(control(fidx[l]), control_strength, h.dtype)
+        with span("decode.attn"):
+            x = rms_norm(h, lp.attention_norm, cfg.norm_eps)
+            q, k, v = _qkv_for(lp, cfg, x, rope)  # (B, T, H, D), (B, T, KV, D)
+            kr, vr = k.reshape(b, t, kvd), v.reshape(b, t, kvd)
+            if stacked:  # layer l's in-flight rows, written as a (B, 1, W) cache at row 0
+                append_kv(inflight_layer(inflight, l), kr, vr, 0, kv_heads=cfg.kv_heads,
+                          split=split)
+                rows = [x[l] for x in stream_list(inflight)]
+                cache = None if use_flash else _layer_with_rows(caches, l, rows, pos)
+            else:
+                cache = caches[l]
+                append_kv(cache, kr, vr, pos, kv_heads=cfg.kv_heads, split=split)
+            if use_flash and stacked:
+                attn = _flash_stacked_attn(q, caches, rows, l, pos, col_bias, cfg,
+                                           split).to(h.dtype)
+            elif use_flash:
+                attn = _flash_attn(q, cache, pos, col_bias, cfg, split, chunk).to(h.dtype)
+            else:
+                slab = (_dequant_slab(cache, cfg, h.dtype, split) if isinstance(cache, dict)
+                        else cache)
+                kl = slab[:, :, :kvd].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
+                vl = slab[:, :, kvd:].reshape(b, s_max, cfg.kv_heads, cfg.head_dim)
+                attn = attend_masked(q, kl, vl, mask)
+            h = h + lp.wo(attn)
+        with span("decode.ffn"):
+            h = h + ffn(lp, rms_norm(h, lp.ffn_norm, cfg.norm_eps))
     if stacked:
         append_stacked(caches, inflight, pos)
     return h
@@ -419,7 +430,9 @@ def decode_step_flat(
     control = None if fused3 is None else (lambda i: fused3[i][:, f:f + 1])
     h = _decode_layers(model, cfg, caches, model.tok_embeddings(token)[:, None, :], pos, rope,
                        control, col_mask_full, control_strength, use_flash)
-    return _logits(model, cfg, h[:, -1]), caches
+    with span("decode.logits"):
+        logits = _logits(model, cfg, h[:, -1])
+    return logits, caches
 
 
 def _rope_at(rope: Rope, pos: torch.Tensor) -> Rope:

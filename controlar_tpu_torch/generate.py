@@ -16,6 +16,7 @@ from controlar_tpu_torch import check_on, resolve_device
 from controlar_tpu_torch.config import GPTConfig, find_multiple
 from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.ops.sampling import sample_from
+from controlar_tpu_torch.spans import span
 
 
 def cfg_mix(logits: torch.Tensor, use_cfg: bool, scale: float) -> torch.Tensor:
@@ -59,7 +60,9 @@ def generate_tokens(
     `decode.init_flat_caches`); kv_stacked=True selects the stacked cache
     (`decode.init_stacked_caches`), whose decode step writes every layer's
     new row once at its end. `on_step(i)`, when given, is called after
-    decode step i (i = 0 is the first step after the prefill).
+    decode step i (i = 0 is the first step after the prefill), outside the
+    step's profiler span `decode.step` (`spans.span`; each CFG mix and
+    sample is `decode.sample`).
     Returns (B, max_new_tokens) int64 tokens of the conditional half.
     """
     bc, t_cls, _ = prefix_emb.shape
@@ -84,13 +87,15 @@ def generate_tokens(
 
     tokens = [cur]
     for i in range(max_new_tokens - 1):
-        cur_c = torch.cat([cur, cur]) if use_cfg else cur
-        logits, caches = decode_engine.decode_step_flat(
-            model, cfg, caches, cur_c, t_cls + i, fused3, col_mask_full,
-            control_strength, use_flash=use_flash, rope_table=rope)
-        scale = 1.0 if -1 < cfg_interval < i else cfg_scale
-        cur = sample(cfg_mix(logits, use_cfg, scale))
-        tokens.append(cur)
+        with span("decode.step"):
+            cur_c = torch.cat([cur, cur]) if use_cfg else cur
+            logits, caches = decode_engine.decode_step_flat(
+                model, cfg, caches, cur_c, t_cls + i, fused3, col_mask_full,
+                control_strength, use_flash=use_flash, rope_table=rope)
+            scale = 1.0 if -1 < cfg_interval < i else cfg_scale
+            with span("decode.sample"):
+                cur = sample(cfg_mix(logits, use_cfg, scale))
+            tokens.append(cur)
         if on_step is not None:
             on_step(i)
     return torch.stack(tokens, dim=1)

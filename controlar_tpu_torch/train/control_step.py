@@ -10,7 +10,10 @@ fusion -> CE loss.
 - the t2i caption mask is the compact per-key column mask `t2i_key_valid`
   (the flash kernels' form); `build_t2i_attn_mask` is its materialised form
   for the einsum path;
-- caption and condition CFG dropout share drop_ids.
+- caption and condition CFG dropout share drop_ids;
+- the condition map and the adapter (with `control_tokens`) are the
+  profiler spans `train.condition` and `train.adapter` (`spans.span`),
+  inside `apply_step`'s `train.forward`.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from controlar_tpu_torch.models import control_nets
 from controlar_tpu_torch.models import gpt as gpt_model
 from controlar_tpu_torch.models import vit as vit_model
 from controlar_tpu_torch.ops.resize import to_patch14
+from controlar_tpu_torch.spans import span
 from controlar_tpu_torch.train.optimizer import AdamW
 from controlar_tpu_torch.train.step import (
     TrainState,
@@ -111,11 +115,13 @@ def make_control_train_step(gpt_cfg: GPTConfig, adapter_cfg: vit_model.ViTConfig
         gpt, adapter = model.gpt, model.adapter
         tokens = batch["tokens"].long()
         dropped = drop_ids(gpt_cfg, tokens.shape[0], (*key, 0), tokens.device)
-        cond_img = extract_condition_on_device(batch, condition_type, frozen)
-        feats = vit_model.vit_forward(adapter, adapter_cfg,
-                                      to_patch14(cond_img, condition_type).to(compute_dtype),
-                                      remat=adapter_remat)
-        cond_tokens = gpt_model.control_tokens(gpt, gpt_cfg, feats, dropped)
+        with span("train.condition"):
+            cond_img = extract_condition_on_device(batch, condition_type, frozen)
+        with span("train.adapter"):
+            feats = vit_model.vit_forward(adapter, adapter_cfg,
+                                          to_patch14(cond_img, condition_type).to(compute_dtype),
+                                          remat=adapter_remat)
+            cond_tokens = gpt_model.control_tokens(gpt, gpt_cfg, feats, dropped)
         prefix = prefix_embedding(gpt, gpt_cfg, batch, dropped, compute_dtype)
         key_valid = None
         if gpt_cfg.model_type == "t2i":

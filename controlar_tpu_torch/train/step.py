@@ -26,6 +26,7 @@ from torch import nn
 
 from controlar_tpu_torch.config import GPTConfig
 from controlar_tpu_torch.models import gpt as gpt_model
+from controlar_tpu_torch.spans import span
 from controlar_tpu_torch.train.optimizer import (
     AdamState,
     AdamW,
@@ -152,30 +153,37 @@ def apply_step(wrapper: nn.Module, prefix: str, state: TrainState, tx: AdamW,
     pieces: the compute copies are gathered whole, the gradients (scaled by
     this rank's share of the batch's loss `weight`) summed over the
     data-parallel ranks into the pieces, and clipped by the whole model's
-    norm; the loss is the mean over the whole batch."""
+    norm; the loss is the mean over the whole batch.
+
+    The phases are the profiler spans `train.forward` (the compute copies
+    through the loss), `train.backward` (the gradients, remat's recompute
+    and the reduction over the mesh) and `train.update` (`spans.span`)."""
     params = state.params
     trainable = [n for n, p in params.items() if p.requires_grad]
-    if layout is None:
-        bound = _cast_bf16(params) if compute_dtype == torch.bfloat16 else dict(params)
-        wrt = [params[n] for n in trainable]
-    else:
-        bound = layout.gather_params(params, compute_dtype)
-        wrt = [bound[n] for n in trainable]
-    loss = torch.func.functional_call(wrapper, {prefix + n: t for n, t in bound.items()}, ())
-    grads = dict(zip(trainable, torch.autograd.grad(loss, wrt, allow_unused=True)))
-    if layout is not None:
-        share = layout.loss_share(weight.to(loss.device))
-        grads = layout.reduce_grads({n: g if g is not None else torch.zeros_like(bound[n])
-                                     for n, g in grads.items()}, share)
-        loss = layout.dp_sum(loss * share)
-    grads = zero_frozen_grads(grads, params)
-    if layout is None:
-        opt_state, grad_norm = tx.step(params, grads, state.opt_state)
-    else:  # AdamW: its moments are elementwise, so it updates the pieces as they are
-        opt_state, grad_norm = tx.step(params, grads, state.opt_state,
-                                       norm=layout.global_norm(grads))
+    with span("train.forward"):
+        if layout is None:
+            bound = _cast_bf16(params) if compute_dtype == torch.bfloat16 else dict(params)
+            wrt = [params[n] for n in trainable]
+        else:
+            bound = layout.gather_params(params, compute_dtype)
+            wrt = [bound[n] for n in trainable]
+        loss = torch.func.functional_call(wrapper, {prefix + n: t for n, t in bound.items()}, ())
+    with span("train.backward"):
+        grads = dict(zip(trainable, torch.autograd.grad(loss, wrt, allow_unused=True)))
+        if layout is not None:
+            share = layout.loss_share(weight.to(loss.device))
+            grads = layout.reduce_grads({n: g if g is not None else torch.zeros_like(bound[n])
+                                         for n, g in grads.items()}, share)
+            loss = layout.dp_sum(loss * share)
+    with span("train.update"):
+        grads = zero_frozen_grads(grads, params)
+        if layout is None:
+            opt_state, grad_norm = tx.step(params, grads, state.opt_state)
+        else:  # AdamW: its moments are elementwise, so it updates the pieces as they are
+            opt_state, grad_norm = tx.step(params, grads, state.opt_state,
+                                           norm=layout.global_norm(grads))
+        ema = state.ema_params
+        if ema is not None and ema_decay is not None:
+            ema = update_ema(ema, params, ema_decay)
     metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
-    ema = state.ema_params
-    if ema is not None and ema_decay is not None:
-        ema = update_ema(ema, params, ema_decay)
     return TrainState(state.step + 1, params, opt_state, ema), metrics

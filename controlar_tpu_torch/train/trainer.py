@@ -37,6 +37,7 @@ from controlar_tpu_torch.parallel.sharding import (
     rank_config,
     shard_training,
 )
+from controlar_tpu_torch.spans import span
 from controlar_tpu_torch.train.control_step import ControlModel, make_control_train_step
 from controlar_tpu_torch.train.optimizer import frozen_mask, make_optimizer, step_lr
 from controlar_tpu_torch.train.step import TrainState, init_train_state
@@ -250,24 +251,33 @@ class Trainer:
 
     def put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Host batch -> device tensors; on the card through pinned memory
-        with non_blocking copies, so the host does not wait for the device."""
+        with non_blocking copies, so the host does not wait for the device.
+        The profiler span `train.data`."""
         cuda = self.device.type == "cuda"
 
         def put(v):
             t = torch.as_tensor(np.asarray(v))
             return t.pin_memory().to(self.device, non_blocking=True) if cuda else t
 
-        return {k: put(v) for k, v in batch.items() if not isinstance(v, list)}
+        with span("train.data"):
+            return {k: put(v) for k, v in batch.items() if not isinstance(v, list)}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def fit(self, loader, state: Optional[TrainState] = None,
             max_steps: Optional[int] = None) -> TrainState:
         """Train over cfg.epochs epochs of the loader (or max_steps steps).
         The first step is kept out of the throughput window; every log_every
-        steps the window's mean loss, steps/s and images/s are logged."""
+        steps the window's mean loss, steps/s and images/s are logged, the
+        window timed on the host clock between two synchronisations of the
+        device (taken only when a line is logged), so it counts finished
+        steps."""
         cfg = self.cfg
         state = state if state is not None else self.init_state()
         seed = cfg.seed + 1234
-        t0 = time.time()
+        t0 = time.perf_counter()
         running = []
         first_step_done = False
         profiler = None
@@ -278,13 +288,14 @@ class Trainer:
                 running.append(metrics)
                 step = state.step
                 if not first_step_done:
-                    loss = metrics["loss"].item()  # waits for the step
-                    dt = time.time() - t0
+                    self._sync()
+                    loss = metrics["loss"].item()
+                    dt = time.perf_counter() - t0
                     self.log(f"first step took {dt:.1f}s, loss={loss:.4f}")
                     self.log_metrics(step, {"epoch": epoch, "loss": loss, "first_step": True,
                                             "seconds": dt})
                     first_step_done = True
-                    running, t0 = [], time.time()
+                    running, t0 = [], time.perf_counter()
                 if cfg.profile_dir and self.main:
                     if step == cfg.profile_start_step and profiler is None:
                         profiler = self._start_profile()
@@ -293,8 +304,9 @@ class Trainer:
                         self._stop_profile(profiler)
                         profiler = None
                 if step % cfg.log_every == 0 and running:
+                    self._sync()
+                    dt = time.perf_counter() - t0
                     loss = float(np.mean([float(m["loss"]) for m in running]))
-                    dt = time.time() - t0
                     sps = len(running) / dt
                     ips = sps * cfg.global_batch_size
                     self.log(f"step={step:07d} epoch={epoch} loss={loss:.4f} "
@@ -303,7 +315,7 @@ class Trainer:
                                             "steps_per_sec": round(sps, 4),
                                             "imgs_per_sec_chip": round(ips, 4),
                                             "steps": len(running), "seconds": dt})
-                    running, t0 = [], time.time()
+                    running, t0 = [], time.perf_counter()
                 if step % cfg.ckpt_every == 0:
                     self.save_checkpoint(state)
                 if max_steps is not None and step >= max_steps:
